@@ -1,0 +1,5 @@
+"""The op surface (`ops`), its policy object and its kernel registry."""
+from . import ops  # noqa: F401
+from .policy import (ExecutionPolicy, current_policy, default_policy,  # noqa: F401
+                     policy)
+from .registry import register, registry  # noqa: F401

@@ -1,0 +1,95 @@
+"""The public op surface: one call, one policy object.
+
+Every op resolves the active ExecutionPolicy (innermost `policy` context,
+overridden by per-call keywords), maps the call to a registry impl key and
+dispatches.
+
+    from repro_torch import api
+    out = api.ops.attention(q, k, v, offset=pos)          # default policy
+    with api.policy(backend="ref"):
+        out = api.ops.attention(q, k, v, offset=pos)      # plain reference
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .policy import ExecutionPolicy, current_policy
+from .registry import registry
+
+__all__ = ["attention", "attention_route", "DECODE_MAX_LQ"]
+
+# Longest query the flash-decode kernel takes on the scalar-offset
+# cache-shaped route; per-row-offset multi-token chunks go to the varlen
+# prefill kernel instead (see attention_route).
+DECODE_MAX_LQ = 8
+
+
+def _resolve(policy: Optional[ExecutionPolicy],
+             **overrides) -> ExecutionPolicy:
+    base = policy if policy is not None else current_policy()
+    return base.override(**overrides)
+
+
+def attention_route(*, lq: int, lk: Optional[int] = None, causal: bool = True,
+                    offset_ndim: int = 0, quantized: bool = False,
+                    backend: Optional[str] = None,
+                    policy: Optional[ExecutionPolicy] = None) -> str:
+    """Which attention impl a call with this shape dispatches to.
+
+    This IS the rule `attention` uses. Under a kernel backend, causal
+    attention over a cache routes to the serving kernels: multi-token
+    (Lq > 1) per-row-offset chunks (the engine's chunked admission prefill)
+    to "cuda-prefill", short queries (Lq <= DECODE_MAX_LQ, the decode step)
+    to "cuda-decode". Cache-shaped means lk > lq or a per-row offset vector;
+    plain short self-attention (lk == lq, scalar offset) stays on "ref".
+    Everything else goes to "ref" as well — including the 128-aligned
+    full-sequence shapes the reference sends to its full-sequence flash
+    kernel, which is not ported yet (ROADMAP B8). `quantized` is accepted
+    for that route's rule and changes nothing until it exists.
+    """
+    pol = _resolve(policy, backend=backend)
+    if pol.use_kernels():
+        cache_shaped = offset_ndim == 1 or (lk is not None and lk > lq)
+        if causal and cache_shaped:
+            if offset_ndim == 1 and lq > 1:
+                return "cuda-prefill"
+            if lq <= DECODE_MAX_LQ:
+                return "cuda-decode"
+    return "ref"
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None, scale: Optional[float] = None,
+              offset=0, lengths: Optional[torch.Tensor] = None,
+              k_scale: Optional[torch.Tensor] = None,
+              v_scale: Optional[torch.Tensor] = None,
+              bkv: Optional[int] = None, bq: Optional[int] = None,
+              backend: Optional[str] = None,
+              block_tables: Optional[torch.Tensor] = None,
+              policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """GQA attention. q: (B,Hq,Lq,D); k,v: (B,Hkv,Lk,D).
+
+    offset: scalar or per-row (B,) cache position. lengths: per-row (B,)
+    valid query count of a right-padded chunk (None = all valid); the varlen
+    prefill kernel returns exact zeros past it. k_scale/v_scale: when given,
+    k/v are int8 codes with per-position pow2 scales (B,Hkv,Lk,1) f32 —
+    dequantized inside the kernels, or at dispatch on the ref route.
+    block_tables (paged caches) is not ported yet and raises.
+    """
+    if block_tables is not None:
+        raise NotImplementedError(
+            "paged attention (block_tables) is not ported yet: ROADMAP B6/B7")
+    pol = _resolve(policy, backend=backend, bkv=bkv, bq=bq)
+    if pol.backend == "cuda" and q.device.type != "cuda":
+        raise ValueError(f"backend='cuda' needs CUDA tensors, got {q.device}")
+    offset_ndim = offset.dim() if isinstance(offset, torch.Tensor) else 0
+    impl = attention_route(lq=q.shape[2], lk=k.shape[2], causal=causal,
+                           offset_ndim=offset_ndim,
+                           quantized=k_scale is not None, policy=pol)
+    fn = registry.lookup("attention", impl)
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+              scale=scale, offset=offset, lengths=lengths, k_scale=k_scale,
+              v_scale=v_scale, policy=pol)

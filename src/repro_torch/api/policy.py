@@ -1,0 +1,87 @@
+"""ExecutionPolicy: the one object that says how every op runs.
+
+The backend plane picks between the hand-written CUDA kernels and the plain
+PyTorch reference; the tiling plane carries the kernels' block lengths.
+Policies are frozen, so one engine pins one policy for its whole life.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Iterator, Optional
+
+__all__ = ["ExecutionPolicy", "policy", "current_policy", "default_policy"]
+
+_BACKENDS = ("auto", "cuda", "ref")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPolicy:
+    """How ops dispatched through repro_torch.api execute.
+
+    backend: "auto" routes to the kernels; each kernel wrapper launches its
+             CUDA kernel on CUDA tensors and runs its plain PyTorch version
+             on CPU tensors. "cuda" routes to the kernels and refuses CPU
+             tensors. "ref" runs the plain eager reference (`mha_ref`) on
+             whatever device the tensors are on.
+    bkv:     length of the KV blocks the flash-decode kernel deals to its
+             warps in turn (a multiple of 32).
+    bq:      q-block length of the varlen flash-prefill kernel.
+    """
+    backend: str = "auto"
+    bkv: int = 128
+    bq: int = 32
+
+    def __post_init__(self):
+        if self.backend not in _BACKENDS:
+            raise ValueError(f"backend {self.backend!r} not in {_BACKENDS}")
+        if self.bkv < 1 or self.bq < 1:
+            raise ValueError(f"tile lengths must be >= 1 (bkv={self.bkv}, "
+                             f"bq={self.bq})")
+
+    def use_kernels(self) -> bool:
+        """True when shape-eligible calls route to the kernel impls."""
+        return self.backend != "ref"
+
+    def override(self, **overrides) -> "ExecutionPolicy":
+        """A copy with the non-None overrides applied (per-call kwargs)."""
+        effective = {k: v for k, v in overrides.items() if v is not None}
+        return dataclasses.replace(self, **effective) if effective else self
+
+
+default_policy = ExecutionPolicy()
+
+_state = threading.local()
+
+
+def _stack():
+    if not hasattr(_state, "stack"):
+        _state.stack = []
+    return _state.stack
+
+
+def current_policy() -> ExecutionPolicy:
+    """The innermost installed policy (the default one outside any context)."""
+    stack = _stack()
+    return stack[-1] if stack else default_policy
+
+
+@contextlib.contextmanager
+def policy(base: Optional[ExecutionPolicy] = None,
+           **overrides) -> Iterator[ExecutionPolicy]:
+    """Install an ExecutionPolicy for every op inside the block.
+
+        with repro_torch.api.policy(backend="ref"):
+            out = repro_torch.api.ops.attention(q, k, v)
+
+    Nests: unspecified fields inherit from the innermost enclosing policy.
+    """
+    installed = (base if base is not None else current_policy()).override(
+        **overrides)
+    stack = _stack()
+    stack.append(installed)
+    try:
+        yield installed
+    finally:
+        stack.pop()

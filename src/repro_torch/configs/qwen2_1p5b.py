@@ -1,0 +1,13 @@
+"""qwen2-1.5b [dense]: 28L d_model=1536 12H (GQA kv=2) d_ff=8960
+vocab=151936. QKV bias (the arch's signature). [arXiv:2407.10671; hf]"""
+from ..models.transformer import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-1.5b", family="dense", n_layers=28, d_model=1536, n_heads=12,
+    n_kv_heads=2, d_ff=8960, vocab=151936, qkv_bias=True,
+    tie_embeddings=True, rope_theta=1_000_000.0)
+
+SMOKE = ModelConfig(
+    name="qwen2-1.5b-smoke", family="dense", n_layers=2, d_model=64,
+    n_heads=4, n_kv_heads=2, d_ff=128, vocab=512, qkv_bias=True,
+    tie_embeddings=True)

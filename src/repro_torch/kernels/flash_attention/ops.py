@@ -1,0 +1,84 @@
+"""Attention: registry implementations.
+
+"cuda-prefill" is the varlen flash-prefill kernel (multi-token right-padded
+chunks over a cache at per-row positions); "cuda-decode" is the
+flash-decode kernel (short Lq over a long per-row cache); "ref" is the
+plain eager reference. `repro_torch.api.ops.attention` owns the dispatch
+(see `attention_route`).
+
+Every impl accepts optional `k_scale`/`v_scale`: when given, k/v are int8
+codes with per-position pow2 scales (the QuantKVCache layout) and the impl
+dequantizes — inside the kernels, up front on the ref route. Every impl
+also accepts `lengths`: the varlen prefill kernel zeroes rows past it; the
+others ignore it (their outputs at invalid positions are never consumed).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ...api.policy import ExecutionPolicy
+from ...api.registry import register
+from .decode import flash_decode, flash_decode_quant
+from .prefill import flash_prefill, flash_prefill_quant
+from .ref import mha_ref
+from .shared import dequant
+
+__all__ = []
+
+
+def _maybe_dequant(q, k, v, k_scale, v_scale):
+    if k_scale is None:
+        return k, v
+    return dequant(k, k_scale, q.dtype), dequant(v, v_scale, q.dtype)
+
+
+@register("attention", "cuda-prefill")
+def _attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: Optional[int] = None,
+                       softcap: Optional[float] = None,
+                       scale: Optional[float] = None, offset=0,
+                       lengths: Optional[torch.Tensor] = None,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None,
+                       policy: ExecutionPolicy) -> torch.Tensor:
+    assert causal, "the varlen prefill kernel is causal by construction"
+    if k_scale is not None:
+        return flash_prefill_quant(q, k, k_scale, v, v_scale, pos=offset,
+                                   lengths=lengths, window=window,
+                                   softcap=softcap, scale=scale, bq=policy.bq)
+    return flash_prefill(q, k, v, pos=offset, lengths=lengths, window=window,
+                         softcap=softcap, scale=scale, bq=policy.bq)
+
+
+@register("attention", "cuda-decode")
+def _attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      scale: Optional[float] = None, offset=0,
+                      lengths: Optional[torch.Tensor] = None,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None,
+                      policy: ExecutionPolicy) -> torch.Tensor:
+    assert causal, "the decode kernel is causal by construction"
+    if k_scale is not None:
+        return flash_decode_quant(q, k, k_scale, v, v_scale, pos=offset,
+                                  window=window, softcap=softcap, scale=scale,
+                                  bkv=policy.bkv)
+    return flash_decode(q, k, v, pos=offset, window=window, softcap=softcap,
+                        scale=scale, bkv=policy.bkv)
+
+
+@register("attention", "ref")
+def _attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: Optional[int] = None,
+                   softcap: Optional[float] = None,
+                   scale: Optional[float] = None, offset=0,
+                   lengths: Optional[torch.Tensor] = None,
+                   k_scale: Optional[torch.Tensor] = None,
+                   v_scale: Optional[torch.Tensor] = None,
+                   policy: ExecutionPolicy) -> torch.Tensor:
+    k, v = _maybe_dequant(q, k, v, k_scale, v_scale)
+    return mha_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                   scale=scale, offset=offset)

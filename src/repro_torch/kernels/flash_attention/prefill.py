@@ -1,0 +1,113 @@
+"""Varlen flash-prefill: batched variable-length prompt-chunk attention over
+a cache-shaped K/V.
+
+Admission feeds each admitted slot a fixed-width chunk of prompt tokens
+(right-padded) whose queries sit at that row's own cache position.
+`flash_prefill` / `flash_prefill_quant` launch the CUDA kernel in
+`csrc/flash_prefill.cu` on CUDA tensors: blocks over (row x kv-head,
+q-block of bq queries, 32 of the q-block's packed GQA rows); q-blocks past
+a row's valid length write zeros and exit, live q-blocks walk keys only up
+to their causal frontier (and from their window's lower bound). Invalid
+(pad) query rows return EXACT zeros. The int8-KV variant dequantizes inside
+the kernel, bit-identical to dequantize-then-dense-kernel.
+
+On CPU tensors each wrapper runs its plain PyTorch version
+(`flash_prefill_plain`, `flash_prefill_quant_plain`). Each wrapper counts
+its kernel launches in `.launches`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .ref import mha_ref
+from .shared import as_row_vector, call_kernel, dequant, launch_args
+
+__all__ = ["flash_prefill", "flash_prefill_quant", "flash_prefill_plain",
+           "flash_prefill_quant_plain"]
+
+
+def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        pos, lengths=None, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version: masked dense attention at per-row offsets, with the
+    query rows at or past lengths[b] set to exact zeros."""
+    b, _, lq, _ = q.shape
+    pos = as_row_vector(pos, b, q.device)
+    lens = as_row_vector(lengths, b, q.device, fill=lq)
+    out = mha_ref(q, k, v, causal=True, window=window, softcap=softcap,
+                  scale=scale, offset=pos)
+    valid = torch.arange(lq, device=q.device)[None, :] < lens[:, None]
+    return torch.where(valid[:, None, :, None], out, torch.zeros_like(out))
+
+
+def flash_prefill_quant_plain(q: torch.Tensor, k_codes: torch.Tensor,
+                              k_scale: torch.Tensor, v_codes: torch.Tensor,
+                              v_scale: torch.Tensor, *, pos, lengths=None,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the int8-KV variant: dequantize, then attend."""
+    return flash_prefill_plain(q, dequant(k_codes, k_scale, q.dtype),
+                               dequant(v_codes, v_scale, q.dtype), pos=pos,
+                               lengths=lengths, window=window,
+                               softcap=softcap, scale=scale)
+
+
+def _launch(wrapper, q, k, v, k_scale, v_scale, pos, lengths, window,
+            softcap, scale, bq) -> torch.Tensor:
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    args = launch_args(q, k, v, k_scale, v_scale, window, softcap)
+    bq = max(1, min(bq, lq))
+    pos = as_row_vector(pos, b, q.device).contiguous()
+    lens = as_row_vector(lengths, b, q.device, fill=lq).contiguous()
+    out = torch.empty((b, hq, lq, d), dtype=torch.float32, device=q.device)
+    call_kernel("flash_prefill", *args, pos.data_ptr(), lens.data_ptr(),
+                out.data_ptr(), b, hkv, hq // hkv, lq, bq, d, lk,
+                window or 0, d ** -0.5 if scale is None else scale,
+                softcap or 0.0)
+    wrapper.launches += 1
+    return out
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, pos,
+                  lengths=None, window: Optional[int] = None,
+                  softcap: Optional[float] = None,
+                  scale: Optional[float] = None,
+                  bq: int = 32) -> torch.Tensor:
+    """q: (B, Hq, Lq, D) f32 right-padded prompt chunk; k, v: (B, Hkv, Lk,
+    D) cache (bf16 or f32) already holding the chunk's keys at
+    pos[b]..pos[b]+lengths[b]-1. pos: per-row (B,) cache position (or a
+    scalar). lengths: per-row (B,) valid query count (None = all Lq valid);
+    queries at i >= lengths[b] return zeros."""
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, pos=pos, lengths=lengths,
+                                   window=window, softcap=softcap,
+                                   scale=scale)
+    return _launch(flash_prefill, q, k, v, None, None, pos, lengths, window,
+                   softcap, scale, bq)
+
+
+def flash_prefill_quant(q: torch.Tensor, k_codes: torch.Tensor,
+                        k_scale: torch.Tensor, v_codes: torch.Tensor,
+                        v_scale: torch.Tensor, *, pos, lengths=None,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None,
+                        bq: int = 32) -> torch.Tensor:
+    """Fused int8-KV prefill: codes (B, Hkv, Lk, D) int8 + per-position
+    pow2 scales (B, Hkv, Lk, 1) f32, dequantized inside the kernel."""
+    if q.device.type == "cpu":
+        return flash_prefill_quant_plain(q, k_codes, k_scale, v_codes,
+                                         v_scale, pos=pos, lengths=lengths,
+                                         window=window, softcap=softcap,
+                                         scale=scale)
+    return _launch(flash_prefill_quant, q, k_codes, v_codes, k_scale,
+                   v_scale, pos, lengths, window, softcap, scale, bq)
+
+
+flash_prefill.launches = 0
+flash_prefill_quant.launches = 0

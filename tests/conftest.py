@@ -45,6 +45,9 @@ def pytest_configure(config):
         "timeout(seconds): fail the test if it exceeds the wall-clock "
         "budget (SIGALRM stand-in for pytest-timeout, which this "
         "environment does not ship)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels); skips without one")
 
 
 @pytest.hookimpl(hookwrapper=True)

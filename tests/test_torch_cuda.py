@@ -1,0 +1,166 @@
+"""The port's CUDA kernels on the card against their plain versions. Every
+test here is marked `cuda` and skips without a CUDA device; run them on a
+machine with an H100:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX (the machine with the card has none). Tolerance
+1e-4 (atol and rtol): f32 attention summed in another order than the plain
+version's. The fused int8-KV kernels must equal the same kernels run on the
+dequantized f32 K/V bitwise, and prefill pad rows must be exact zeros."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api
+from repro_torch.configs import get_smoke
+from repro_torch.kernels.flash_attention import (KERNELS, flash_decode,
+                                                 flash_decode_plain,
+                                                 flash_decode_quant,
+                                                 flash_prefill,
+                                                 flash_prefill_plain,
+                                                 flash_prefill_quant)
+from repro_torch.kernels.flash_attention.shared import dequant
+from repro_torch.models import init_params
+from repro_torch.models.attention import _q8
+from repro_torch.serving import Request, ServingEngine
+
+pytestmark = pytest.mark.cuda
+TOL = 1e-4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _data(dev, seed, b, hq, hkv, lq, lk, d=128):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    # q as the engine hands it over: a head-split (strided) view
+    q = torch.randn(b, lq, hq, d, generator=g, device=dev).transpose(1, 2)
+    k = torch.randn(b, hkv, lk, d, generator=g, device=dev)
+    v = torch.randn(b, hkv, lk, d, generator=g, device=dev)
+    return q * 0.5, k * 0.5, v
+
+
+def _close(got, want):
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("group,lq,lk,window,softcap,kv_dtype", [
+    (6, 1, 2048, None, None, torch.bfloat16),
+    (6, 1, 2048, None, None, torch.float32),
+    (4, 1, 300, 48, 30.0, torch.bfloat16),
+    (4, 4, 300, 48, 30.0, torch.bfloat16),
+    (1, 8, 257, None, None, torch.float32),
+    (6, 4, 300, None, None, torch.bfloat16),
+])
+@pytest.mark.parametrize("d,bkv", [(128, 128), (16, 32)])
+def test_decode_kernel_matches_plain(dev, group, lq, lk, window, softcap,
+                                     kv_dtype, d, bkv):
+    b, hkv = 5, 2
+    q, k, v = _data(dev, 1, b, hkv * group, hkv, lq, lk, d)
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    pos = torch.tensor([0, 127, 128, lk // 2, lk - lq], dtype=torch.int32,
+                       device=dev)
+    n = flash_decode.launches
+    got = flash_decode(q, k, v, pos=pos, window=window, softcap=softcap,
+                       bkv=bkv)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == n + 1
+    _close(got, flash_decode_plain(q, k, v, pos=pos, window=window,
+                                   softcap=softcap))
+
+
+@pytest.mark.parametrize("group,w,lk,window,softcap,bq", [
+    (6, 32, 2048, None, None, 32),
+    (4, 20, 300, 48, 30.0, 8),
+    (1, 13, 257, None, None, 32),
+])
+def test_prefill_kernel_matches_plain_with_zero_pad_rows(dev, group, w, lk,
+                                                         window, softcap, bq):
+    b, hkv = 5, 2
+    q, k, v = _data(dev, 2, b, hkv * group, hkv, w, lk)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    pos = torch.tensor([0, 127, 128, 3, lk - w], dtype=torch.int32,
+                       device=dev)
+    lens = torch.tensor([w, 1, w // 2 + 1, 0, w], dtype=torch.int32,
+                        device=dev)
+    got = flash_prefill(q, k, v, pos=pos, lengths=lens, window=window,
+                        softcap=softcap, bq=bq)
+    want = flash_prefill_plain(q, k, v, pos=pos, lengths=lens, window=window,
+                               softcap=softcap)
+    _close(got, want)
+    pad = torch.arange(w, device=dev)[None, :] >= lens[:, None]
+    assert not got.transpose(1, 2)[pad].any()
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (48, 30.0)])
+def test_fused_int8_equals_kernel_on_dequantized_kv(dev, window, softcap):
+    b, hkv, group, lk = 4, 2, 6, 512
+    q1, k, v = _data(dev, 3, b, hkv * group, hkv, 1, lk)
+    qw, _, _ = _data(dev, 4, b, hkv * group, hkv, 32, lk)
+    kc, ks = _q8(k)
+    vc, vs = _q8(v)
+    kd, vd = dequant(kc, ks, torch.float32), dequant(vc, vs, torch.float32)
+    pos = torch.tensor([0, 100, 300, lk - 32], dtype=torch.int32, device=dev)
+    lens = torch.tensor([32, 7, 0, 32], dtype=torch.int32, device=dev)
+    kw = dict(window=window, softcap=softcap)
+    assert torch.equal(
+        flash_decode_quant(q1, kc, ks, vc, vs, pos=pos, **kw),
+        flash_decode(q1, kd, vd, pos=pos, **kw))
+    assert torch.equal(
+        flash_prefill_quant(qw, kc, ks, vc, vs, pos=pos, lengths=lens, **kw),
+        flash_prefill(qw, kd, vd, pos=pos, lengths=lens, **kw))
+
+
+def test_wrapper_rejects_bad_operands(dev):
+    q, k, v = _data(dev, 5, 2, 4, 2, 1, 64)
+    kb = k.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_decode(q, kb.transpose(2, 3).contiguous().transpose(2, 3),
+                     kb, pos=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode(q, kb.cpu(), kb, pos=3)
+    with pytest.raises(ValueError, match="bkv"):
+        flash_decode(q, kb, kb, pos=3, bkv=48)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_decode(torch.zeros(2, 4, 1, 132, device=dev),
+                     torch.zeros(2, 2, 8, 132, device=dev),
+                     torch.zeros(2, 2, 8, 132, device=dev), pos=3)
+    with pytest.raises(ValueError, match="k_scale"):
+        flash_decode(q, torch.zeros_like(kb, dtype=torch.int8),
+                     torch.zeros_like(kb, dtype=torch.int8), pos=3)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_engine_on_card_matches_ref_engine(dev, kv_quant):
+    """The smoke config served through the kernels emits the tokens the
+    plain reference route emits on the card, and every kernel of the path
+    launched."""
+    cfg = dataclasses.replace(get_smoke("qwen2_1p5b"), kv_quant=kv_quant)
+    model = init_params(cfg, seed=0)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, n).astype(np.int32)
+               for n in (3, 40, 5, 18)]
+    outs = {}
+    for backend in ("auto", "ref"):
+        eng = ServingEngine(cfg, model, slots=2, max_len=128,
+                            prefill_chunk=16,
+                            policy=api.ExecutionPolicy(backend=backend))
+        for k in KERNELS:
+            k.launches = 0
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, max_new_tokens=6))
+        outs[backend] = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        launched = {k.__name__: k.launches for k in KERNELS}
+        used = [n for n in launched if n.endswith("_quant") == kv_quant]
+        if backend == "auto":
+            assert all(launched[n] > 0 for n in used), launched
+        else:
+            assert not any(launched.values()), launched
+    assert outs["auto"] == outs["ref"]
