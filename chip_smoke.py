@@ -26,11 +26,16 @@ of JAX or of the JAX package `repro`. Phases:
 5. Engine: ServingEngine on the full-width qwen2_1p5b CONFIG (random f32
    weights, seed 0), 8 slots, max_len 2048, prefill chunk 32, 8 requests
    with prompts of 16..1000 tokens and 32 new tokens each — dense and
-   int8-KV. Routes must be cuda-decode / cuda-prefill, every kernel of the
-   path must have launched, and the tokens must match a backend="ref"
-   engine on the card up to each request's first step whose reference
-   top-1/top-2 logit margin is <= 1e-3 (after such a near-tie the streams
-   may rightly diverge).
+   int8-KV. A free-running pass of the kernel engine alone gives the
+   launch counts (every kernel of the path must have launched), tokens/s,
+   step times and peak memory; routes must be cuda-decode / cuda-prefill.
+   A second pass serves the same requests beside two backend="ref"
+   engines on the card. Its tokens must equal the first pass's, match the
+   lockstep reference (put in the kernel engine's state before each step)
+   at every step but near-ties (top-1/top-2 logit margin <= 1e-3), and
+   match the free-running reference up to each request's first near-tie
+   or, with int8 KV, its first step where the two engines' codes or
+   scales differ (after either the streams may rightly diverge).
 6. Summary: a `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`. Any failed check exits non-zero before.
 """
@@ -313,9 +318,11 @@ class MarginEngine(ServingEngine):
 
 
 def submit_all(eng, prompts, max_new):
-    for rid, p in enumerate(prompts):
-        check(eng.submit(Request(rid, p, max_new_tokens=max_new)),
-              f"request {rid} refused")
+    reqs = [Request(rid, p, max_new_tokens=max_new)
+            for rid, p in enumerate(prompts)]
+    for r in reqs:
+        check(eng.submit(r), f"request {r.rid} refused")
+    return reqs
 
 
 def copy_state(dst, src):
@@ -327,19 +334,17 @@ def copy_state(dst, src):
     dst._last[:] = src._last
 
 
-def profile_step(eng, shadow) -> str:
+def profile_step(eng) -> str:
     """One engine step under torch.profiler: its wall time, the device time
     of the kernels it ran, the device's idle share, and the host's kernel
     launches."""
     from torch.profiler import ProfilerActivity, profile
-    copy_state(shadow, eng)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         ts = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - ts)
-    shadow.step()
     avg = prof.key_averages()
 
     def dev_us(e):
@@ -358,53 +363,97 @@ def profile_step(eng, shadow) -> str:
                         for e in top))
 
 
-def drive_lockstep(eng, shadow, prompts, max_new, profile_at):
-    """Serve every prompt through `eng` (the main path). Before each step
-    the reference engine `shadow` is put in eng's state, then takes the
-    same step: its tokens are the reference's choices from the very state
-    the kernels saw. Per-step host times (each step ended by a synchronize)
-    are split into steps with a chunk launch and decode-only steps; the
-    steps in `profile_at` run under the profiler instead."""
+def serve_timed(eng, prompts, max_new):
+    """The main path as a user drives it: submit every request and step the
+    engine until it drains, with nothing else on the card. Returns the
+    pass's wall seconds (ended by a synchronize) and each step's host
+    milliseconds, split into steps with a chunk launch and decode-only
+    steps; a step ends where the engine reads its tokens back."""
     submit_all(eng, prompts, max_new)
+    chunk_ms, decode_ms = [], []
+    t0 = time.perf_counter()
+    while eng.pending():
+        calls_before = eng.stats.prefill_chunk_calls
+        ts = time.perf_counter()
+        eng.step()
+        dt = 1e3 * (time.perf_counter() - ts)
+        (chunk_ms if eng.stats.prefill_chunk_calls > calls_before
+         else decode_ms).append(dt)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, chunk_ms, decode_ms
+
+
+def quant_rows_differ(a, b) -> np.ndarray:
+    """(slots,) bool: rows whose position, int8 KV codes or scales differ
+    between two engines' caches, up to each row's frontier."""
+    pos = a.caches[0].pos
+    lmax = a.caches[0].k_codes.shape[2]
+    live = (torch.arange(lmax, device=pos.device)[None, :]
+            < pos[:, None].long())[:, None, :, None]
+    differ = torch.zeros(pos.shape, dtype=torch.bool, device=pos.device)
+    for ca, cb in zip(a.caches, b.caches):
+        differ |= ca.pos != cb.pos
+        for name in ("k_codes", "k_scale", "v_codes", "v_scale"):
+            x, y = getattr(ca, name), getattr(cb, name)
+            differ |= ((x != y) & live).flatten(1).any(1)
+    return differ.cpu().numpy()
+
+
+def drive_checked(eng, shadow, free, prompts, max_new, profile_at, quant):
+    """Serve every prompt through kernel engine `eng` beside two reference
+    engines. `shadow` is put in eng's state before each step, then takes
+    the same step (lockstep): its tokens are the reference's choices from
+    the very state the kernels saw. `free` serves the same requests on its
+    own. With int8 KV, after each step the rows whose codes or scales first
+    differ between eng and free are recorded: {rid: tokens the request had
+    emitted before that step}. The steps in `profile_at` run under the
+    profiler."""
+    reqs = submit_all(eng, prompts, max_new)
     submit_all(shadow, prompts, max_new)
-    chunk_ms, decode_ms, profiles = [], [], []
+    submit_all(free, prompts, max_new)
+    owner, first_diff, profiles = {}, {}, []
     step = 0
     while eng.pending():
+        copy_state(shadow, eng)
+        before = {r.rid: len(r.out_tokens) for r in reqs}
         if step in profile_at:
-            profiles.append((step, profile_step(eng, shadow)))
+            profiles.append((step, profile_step(eng)))
         else:
-            copy_state(shadow, eng)
-            calls_before = eng.stats.prefill_chunk_calls
-            ts = time.perf_counter()
             eng.step()
-            torch.cuda.synchronize()
-            dt = 1e3 * (time.perf_counter() - ts)
-            (chunk_ms if eng.stats.prefill_chunk_calls > calls_before
-             else decode_ms).append(dt)
-            shadow.step()
+        shadow.step()
+        free.step()
+        owner.update({s: r for s, r in enumerate(eng._slot_req)
+                      if r is not None})
+        if quant:
+            for s in np.flatnonzero(quant_rows_differ(eng, free)):
+                rid = owner[int(s)].rid
+                first_diff.setdefault(rid, before[rid])
         step += 1
-    check(not shadow.pending(), "the reference engine did not drain in step")
-    return chunk_ms, decode_ms, profiles
+    check(not shadow.pending() and not free.pending(),
+          "a reference engine did not drain in step")
+    return first_diff, profiles
 
 
 def tokens(eng):
     return {r.rid: list(r.out_tokens) for r in eng.finished}
 
 
-def compare(label, got, ref, *, lockstep):
-    """Tokens of the kernel engine vs the reference engine. In lockstep
-    every step is compared except near-ties (reference margin <= MARGIN);
-    free-running, each request is compared up to its first near-tie, after
-    which the two streams may rightly diverge. Returns (compared, skipped,
+def compare(label, got, ref, limit=None):
+    """Tokens of the kernel engine vs the reference engine. Without
+    `limit` (lockstep) every step is compared except near-ties (reference
+    margin <= MARGIN); with it (free-running), each request is compared up
+    to its first near-tie or limit[rid], whichever comes first: after
+    either the two streams may rightly diverge. Returns (compared, skipped,
     first mismatch or None)."""
     compared = skipped = 0
     want = tokens(ref)
     for rid, ref_toks in sorted(want.items()):
         low = [i for i, m in enumerate(ref.margins[rid]) if m <= MARGIN]
-        if lockstep:
+        if limit is None:
             keep = [i for i in range(len(ref_toks)) if i not in low]
         else:
-            keep = range(low[0] if low else len(ref_toks))
+            keep = range(min(low[0] if low else len(ref_toks),
+                             limit.get(rid, len(ref_toks))))
         skipped += len(ref_toks) - len(keep)
         for i in keep:
             if got[rid][i] != ref_toks[i]:
@@ -416,23 +465,9 @@ def compare(label, got, ref, *, lockstep):
     return compared, skipped, None
 
 
-def code_flips(a, b):
-    """int8 KV codes that differ between two engines' caches, up to each
-    row's frontier."""
-    flips = total = 0
-    for ca, cb in zip(a.caches, b.caches):
-        for name in ("k_codes", "v_codes"):
-            x, y = getattr(ca, name), getattr(cb, name)
-            for r, front in enumerate(ca.pos.tolist()):
-                flips += (x[r, :, :front] != y[r, :, :front]).sum().item()
-                total += x[r, :, :front].numel()
-    return flips, total
-
-
 def engine_phase(dev, card):
     phase("5. engine: qwen2_1p5b CONFIG, 8 slots, max_len 2048, chunk 32")
     base = get_config("qwen2_1p5b")
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_params(base, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -454,60 +489,67 @@ def engine_phase(dev, card):
         label = "int8-KV" if kv_quant else "dense bf16-KV"
         geo = dict(slots=8, max_len=LK, prefill_chunk=W)
         ref_policy = api.ExecutionPolicy(backend="ref")
+
+        # the main path, free-running and alone on the card: launches,
+        # tokens/s, step times and peak memory
         eng = ServingEngine(cfg, model, **geo)
         routes = (eng.decode_route(), eng.prefill_route())
         check(routes == ("cuda-decode", "cuda-prefill"),
               f"{label}: routes {routes}")
         eng.warmup()
-        shadow = MarginEngine(cfg, model, policy=ref_policy, **geo)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in KERNELS:
             k.launches = 0
-        chunk_ms, decode_ms, profiles = drive_lockstep(
-            eng, shadow, prompts, max_new, profile_at)
+        wall_s, chunk_ms, decode_ms = serve_timed(eng, prompts, max_new)
         counts = {k.__name__: k.launches for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
         path = [n for n in counts if n.endswith("_quant") == kv_quant]
         launches.update({n: counts[n] for n in path})
         st = eng.stats
         check(all(counts[n] > 0 for n in path),
               f"{label}: a kernel of the path never launched: {counts}")
         n_tok = st.generated_tokens
-        timed_s = (sum(chunk_ms) + sum(decode_ms)) / 1e3
         print(f"  [{label}] routes {routes}; launches {counts}; per step: "
               f"decode {counts[path[0]] / st.decode_steps:g}, prefill "
               f"{counts[path[1]] / st.prefill_chunk_calls:g}")
-        print(f"  [{label}] {n_tok} tokens; {len(chunk_ms)} timed chunk steps "
-              f"(median {np.median(chunk_ms):.2f} ms), {len(decode_ms)} timed "
+        print(f"  [{label}] free-running: {n_tok} tokens in {wall_s:.3f} s = "
+              f"{n_tok / wall_s:.1f} tok/s; {len(chunk_ms)} chunk steps "
+              f"(median {np.median(chunk_ms):.2f} ms), {len(decode_ms)} "
               f"decode-only steps (median {np.median(decode_ms):.2f} ms); "
-              f"{n_tok / timed_s:.1f} tok/s over the timed steps "
-              f"(profiled steps excluded); max_memory_allocated "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
-              flush=True)
+              f"max_memory_allocated {peak / 2**30:.2f} GiB (weights, this "
+              f"engine's caches and activations); {card}", flush=True)
+        served = tokens(eng)
+        del eng
+        torch.cuda.empty_cache()
+
+        # correctness: the same requests through a kernel engine beside a
+        # lockstep and a free-running reference engine
+        eng = ServingEngine(cfg, model, **geo)
+        shadow = MarginEngine(cfg, model, policy=ref_policy, **geo)
+        free = MarginEngine(cfg, model, policy=ref_policy, **geo)
+        first_diff, profiles = drive_checked(eng, shadow, free, prompts,
+                                             max_new, profile_at, kv_quant)
         for step, text in profiles:
             print(f"  [{label}] profile of step {step}: {text}", flush=True)
         got = tokens(eng)
-        compared, skipped, bad = compare(label, got, shadow, lockstep=True)
+        check(got == served, f"{label}: the checked pass's tokens differ "
+              "from the free-running pass's")
+        compared, skipped, bad = compare(label, got, shadow)
         check(bad is None, f"lockstep: {bad}")
         print(f"  [{label}] lockstep vs the ref engine: {compared} tokens "
               f"match, {skipped} near-tie step(s) skipped", flush=True)
-
-        free = MarginEngine(cfg, model, policy=ref_policy, **geo)
-        submit_all(free, prompts, max_new)
-        free.run_until_drained()
-        compared, skipped, bad = compare(label, got, free, lockstep=False)
-        cut = sum(any(m <= MARGIN for m in ms) for ms in free.margins.values())
-        text = (f"{compared} tokens compared, {cut} request(s) cut at a "
-                f"margin <= {MARGIN}")
+        compared, skipped, bad = compare(label, got, free, limit=first_diff)
+        check(bad is None, f"free-running: {bad}")
+        tie = sum(any(m <= MARGIN for m in ms) for ms in free.margins.values())
+        text = (f"{compared} tokens match, {skipped} not compared; "
+                f"{tie} request(s) reach a margin <= {MARGIN}")
         if kv_quant:
-            flips, total = code_flips(eng, free)
-            print(f"  [{label}] free-running vs the ref engine: {text}; "
-                  f"{bad or 'no mismatch'}; int8 codes differing between "
-                  f"the two engines' caches: {flips} of {total}", flush=True)
-        else:
-            check(bad is None, f"free-running: {bad}")
-            print(f"  [{label}] free-running vs the ref engine: {text}; all "
-                  "match", flush=True)
+            text += (f", {len(first_diff)} reach a step where the two "
+                     f"engines' int8 codes or scales differ (tokens "
+                     f"before it: {sorted(first_diff.values())})")
+        print(f"  [{label}] free-running vs the ref engine: {text}",
+              flush=True)
         del eng, shadow, free
         torch.cuda.empty_cache()
     return launches

@@ -14,14 +14,17 @@ from typing import List
 import numpy as np
 import torch
 
+from . import resolve_device
 from .models.attention import KVCache, QuantKVCache
 from .models.transformer import ModelConfig, Transformer
 
 __all__ = ["params_from_jax", "caches_from_jax", "to_torch"]
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
-    """A numpy array as a torch tensor (bfloat16 arrays bit for bit)."""
+def to_torch(a, device="cuda") -> torch.Tensor:
+    """A numpy array as a torch tensor on `device` (bfloat16 arrays bit
+    for bit)."""
+    device = resolve_device(device)
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(
@@ -40,8 +43,10 @@ def _dense_stack(np_params, cfg: ModelConfig) -> dict:
 
 @torch.no_grad()
 def params_from_jax(np_params, cfg: ModelConfig,
-                    device="cpu") -> Transformer:
-    """A Transformer holding exactly the weights of a JAX param pytree."""
+                    device="cuda") -> Transformer:
+    """A Transformer on `device` holding exactly the weights of a JAX
+    param pytree."""
+    device = resolve_device(device)
     model = Transformer(cfg, device=device)
     stack = _dense_stack(np_params, cfg)
 
@@ -74,9 +79,11 @@ def params_from_jax(np_params, cfg: ModelConfig,
     return model
 
 
-def caches_from_jax(np_caches, cfg: ModelConfig, device="cpu") -> List:
+def caches_from_jax(np_caches, cfg: ModelConfig, device="cuda") -> List:
     """Per-layer KVCache / QuantKVCache copies of the JAX engine's stacked
-    cache pytree (segment list of {"0_dense": stacked cache})."""
+    cache pytree (segment list of {"0_dense": stacked cache}), on
+    `device`."""
+    device = resolve_device(device)
     if len(np_caches) != 1 or list(np_caches[0]) != ["0_dense"]:
         raise NotImplementedError("only the single dense segment is ported")
     c = np_caches[0]["0_dense"]

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import resolve_device
 from ..api import ops as aio_ops
 from ..core.formats import pow2_ceil
 from .layers import Linear, rope
@@ -124,10 +125,10 @@ class Attention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
                  qkv_bias: bool = False, *, rope_theta: float = 10000.0,
                  window: Optional[int] = None,
-                 softcap: Optional[float] = None, gen=None, device="cpu",
+                 softcap: Optional[float] = None, gen=None, device="cuda",
                  dtype=torch.float32):
         super().__init__()
-        kw = dict(gen=gen, device=device, dtype=dtype)
+        kw = dict(gen=gen, device=resolve_device(device), dtype=dtype)
         self.q = Linear(d_model, n_heads * head_dim, qkv_bias, **kw)
         self.k = Linear(d_model, n_kv * head_dim, qkv_bias, **kw)
         self.v = Linear(d_model, n_kv * head_dim, qkv_bias, **kw)

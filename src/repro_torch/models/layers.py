@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import resolve_device
+
 __all__ = ["Linear", "Embedding", "RMSNorm", "MLP", "linear", "rmsnorm",
            "rope"]
 
@@ -40,9 +42,10 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 
 class Linear(nn.Module):
     def __init__(self, d_in: int, d_out: int, bias: bool = False, *,
-                 gen: Optional[torch.Generator] = None, device="cpu",
+                 gen: Optional[torch.Generator] = None, device="cuda",
                  dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self.w = _normal((d_in, d_out), d_in ** -0.5, gen, device, dtype)
         self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device),
                               requires_grad=False) if bias else None
@@ -53,9 +56,10 @@ class Linear(nn.Module):
 
 class Embedding(nn.Module):
     def __init__(self, vocab: int, d_model: int, *,
-                 gen: Optional[torch.Generator] = None, device="cpu",
+                 gen: Optional[torch.Generator] = None, device="cuda",
                  dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self.table = _normal((vocab, d_model), 0.02, gen, device, dtype)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -71,8 +75,9 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, *, device="cpu", dtype=torch.float32):
+    def __init__(self, d: int, *, device="cuda", dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self.g = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
                               requires_grad=False)
 
@@ -102,10 +107,10 @@ class MLP(nn.Module):
     """SwiGLU feed-forward: down(silu(gate(x)) * up(x))."""
 
     def __init__(self, d_model: int, d_ff: int, *,
-                 gen: Optional[torch.Generator] = None, device="cpu",
+                 gen: Optional[torch.Generator] = None, device="cuda",
                  dtype=torch.float32):
         super().__init__()
-        kw = dict(gen=gen, device=device, dtype=dtype)
+        kw = dict(gen=gen, device=resolve_device(device), dtype=dtype)
         self.gate = Linear(d_model, d_ff, **kw)
         self.up = Linear(d_model, d_ff, **kw)
         self.down = Linear(d_ff, d_model, **kw)

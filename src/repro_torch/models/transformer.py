@@ -98,9 +98,10 @@ class DenseBlock(nn.Module):
     """Pre-norm block: x + attn(ln1(x)), then + mlp(ln2(x)); optional
     post-norms (pn1/pn2) on each branch."""
 
-    def __init__(self, cfg: ModelConfig, *, gen=None, device="cpu",
+    def __init__(self, cfg: ModelConfig, *, gen=None, device="cuda",
                  dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         d = cfg.d_model
         self.ln1 = RMSNorm(d, device=device, dtype=dtype)
         self.attn = Attention(
@@ -131,10 +132,11 @@ class Transformer(nn.Module):
     """Embedding -> n_layers DenseBlocks -> final RMSNorm -> unembedding
     (tied to the embedding table, or an lm_head Linear)."""
 
-    def __init__(self, cfg: ModelConfig, *, gen=None, device="cpu",
+    def __init__(self, cfg: ModelConfig, *, gen=None, device="cuda",
                  dtype=torch.float32):
         super().__init__()
         _check_supported(cfg)
+        device = resolve_device(device)
         self.cfg = cfg
         kw = dict(gen=gen, device=device, dtype=dtype)
         self.embed = Embedding(cfg.vocab, cfg.d_model, **kw)

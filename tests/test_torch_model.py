@@ -3,7 +3,10 @@ port against the JAX package on the qwen2_1p5b and llama2_7b SMOKE configs,
 dense and int8-KV, from the same weights (copied through
 `repro_torch.bridge`) and the same caches; the caches after a step agree
 up to each row's frontier, and int8 codes and scales agree there exactly
-when the projections agree."""
+when the projections agree. A variant of the qwen2 SMOKE config turns on
+the dense block's other features (sliding window, attention and final
+logit softcaps, post-norms with non-unit gains), which the two served
+configs leave off."""
 import dataclasses
 
 import jax
@@ -17,27 +20,51 @@ from repro.models import decode_step as jdecode_step
 from repro.models import forward as jforward
 from repro.models import init_caches as jinit_caches
 from repro.models import init_params as jinit_params
-from repro_torch.bridge import caches_from_jax, params_from_jax
+from repro_torch.bridge import caches_from_jax, params_from_jax, to_torch
 from repro_torch.configs import get_smoke
 from repro_torch.models import (decode_step, forward, init_caches,
                                 init_params)
+from repro_torch.models.attention import Attention
+from repro_torch.models.layers import MLP, Embedding, Linear, RMSNorm
+from repro_torch.models.transformer import DenseBlock, Transformer
 
 TOL = 1e-4        # f32 products and attention summed in another order
-CASES = [("qwen2_1p5b", False), ("qwen2_1p5b", True),
-         ("llama2_7b", False), ("llama2_7b", True)]
+# the window (6) is shorter than the 10-token chunk below, so it masks keys
+# inside the chunk as well as in the decode step after it
+FEATURES = dict(sliding_window=6, softcap_attn=2.0, softcap_final=0.5,
+                post_norm=True)
+CASES = [("qwen2_1p5b", False, False), ("qwen2_1p5b", True, False),
+         ("llama2_7b", False, False), ("llama2_7b", True, False),
+         ("qwen2_1p5b", False, True), ("qwen2_1p5b", True, True)]
 
 
-def _cfgs(arch, kv_quant):
-    return (dataclasses.replace(jax_smoke(arch), kv_quant=kv_quant),
-            dataclasses.replace(get_smoke(arch), kv_quant=kv_quant))
+def _cfgs(arch, kv_quant, features=False):
+    extra = FEATURES if features else {}
+    return (dataclasses.replace(jax_smoke(arch), kv_quant=kv_quant, **extra),
+            dataclasses.replace(get_smoke(arch), kv_quant=kv_quant, **extra))
 
 
-@pytest.fixture(scope="module", params=CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def _case_id(case):
+    arch, kv_quant, features = case
+    return f"{arch}-{kv_quant}" + ("-window-softcap-postnorm" if features
+                                   else "")
+
+
+@pytest.fixture(scope="module", params=CASES, ids=_case_id)
 def pair(request):
-    arch, kv_quant = request.param
-    jcfg, tcfg = _cfgs(arch, kv_quant)
+    arch, kv_quant, features = request.param
+    jcfg, tcfg = _cfgs(arch, kv_quant, features)
     jparams = jinit_params(jax.random.key(0), jcfg)
-    model = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    if features:
+        # non-unit post-norm gains, so the bridge's mapping of them shows
+        block = jparams["segments"][0]["0_dense"]
+        rng = np.random.RandomState(4)
+        for name in ("pn1", "pn2"):
+            g = block[name]["g"]
+            block[name]["g"] = jnp.asarray(
+                1.0 + 0.5 * rng.randn(*g.shape).astype(np.float32))
+    model = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                            device="cpu")
     return jcfg, tcfg, jparams, model
 
 
@@ -61,7 +88,7 @@ def test_decode_step_logits_and_caches_match(pair):
     rng = np.random.RandomState(2)
     b, l, max_len = 3, 10, 32
     jc = jinit_caches(jcfg, batch=b, max_len=max_len)
-    tc = caches_from_jax(jax.tree.map(np.asarray, jc), tcfg)
+    tc = caches_from_jax(jax.tree.map(np.asarray, jc), tcfg, device="cpu")
     toks = rng.randint(1, jcfg.vocab, (b, l)).astype(np.int32)
     lens = np.asarray([l, 4, 0], np.int32)
     jl, jc = jdecode_step(jparams, jc, jnp.asarray(toks), jcfg,
@@ -79,7 +106,8 @@ def test_decode_step_logits_and_caches_match(pair):
                          lengths=torch.from_numpy(active))
     _close(tl[:2], np.asarray(jl)[:2])
 
-    want = caches_from_jax(jax.tree.map(np.asarray, jc), tcfg)
+    want = caches_from_jax(jax.tree.map(np.asarray, jc), tcfg,
+                           device="cpu")
     for got_c, want_c in zip(tc, want):
         assert torch.equal(got_c.pos, want_c.pos)
         front = want_c.pos.tolist()
@@ -122,6 +150,34 @@ def test_default_device_needs_a_card():
         init_params(tcfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_caches(tcfg, batch=1, max_len=8)
+
+
+# every constructor and bridge function that places tensors, called with
+# its default device
+_DEFAULT_DEVICE_CALLS = {
+    "Linear": lambda cfg: Linear(4, 4),
+    "Embedding": lambda cfg: Embedding(8, 4),
+    "RMSNorm": lambda cfg: RMSNorm(4),
+    "MLP": lambda cfg: MLP(4, 8),
+    "Attention": lambda cfg: Attention(8, 2, 1, 4),
+    "DenseBlock": lambda cfg: DenseBlock(cfg),
+    "Transformer": lambda cfg: Transformer(cfg),
+    "to_torch": lambda cfg: to_torch(np.zeros(2, np.float32)),
+    "params_from_jax": lambda cfg: params_from_jax({}, cfg),
+    "caches_from_jax": lambda cfg: caches_from_jax([], cfg),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_DEFAULT_DEVICE_CALLS))
+def test_module_default_device_needs_a_card(name):
+    """The port's modules and the bridge run on the card unless the caller
+    asks for the CPU: their default device raises without one, before any
+    work is done."""
+    _, tcfg = _cfgs("llama2_7b", False)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _DEFAULT_DEVICE_CALLS[name](tcfg)
 
 
 def test_unported_family_raises():

@@ -49,7 +49,8 @@ def served(request):
     prompts = _prompts(jcfg.vocab)
     want = _serve(JServingEngine(jcfg, jparams, slots=2, max_len=MAX_LEN,
                                  prefill_chunk=8), JRequest, prompts)
-    model = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    model = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                            device="cpu")
     return tcfg, model, prompts, want
 
 
