@@ -9,39 +9,74 @@ of JAX or of the JAX package `repro`. Phases:
 1. Device: the card's name, count, and `nvidia-smi` name and power limit.
 2. Build: nvcc-builds every kernel source for sm_90a (one process per
    source, in parallel) and prints each kernel's `-Xptxas -v` report.
-3. Kernel vs plain: each of the 4 kernels (flash-decode and varlen
-   flash-prefill, dense and int8-KV) against its plain PyTorch version on
-   the card, at the serving shapes of qwen2-1.5B (B=8, Hq=12, Hkv=2, D=128,
-   Lk=2048) and on a small windowed, softcapped GQA case: max |diff| <= 1e-4
-   (atol and rtol; f32 summed in another order), prefill pad rows exactly
-   0, fused int8 bitwise equal to the kernel on the dequantized K/V.
+3. Kernel vs plain, on the card, each kernel against its plain PyTorch
+   version. Attention (flash-decode and varlen flash-prefill, dense and
+   int8-KV) at the serving shapes of qwen2-1.5B (B=8, Hq=12, Hkv=2, D=128,
+   Lk=2048) and on a small windowed, softcapped GQA case: max |diff| <=
+   1e-4 (atol and rtol; f32 summed in another order), prefill pad rows
+   exactly 0, fused int8 bitwise equal to the kernel on the dequantized
+   K/V. The AIO GEMM in all five modes at every Linear shape of
+   qwen2-1.5B, (K, N) in {(1536, 1536), (1536, 256), (1536, 8960),
+   (8960, 1536)}, at M = 8 (decode) and 256 (chunk), plus a ragged case
+   (M=7, K=131, N=40; odd-K int4): int8/int4 bitwise, bf16/fp8a/fp8b
+   within rtol 2e-5, atol 2e-5 * max|plain|. The AIO quantizer in
+   fp8a/fp8b/int8/int4 at M in {8, 256}, N in {1536, 8960}, with both
+   floors (1e-30, FLT_MIN), on random rows whose first seven are the
+   edge rows of `quant_edge_rows` (all zero; max |x| between the floors;
+   +-max_finite, so the scale is exactly 1, then every RNE tie of the
+   grid, also at scales 2^-20 and 2^12; +-inf and values past
+   max_finite, which saturate; a NaN): codes and scales bitwise. A plain
+   quantizer that rounds half away from zero (C's roundf) must give other
+   codes on every row with ties.
 4. Timing: CUDA-event time per launch of each kernel, its plain version and
-   one PyTorch library call computing the same function
-   (scaled_dot_product_attention with an explicit boolean mask over the
-   same cache, timed only here), beside the least time the card could take
-   (bytes this run's inputs need over 3.35 TB/s, or f32 flops of the kept
-   (query, key) pairs over 67 TFLOP/s, whichever is larger). Inputs rotate
-   over enough cache copies to exceed the 50 MB L2, as 28 layers' caches
-   do on the serving path.
+   one PyTorch library call computing the same function (timed only here),
+   beside the least time the card could take: the larger of the bytes the
+   call must move over 3.35 TB/s and its operations over the card's rate
+   for their type (f32 outside the tensor cores 67 TFLOP/s; bf16 989
+   TFLOP/s, which the fp8 GEMM modes run at, decoded to bf16; int8 1,979
+   TOPS, which int4 runs at, unpacked to int8). Attention: the serving
+   shapes, against scaled_dot_product_attention with an explicit boolean
+   mask. AIO GEMM: each mode at M = 8 and 256 of (1536, 8960) (gate/up)
+   and (8960, 1536) (down), against torch.matmul on operands decoded to
+   bf16 beforehand and, where its shape rules allow (M = 256), torch._int_mm
+   on int8 operands. AIO quantizer: each format at M = 8 and 256 of
+   N = 1536 and 8960; no single library call computes it. Inputs rotate
+   over enough copies to exceed the 50 MB L2, as 28 layers' caches and
+   weights do on the serving path.
 5. Engine: ServingEngine on the full-width qwen2_1p5b CONFIG (random f32
    weights, seed 0), 8 slots, max_len 2048, prefill chunk 32, 8 requests
-   with prompts of 16..1000 tokens and 32 new tokens each — dense and
-   int8-KV. A free-running pass of the kernel engine alone gives the
+   with prompts of 16..1000 tokens and 32 new tokens each — dense bf16-KV,
+   int8-KV, and bf16-KV with the Linear weights resident in int4 and in
+   fp8a (`weight_format=`: the quantizer and the AIO GEMM run on every
+   Linear). A free-running pass of the kernel engine alone gives the
    launch counts (every kernel of the path must have launched), tokens/s,
-   step times and peak memory; routes must be cuda-decode / cuda-prefill.
-   A second pass serves the same requests beside two backend="ref"
-   engines on the card. Its tokens must equal the first pass's, match the
-   lockstep reference (put in the kernel engine's state before each step)
-   at every step but near-ties (top-1/top-2 logit margin <= 1e-3), and
-   match the free-running reference up to each request's first near-tie
-   or, with int8 KV, its first step where the two engines' codes or
-   scales differ (after either the streams may rightly diverge).
-6. Summary: a `{"kernels": [...]}` line, then as the last line
-   `{"ok": true, "device": {...}}`. Any failed check exits non-zero before.
+   step times and peak memory; routes must be cuda-decode / cuda-prefill
+   (and resident-<fmt>). A second pass serves the same requests beside two
+   comparison engines on the card. For dense and int8-KV they run the
+   backend="ref" route; for the resident variants they compute the same
+   function with the plain versions of the quantizer and the GEMM in
+   place of their kernels (attention on its kernels). The second pass's
+   tokens must equal the first pass's, match the lockstep comparison
+   engine (put in the kernel engine's state before each step) at every
+   step but near-ties (top-1/top-2 logit margin <= 1e-3), and match the
+   free-running comparison engine up to
+   each request's first near-tie or first step where the two engines'
+   int8 KV codes (int8-KV) or activation codes (resident) differ in its
+   row (after either the streams may rightly diverge). In the resident
+   lockstep, every activation row whose float input is bitwise equal in
+   the two engines (at least the first Linears of every step) must get
+   bitwise equal codes and scale from the plain quantizer and the kernel;
+   the lockstep GEMMs then take the kernel engine's codes, so the two
+   differ only by their float32 sums.
+6. Summary: a `{"kernels": [...]}` line, the script's wall time, then as
+   the last line `{"ok": true, "device": {...}}`. Any failed check exits
+   non-zero before.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -57,9 +92,17 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import formats as FM  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.aio_matmul import (MODES, aio_matmul,  # noqa: E402
+                                            aio_matmul_plain,
+                                            quantize_operands_ref)
+from repro_torch.kernels.aio_quant import (KERNEL_FLOOR,  # noqa: E402
+                                           aio_quant, aio_quant_plain,
+                                           quant_edge_rows)
+from repro_torch.kernels.flash_attention import KERNELS  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    KERNELS, flash_decode, flash_decode_plain, flash_decode_quant,
+    flash_decode, flash_decode_plain, flash_decode_quant,
     flash_decode_quant_plain, flash_prefill, flash_prefill_plain,
     flash_prefill_quant, flash_prefill_quant_plain)
 from repro_torch.kernels.flash_attention.shared import dequant  # noqa: E402
@@ -69,7 +112,11 @@ from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+INT8_OPS_PER_S = 1979e12           # H100 SXM int8 tensor cores, dense
+SPIN_CYCLES = 100_000_000        # ~50 ms at the H100's ~2 GHz SM clock
 TOL = 1e-4
+GEMM_TOL = 2e-5                    # rtol, and atol * max|plain|
 MARGIN = 1e-3
 
 # serving shapes of qwen2-1.5B
@@ -77,6 +124,14 @@ B, HQ, HKV, D, LK, W = 8, 12, 2, 128, 2048, 32
 DECODE_POS = [0, 127, 128, 1000, LK - 1 - 1, 500, 1500, 64]
 PREFILL_POS = [0, 127, 128, 1000, LK - 1 - W, 300, 1700, 64]
 PREFILL_LEN = [W, 1, 17, 0, W, 5, W, 20]
+
+# Linear shapes (K, N) of qwen2-1.5B: q/o, k/v, gate/up, down
+GEMM_SHAPES = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]
+GEMM_M = (8, 256)                  # decode and chunk widths (8 slots x 32)
+QUANT_FORMATS = ("fp8a", "fp8b", "int8", "int4")
+RESIDENT = ("int4", "fp8a")        # the resident engine variants
+AIO_KERNELS = (aio_matmul, aio_quant)
+ALL_KERNELS = (*KERNELS, *AIO_KERNELS)
 
 KERNEL_META = {
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
@@ -87,6 +142,10 @@ KERNEL_META = {
                       "src/repro/kernels/flash_attention/prefill.py:364"),
     "flash_prefill_quant": ("src/repro_torch/csrc/flash_prefill.cu",
                             "src/repro/kernels/flash_attention/prefill.py:395"),
+    "aio_matmul": ("src/repro_torch/csrc/aio_matmul.cu",
+                   "src/repro/kernels/aio_matmul/kernel.py:109"),
+    "aio_quant": ("src/repro_torch/csrc/aio_quant.cu",
+                  "src/repro/kernels/aio_quant/kernel.py:57"),
 }
 
 
@@ -102,12 +161,17 @@ def phase(title: str):
 
 def cuda_ms(fns, iters: int) -> float:
     """Mean CUDA-event milliseconds per call, cycling through `fns` (the
-    same call on different input copies), after a warm-up."""
+    same call on different input copies), after a warm-up. The timed calls
+    are queued behind a ~50 ms device-side spin, so the card runs them back
+    to back: the time is the device's, not the host's rate of launching
+    them (a 15 us kernel behind ~50 us of Python per launch would
+    otherwise time as 50 us)."""
     for f in fns:
         f()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for i in range(iters):
         fns[i % len(fns)]()
@@ -297,6 +361,221 @@ def timing_phase(dev):
     return rows
 
 
+# ------------------------------------------------- AIO GEMM and quantizer
+def gemm_case(dev, mode, m, k, n, seed):
+    """GEMM operands as a resident Linear hands them over: activations and
+    weights quantized from random floats (x codes one per byte, w int4
+    packed along K); bf16 operands without scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev)
+    w = torch.randn(k, n, generator=g, device=dev) * k ** -0.5
+    xq, wq, xs, ws = quantize_operands_ref(x, w, mode)
+    if mode == "bf16":
+        return xq, wq, None, None
+    if mode == "int4":
+        wq = FM.pack_int4(wq.t()).t().contiguous()
+    return xq.to(torch.int8), wq.to(torch.int8), xs, ws
+
+
+def quant_case(dev, fmt, m, n, seed):
+    """Quantizer input: rows over many binades, the first seven replaced by
+    `quant_edge_rows` (all zero; max |x| between the floors; every RNE tie
+    of fmt's grid at scales 1, 2^-20 and 2^12; saturation and +-inf; a
+    NaN)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, n, generator=g, device=dev) * torch.exp(
+        4 * torch.randn(m, 1, generator=g, device=dev))
+    edge = quant_edge_rows(fmt, n).to(dev)
+    x[: len(edge)] = edge
+    return x
+
+
+@contextlib.contextmanager
+def round_half_away():
+    """torch.round rounding half away from zero (C's roundf) inside the
+    block: a deliberately wrong plain quantizer the edge rows must
+    catch."""
+    saved = torch.round
+    torch.round = lambda t: torch.sign(t) * torch.floor(t.abs() + 0.5)
+    try:
+        yield
+    finally:
+        torch.round = saved
+
+
+def aio_kernel_phase(dev):
+    phase("3b. AIO GEMM vs plain (int modes bitwise, float modes rtol 2e-5, "
+          "atol 2e-5 * max|plain|) and AIO quantizer vs plain (bitwise)")
+    cases = [(m, k, n) for k, n in GEMM_SHAPES for m in GEMM_M]
+    cases.append((7, 131, 40))
+    errs = {}
+    for mode in MODES:
+        worst = 0.0
+        for i, (m, k, n) in enumerate(cases):
+            x, w, xs, ws = gemm_case(dev, mode, m, k, n, seed=100 + i)
+            got = aio_matmul(x, w, xs, ws, mode=mode)
+            want = aio_matmul_plain(x, w, xs, ws, mode=mode)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if mode in ("int8", "int4"):
+                ok = torch.equal(got, want)
+            else:
+                ok = torch.allclose(got, want, rtol=GEMM_TOL,
+                                    atol=GEMM_TOL * want.abs().max().item())
+            check(ok, f"aio_matmul {mode} M={m} K={k} N={n}: max |diff| "
+                  f"{err} (bitwise for int modes)")
+            worst = max(worst, err)
+        errs["aio_matmul"] = max(errs.get("aio_matmul", 0.0), worst)
+        print(f"  aio_matmul {mode:5s} {len(cases)} shapes (M, K, N) "
+              f"{cases}: max|diff| {worst:.3e}", flush=True)
+    for fmt in QUANT_FORMATS:
+        n_cases = 0
+        for floor in (KERNEL_FLOOR, FM.FLT_MIN):
+            for m in GEMM_M:
+                for n in (1536, 8960):
+                    x = quant_case(dev, fmt, m, n, seed=m + n)
+                    codes, scale = aio_quant(x, fmt_name=fmt, floor=floor)
+                    want_codes, want_scale = aio_quant_plain(
+                        x, fmt_name=fmt, floor=floor)
+                    with round_half_away():
+                        away_codes, _ = aio_quant_plain(
+                            x, fmt_name=fmt, floor=floor)
+                    torch.cuda.synchronize()
+                    check(torch.equal(codes, want_codes)
+                          and torch.equal(scale, want_scale),
+                          f"aio_quant {fmt} floor {floor} M={m} N={n}: "
+                          "codes or scales differ from the plain version")
+                    caught = (away_codes != codes)[2:7].any(1).all().item()
+                    check(caught, f"aio_quant {fmt} M={m} N={n}: a plain "
+                          "quantizer rounding half away from zero matched "
+                          "the kernel on a row of ties")
+                    n_cases += 1
+        print(f"  aio_quant  {fmt:5s} {n_cases} cases (floors 1e-30 and "
+              "FLT_MIN, M 8/256, N 1536/8960, edge rows): codes and scales "
+              "bitwise equal; the round-half-away plain variant differs on "
+              "every row of ties", flush=True)
+    errs["aio_quant"] = 0.0
+    return errs
+
+
+def gemm_bound(mode, m, k, n):
+    """Least time (ms) of one GEMM call and what sets it: each input read
+    once (codes, scales), the f32 output written once, over the memory
+    rate; or 2 M N K operations over the tensor-core rate the mode runs at
+    (int8 for int8/int4, bf16 for bf16/fp8)."""
+    xb = m * k * (2 if mode == "bf16" else 1)
+    wb = (k + 1) // 2 * n if mode == "int4" else k * n * (
+        2 if mode == "bf16" else 1)
+    nbytes = xb + wb + (0 if mode == "bf16" else 4 * (m + n)) + 4 * m * n
+    rate = INT8_OPS_PER_S if mode in ("int8", "int4") else BF16_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def gemm_timing_copies(dev, mode, m, k, n):
+    """Random operands in bulk on the card (every code is a finite value),
+    as many copies as it takes to put 100 MB of weights past the L2."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    wrows = (k + 1) // 2 if mode == "int4" else k
+    wbytes = wrows * n * (2 if mode == "bf16" else 1)
+    out = []
+    for _ in range(max(2, -(-100_000_000 // wbytes))):
+        if mode == "bf16":
+            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+            w = torch.randn(k, n, generator=g, device=dev).to(torch.bfloat16)
+            out.append((x, w, None, None))
+            continue
+        lo = -8 if mode == "int4" else -128
+        x = torch.randint(lo, -lo, (m, k), generator=g, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (wrows, n), generator=g, device=dev,
+                          dtype=torch.int8)
+        out.append((x, w, torch.full((m, 1), 2.0 ** -7, device=dev),
+                    torch.full((1, n), 2.0 ** -7, device=dev)))
+    return out
+
+
+def decoded_bf16(mode, x, w):
+    """The operands of a GEMM call decoded to bf16 (exact), for the
+    library yardstick."""
+    if mode == "bf16":
+        return x, w
+    if mode in ("fp8a", "fp8b"):
+        fmt = FM.REGISTRY[mode]
+        return (FM.decode(x, fmt).to(torch.bfloat16),
+                FM.decode(w, fmt).to(torch.bfloat16))
+    k = x.shape[1]
+    wv = FM.unpack_int4(w.t(), k=k).t() if mode == "int4" else w
+    xv = (x.to(torch.int32) << 28) >> 28 if mode == "int4" else x
+    return xv.to(torch.bfloat16), wv.to(torch.bfloat16).contiguous()
+
+
+def aio_timing_phase(dev):
+    phase("4b. AIO GEMM and quantizer timing (ms per launch, CUDA events)")
+    rows = {}
+    for k, n in ((1536, 8960), (8960, 1536)):
+        for m in GEMM_M:
+            for mode in MODES:
+                copies = gemm_timing_copies(dev, mode, m, k, n)
+                kern = [functools.partial(aio_matmul, *c, mode=mode)
+                        for c in copies]
+                plain = [functools.partial(aio_matmul_plain, *c, mode=mode)
+                         for c in copies]
+                dec = [decoded_bf16(mode, c[0], c[1]) for c in copies]
+                lib = [functools.partial(torch.matmul, *d) for d in dec]
+                ms = cuda_ms(kern, 50)
+                plain_ms = cuda_ms(plain, 6)
+                lib_ms = cuda_ms(lib, 20)
+                int_mm_ms = None
+                if mode in ("int8", "int4") and m > 16:
+                    ints = [(d[0].to(torch.int8), d[1].to(torch.int8))
+                            for d in dec]
+                    int_mm_ms = cuda_ms([functools.partial(torch._int_mm, *i)
+                                         for i in ints], 20)
+                bound_ms, bound_by = gemm_bound(mode, m, k, n)
+                rows[(mode, m, k, n)] = dict(
+                    ms=ms, plain_ms=plain_ms,
+                    library_ms=int_mm_ms if int_mm_ms is not None else lib_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+                int_txt = "" if int_mm_ms is None else \
+                    f"  _int_mm {int_mm_ms:.4f}"
+                print(f"  aio_matmul {mode:5s} M={m:3d} K={k} N={n}: kernel "
+                      f"{ms:.4f}  plain {plain_ms:.4f}  matmul(bf16) "
+                      f"{lib_ms:.4f}{int_txt}  bound {bound_ms:.5f} "
+                      f"({bound_by}; {100 * bound_ms / ms:.1f}% of it)",
+                      flush=True)
+                del copies, dec
+    g = torch.Generator(device=dev).manual_seed(8)
+    for n in (1536, 8960):
+        for m in GEMM_M:
+            xs = [torch.randn(m, n, generator=g, device=dev)
+                  for _ in range(8)]
+            for fmt in QUANT_FORMATS:
+                kern = [functools.partial(aio_quant, x, fmt_name=fmt,
+                                          floor=FM.FLT_MIN) for x in xs]
+                plain = [functools.partial(aio_quant_plain, x, fmt_name=fmt,
+                                           floor=FM.FLT_MIN) for x in xs]
+                ms = cuda_ms(kern, 50)
+                plain_ms = cuda_ms(plain, 6)
+                nbytes = m * n * 5 + 4 * m
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                t_ops = 2 * m * n / F32_FLOPS_PER_S
+                bound_ms = 1e3 * max(t_bytes, t_ops)
+                bound_by = "bytes" if t_bytes >= t_ops else "operations"
+                rows[(fmt, m, n)] = dict(ms=ms, plain_ms=plain_ms,
+                                         library_ms=None, bound_ms=bound_ms,
+                                         bound_by=bound_by)
+                print(f"  aio_quant  {fmt:5s} M={m:3d} N={n}: kernel "
+                      f"{ms:.4f}  plain {plain_ms:.4f}  library none  bound "
+                      f"{bound_ms:.5f} ({bound_by}; "
+                      f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+    # the summary line's shapes: the commonest launch of each on the main
+    # path (int4 decode: gate/up GEMM; the quantizer on a d_model row)
+    return {"aio_matmul": rows[("int4", 8, 1536, 8960)],
+            "aio_quant": rows[("int4", 8, 1536)]}
+
+
 class MarginEngine(ServingEngine):
     """The reference engine, also recording each emitted token's top-1 /
     top-2 logit margin."""
@@ -399,15 +678,104 @@ def quant_rows_differ(a, b) -> np.ndarray:
     return differ.cpu().numpy()
 
 
-def drive_checked(eng, shadow, free, prompts, max_new, profile_at, quant):
-    """Serve every prompt through kernel engine `eng` beside two reference
+@contextlib.contextmanager
+def registry_impl(op, impl, fn):
+    """Put `fn` in the registry as (op, impl) inside the block. Only the
+    comparison engines below use it, around their own steps."""
+    key = (op, impl)
+    saved = api.registry._impls[key]
+    api.registry._impls[key] = fn
+    try:
+        yield
+    finally:
+        api.registry._impls[key] = saved
+
+
+KERNEL_GEMM = (aio_quant, aio_matmul)
+PLAIN_GEMM = (aio_quant_plain, aio_matmul_plain)
+
+
+class CodeEngine(MarginEngine):
+    """An engine whose resident Linears run `gemm` — (quantizer, GEMM): the
+    kernels, or their plain versions — in place of the kernel route of
+    `matmul_codes`, and which keeps its last step's activations, codes and
+    scales (with each call's batch size) in `codes`.
+
+    With `follow` (the lockstep engine), each call first holds its own
+    quantizer's codes and scales to those `follow` made in the same call
+    of its last step, on every row whose float input is bitwise equal in
+    the two: `rows_same` counts those rows, `rows_bad` the ones among them
+    whose codes or scale differ, and `first_differ` the rows of each
+    step's first call whose inputs differ (none should: the step starts
+    from the state copied from `follow`). Its GEMM then takes `follow`'s
+    codes: the two engines differ only by their GEMMs' float32 sums,
+    which a code flip at a rounding tie would otherwise amplify. The
+    counters stay on the card until read."""
+
+    def __init__(self, *args, gemm, follow=None, **kw):
+        super().__init__(*args, **kw)
+        self.gemm = gemm
+        self.follow = follow
+        self.codes = []
+        zero = functools.partial(torch.zeros, (), dtype=torch.int64,
+                                 device=self.device)
+        self.rows_same, self.rows_bad, self.first_differ = (zero(), zero(),
+                                                            zero())
+        self.rows_seen = 0
+
+    def step(self):
+        self.codes = []
+        return super().step()
+
+    def _step_program(self, tokens, lengths):
+        quant, matmul = self.gemm
+
+        def impl(x, wq, *, policy):
+            x2 = x.reshape(-1, wq.k).to(torch.float32).clone(
+                memory_format=torch.contiguous_format)
+            xq, xs = quant(x2, fmt_name=wq.fmt, floor=FM.FLT_MIN)
+            self.codes.append((x.shape[0], x2, xq, xs))
+            if self.follow is not None:
+                _, fx, fq, fs = self.follow.codes[len(self.codes) - 1]
+                check(fq.shape == xq.shape, "the lockstep engines' calls "
+                      "differ")
+                same = (x2.view(torch.int32) == fx.view(torch.int32)).all(1)
+                differ = (xq != fq).any(1) | (xs != fs).any(1)
+                self.rows_same += same.sum()
+                self.rows_bad += (same & differ).sum()
+                if len(self.codes) == 1:
+                    self.first_differ += (~same).sum()
+                self.rows_seen += x2.shape[0]
+                xq, xs = fq, fs
+            out = matmul(xq, wq.codes, xs, wq.scale, mode=wq.fmt)
+            return out.reshape(*x.shape[:-1], out.shape[-1])
+
+        with registry_impl("matmul_codes", "cuda", impl):
+            return super()._step_program(tokens, lengths)
+
+
+def code_rows_differ(a, b) -> np.ndarray:
+    """(slots,) bool: rows whose activation codes or scales differed
+    between two CodeEngines' last steps."""
+    check(len(a.codes) == len(b.codes), "the engines made different calls")
+    differ = torch.zeros(a.slots, dtype=torch.bool, device=a.device)
+    for (rows, _, xa, sa), (_, _, xb, sb) in zip(a.codes, b.codes):
+        d = (xa != xb).any(1) | (sa != sb).any(1)
+        differ |= d.reshape(rows, -1).any(1)
+    return differ.cpu().numpy()
+
+
+def drive_checked(eng, shadow, free, prompts, max_new, profile_at,
+                  rows_differ):
+    """Serve every prompt through kernel engine `eng` beside two comparison
     engines. `shadow` is put in eng's state before each step, then takes
-    the same step (lockstep): its tokens are the reference's choices from
+    the same step (lockstep): its tokens are the comparison's choices from
     the very state the kernels saw. `free` serves the same requests on its
-    own. With int8 KV, after each step the rows whose codes or scales first
-    differ between eng and free are recorded: {rid: tokens the request had
-    emitted before that step}. The steps in `profile_at` run under the
-    profiler."""
+    own. `rows_differ(a, b)` (or None) names the rows whose quantized
+    state — int8 KV codes, or activation codes — differs between two
+    engines after a step. Returns ({rid: tokens emitted before the first
+    step where its row differed between eng and free}, profiles). The
+    steps in `profile_at` run under the profiler."""
     reqs = submit_all(eng, prompts, max_new)
     submit_all(shadow, prompts, max_new)
     submit_all(free, prompts, max_new)
@@ -424,13 +792,13 @@ def drive_checked(eng, shadow, free, prompts, max_new, profile_at, quant):
         free.step()
         owner.update({s: r for s, r in enumerate(eng._slot_req)
                       if r is not None})
-        if quant:
-            for s in np.flatnonzero(quant_rows_differ(eng, free)):
+        if rows_differ is not None:
+            for s in np.flatnonzero(rows_differ(eng, free)):
                 rid = owner[int(s)].rid
                 first_diff.setdefault(rid, before[rid])
         step += 1
     check(not shadow.pending() and not free.pending(),
-          "a reference engine did not drain in step")
+          "a comparison engine did not drain in step")
     return first_diff, profiles
 
 
@@ -439,12 +807,13 @@ def tokens(eng):
 
 
 def compare(label, got, ref, limit=None):
-    """Tokens of the kernel engine vs the reference engine. Without
-    `limit` (lockstep) every step is compared except near-ties (reference
-    margin <= MARGIN); with it (free-running), each request is compared up
-    to its first near-tie or limit[rid], whichever comes first: after
-    either the two streams may rightly diverge. Returns (compared, skipped,
-    first mismatch or None)."""
+    """Tokens of the kernel engine vs a comparison engine. Without `limit`
+    (lockstep) every step is compared except near-ties (comparison margin
+    <= MARGIN); with it
+    (free-running), each request is compared up to its first near-tie or
+    limit[rid], whichever comes first: after either the two streams may
+    rightly diverge. Returns (compared, skipped, first mismatch or
+    None)."""
     compared = skipped = 0
     want = tokens(ref)
     for rid, ref_toks in sorted(want.items()):
@@ -459,103 +828,153 @@ def compare(label, got, ref, limit=None):
             if got[rid][i] != ref_toks[i]:
                 return compared, skipped, (
                     f"{label}: request {rid} token {i}: {got[rid][i]} vs the "
-                    f"reference's {ref_toks[i]} (margin "
+                    f"comparison's {ref_toks[i]} (margin "
                     f"{ref.margins[rid][i]:.3g})")
             compared += 1
     return compared, skipped, None
 
 
+def run_variant(label, cfg, model, prompts, max_new, card, *,
+                resident=None):
+    """One engine variant: the free-running pass of the kernel engine
+    alone (launches, tokens/s, step times, peak memory), then the checked
+    pass beside two comparison engines. Returns the launch counts of the
+    kernels on the variant's path."""
+    geo = dict(slots=8, max_len=LK, prefill_chunk=W)
+    # step 6: the 1000-token prompt admits while others decode; step 45:
+    # every prompt is in, decode only
+    profile_at = (6, 45)
+
+    # the main path, free-running and alone on the card
+    eng = ServingEngine(cfg, model, weight_format=resident, **geo)
+    routes = (eng.decode_route(), eng.prefill_route(), eng.weight_route())
+    want = ("cuda-decode", "cuda-prefill",
+            f"resident-{resident}" if resident else "dense")
+    check(routes == want, f"{label}: routes {routes}, want {want}")
+    eng.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ALL_KERNELS:
+        k.launches = 0
+    wall_s, chunk_ms, decode_ms = serve_timed(eng, prompts, max_new)
+    counts = {k.__name__: k.launches for k in ALL_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    path = [k.__name__ for k in KERNELS
+            if k.__name__.endswith("_quant") == cfg.kv_quant]
+    if resident:
+        path += [k.__name__ for k in AIO_KERNELS]
+    st = eng.stats
+    check(all(counts[n] > 0 for n in path),
+          f"{label}: a kernel of the path never launched: {counts}")
+    per_call = 7 * cfg.n_layers * st.model_calls
+    if resident:
+        check(counts["aio_matmul"] == counts["aio_quant"] == per_call,
+              f"{label}: {counts} AIO launches, want {per_call} (7 Linears "
+              f"x {cfg.n_layers} layers x {st.model_calls} model calls)")
+    n_tok = st.generated_tokens
+    print(f"  [{label}] routes {routes}; launches {counts}; per step: "
+          f"decode {counts[path[0]] / st.decode_steps:g}, prefill "
+          f"{counts[path[1]] / st.prefill_chunk_calls:g}"
+          + (f"; AIO GEMM and quantizer "
+             f"{counts['aio_matmul'] / st.model_calls:g} each per model "
+             f"call ({st.model_calls} model calls)" if resident else ""))
+    print(f"  [{label}] free-running: {n_tok} tokens in {wall_s:.3f} s = "
+          f"{n_tok / wall_s:.1f} tok/s; {len(chunk_ms)} chunk steps "
+          f"(median {np.median(chunk_ms):.2f} ms), {len(decode_ms)} "
+          f"decode-only steps (median {np.median(decode_ms):.2f} ms); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB (weights, this "
+          f"engine's caches and activations); {card}", flush=True)
+    served = tokens(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    # correctness: the same requests beside a lockstep and a free-running
+    # comparison engine — the ref route (dense, int8-KV), or the plain
+    # quantizer and GEMM in place of their kernels (resident)
+    if resident:
+        eng = CodeEngine(cfg, model, gemm=KERNEL_GEMM, **geo)
+        shadow = CodeEngine(cfg, model, gemm=PLAIN_GEMM, follow=eng, **geo)
+        free = CodeEngine(cfg, model, gemm=PLAIN_GEMM, **geo)
+        rows_differ = code_rows_differ
+    else:
+        ref_policy = api.ExecutionPolicy(backend="ref")
+        eng = ServingEngine(cfg, model, **geo)
+        shadow = MarginEngine(cfg, model, policy=ref_policy, **geo)
+        free = MarginEngine(cfg, model, policy=ref_policy, **geo)
+        rows_differ = quant_rows_differ if cfg.kv_quant else None
+    first_diff, profiles = drive_checked(
+        eng, shadow, free, prompts, max_new, profile_at, rows_differ)
+    for step, text in profiles:
+        print(f"  [{label}] profile of step {step}: {text}", flush=True)
+    got = tokens(eng)
+    check(got == served, f"{label}: the checked pass's tokens differ from "
+          "the free-running pass's")
+    compared, skipped, bad = compare(label, got, shadow)
+    check(bad is None, f"lockstep: {bad}")
+    text = (f"{compared} tokens match, {skipped} near-tie step(s) "
+            f"skipped")
+    if resident:
+        same, bad, first = (int(shadow.rows_same), int(shadow.rows_bad),
+                            int(shadow.first_differ))
+        check(bad == 0 and first == 0 and same > 0,
+              f"{label}: lockstep quantizer check: {bad} of {same} "
+              f"activation rows with bitwise equal inputs got other codes "
+              f"or scales from the plain quantizer than from the kernel; "
+              f"{first} rows of the steps' first calls had unequal inputs")
+        text += (f"; {same} of {shadow.rows_seen} activation rows had "
+                 "bitwise equal inputs in the two engines (all of every "
+                 "step's first call), and the plain quantizer gave each "
+                 "the kernel's codes and scale bitwise (the GEMMs then "
+                 "took the kernel engine's codes)")
+    print(f"  [{label}] lockstep vs the comparison engine: {text}",
+          flush=True)
+    compared, skipped, bad = compare(label, got, free, limit=first_diff)
+    check(bad is None, f"free-running: {bad}")
+    tie = sum(any(m <= MARGIN for m in ms) for ms in free.margins.values())
+    text = (f"{compared} tokens match, {skipped} not compared; "
+            f"{tie} request(s) reach a margin <= {MARGIN}")
+    if rows_differ is not None:
+        what = "activation" if resident else "int8 KV"
+        text += (f", {len(first_diff)} reach a step where the two engines' "
+                 f"{what} codes or scales differ (tokens before it: "
+                 f"{sorted(first_diff.values())})")
+    print(f"  [{label}] free-running vs the comparison engine: {text}",
+          flush=True)
+    del eng, shadow, free
+    torch.cuda.empty_cache()
+    return {n: counts[n] for n in path}
+
+
 def engine_phase(dev, card):
     phase("5. engine: qwen2_1p5b CONFIG, 8 slots, max_len 2048, chunk 32")
     base = get_config("qwen2_1p5b")
-    t0 = time.perf_counter()
-    model = init_params(base, seed=0, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"  {base.name}: {base.n_layers} layers, d_model {base.d_model}, "
-          f"{base.n_heads}/{base.n_kv_heads} heads, d_ff {base.d_ff}, vocab "
-          f"{base.vocab}; {n_params / 1e9:.3f} B f32 params in "
-          f"{time.perf_counter() - t0:.1f}s")
     rng = np.random.RandomState(0)
     plens = [16, 1000, 137, 512, 64, 800, 300, 33]
     prompts = [rng.randint(1, base.vocab, n).astype(np.int32) for n in plens]
     max_new = 32
-    # step 6: the 1000-token prompt admits while others decode; step 45:
-    # every prompt is in, decode only
-    profile_at = (6, 45)
-    launches = {}
-    for kv_quant in (False, True):
-        cfg = dataclasses.replace(base, kv_quant=kv_quant)
-        label = "int8-KV" if kv_quant else "dense bf16-KV"
-        geo = dict(slots=8, max_len=LK, prefill_chunk=W)
-        ref_policy = api.ExecutionPolicy(backend="ref")
-
-        # the main path, free-running and alone on the card: launches,
-        # tokens/s, step times and peak memory
-        eng = ServingEngine(cfg, model, **geo)
-        routes = (eng.decode_route(), eng.prefill_route())
-        check(routes == ("cuda-decode", "cuda-prefill"),
-              f"{label}: routes {routes}")
-        eng.warmup()
+    launches = {k.__name__: 0 for k in ALL_KERNELS}
+    variants = [("dense bf16-KV", False, None), ("int8-KV", True, None)]
+    variants += [(f"{fmt}-resident", False, fmt) for fmt in RESIDENT]
+    for label, kv_quant, resident in variants:
+        t0 = time.perf_counter()
+        model = init_params(base, seed=0, device=dev)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in KERNELS:
-            k.launches = 0
-        wall_s, chunk_ms, decode_ms = serve_timed(eng, prompts, max_new)
-        counts = {k.__name__: k.launches for k in KERNELS}
-        peak = torch.cuda.max_memory_allocated()
-        path = [n for n in counts if n.endswith("_quant") == kv_quant]
-        launches.update({n: counts[n] for n in path})
-        st = eng.stats
-        check(all(counts[n] > 0 for n in path),
-              f"{label}: a kernel of the path never launched: {counts}")
-        n_tok = st.generated_tokens
-        print(f"  [{label}] routes {routes}; launches {counts}; per step: "
-              f"decode {counts[path[0]] / st.decode_steps:g}, prefill "
-              f"{counts[path[1]] / st.prefill_chunk_calls:g}")
-        print(f"  [{label}] free-running: {n_tok} tokens in {wall_s:.3f} s = "
-              f"{n_tok / wall_s:.1f} tok/s; {len(chunk_ms)} chunk steps "
-              f"(median {np.median(chunk_ms):.2f} ms), {len(decode_ms)} "
-              f"decode-only steps (median {np.median(decode_ms):.2f} ms); "
-              f"max_memory_allocated {peak / 2**30:.2f} GiB (weights, this "
-              f"engine's caches and activations); {card}", flush=True)
-        served = tokens(eng)
-        del eng
-        torch.cuda.empty_cache()
-
-        # correctness: the same requests through a kernel engine beside a
-        # lockstep and a free-running reference engine
-        eng = ServingEngine(cfg, model, **geo)
-        shadow = MarginEngine(cfg, model, policy=ref_policy, **geo)
-        free = MarginEngine(cfg, model, policy=ref_policy, **geo)
-        first_diff, profiles = drive_checked(eng, shadow, free, prompts,
-                                             max_new, profile_at, kv_quant)
-        for step, text in profiles:
-            print(f"  [{label}] profile of step {step}: {text}", flush=True)
-        got = tokens(eng)
-        check(got == served, f"{label}: the checked pass's tokens differ "
-              "from the free-running pass's")
-        compared, skipped, bad = compare(label, got, shadow)
-        check(bad is None, f"lockstep: {bad}")
-        print(f"  [{label}] lockstep vs the ref engine: {compared} tokens "
-              f"match, {skipped} near-tie step(s) skipped", flush=True)
-        compared, skipped, bad = compare(label, got, free, limit=first_diff)
-        check(bad is None, f"free-running: {bad}")
-        tie = sum(any(m <= MARGIN for m in ms) for ms in free.margins.values())
-        text = (f"{compared} tokens match, {skipped} not compared; "
-                f"{tie} request(s) reach a margin <= {MARGIN}")
-        if kv_quant:
-            text += (f", {len(first_diff)} reach a step where the two "
-                     f"engines' int8 codes or scales differ (tokens "
-                     f"before it: {sorted(first_diff.values())})")
-        print(f"  [{label}] free-running vs the ref engine: {text}",
-              flush=True)
-        del eng, shadow, free
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"  [{label}] {base.name}: {base.n_layers} layers, d_model "
+              f"{base.d_model}, {base.n_heads}/{base.n_kv_heads} heads, d_ff "
+              f"{base.d_ff}, vocab {base.vocab}; {n_params / 1e9:.3f} B f32 "
+              f"params in {time.perf_counter() - t0:.1f}s", flush=True)
+        cfg = dataclasses.replace(base, kv_quant=kv_quant)
+        for name, n in run_variant(label, cfg, model, prompts, max_new, card,
+                                   resident=resident).items():
+            launches[name] += n
+        del model
         torch.cuda.empty_cache()
     return launches
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     dev_info = device_phase()
     if dev_info is None:
         return 2
@@ -563,15 +982,18 @@ def main() -> int:
     dev = torch.device("cuda")
     build_phase()
     errs = kernel_phase(dev)
+    errs.update(aio_kernel_phase(dev))
     times = timing_phase(dev)
+    times.update(aio_timing_phase(dev))
     launches = engine_phase(dev, smi)
     phase("6. summary")
     kernels = []
-    for kname in (k.__name__ for k in KERNELS):
+    for kname in (k.__name__ for k in ALL_KERNELS):
         source, replaces = KERNEL_META[kname]
         kernels.append(dict(name=kname, route="cuda", source=source,
                             replaces=replaces, launches=launches[kname],
                             max_abs_err=errs[kname], **times[kname]))
+    print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

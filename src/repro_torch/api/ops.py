@@ -8,17 +8,19 @@ dispatches.
     out = api.ops.attention(q, k, v, offset=pos)          # default policy
     with api.policy(backend="ref"):
         out = api.ops.attention(q, k, v, offset=pos)      # plain reference
+    y = api.ops.matmul_codes(x, qweight)                  # resident weight
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .policy import ExecutionPolicy, current_policy
 from .registry import registry
 
-__all__ = ["attention", "attention_route", "DECODE_MAX_LQ"]
+__all__ = ["attention", "attention_route", "matmul", "matmul_codes",
+           "quantize", "DECODE_MAX_LQ"]
 
 # Longest query the flash-decode kernel takes on the scalar-offset
 # cache-shaped route; per-row-offset multi-token chunks go to the varlen
@@ -30,6 +32,51 @@ def _resolve(policy: Optional[ExecutionPolicy],
              **overrides) -> ExecutionPolicy:
     base = policy if policy is not None else current_policy()
     return base.override(**overrides)
+
+
+def _dispatch(op_name: str, pol: ExecutionPolicy, x: torch.Tensor, *args):
+    if pol.backend == "cuda" and x.device.type != "cuda":
+        raise ValueError(f"backend='cuda' needs CUDA tensors, got {x.device}")
+    return registry.lookup(op_name, pol.impl())(x, *args, policy=pol)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, *, format: Optional[str] = None,
+           backend: Optional[str] = None,
+           policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """Quantize (M, K) x (K, N) float operands to the policy format
+    (per-row / per-column pow2 scales) and multiply: the AIO GEMM on the
+    kernel route, the plain oracle on "ref". The output is float32."""
+    pol = _resolve(policy, format=format, backend=backend)
+    return _dispatch("matmul", pol, x, w)
+
+
+def matmul_codes(x: torch.Tensor, wq, *, backend: Optional[str] = None,
+                 policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """Matmul against a RESIDENT quantized weight (`formats.QuantWeight`,
+    built once by `transformer.quantize_params`). x: (..., K).
+
+    The kernel route quantizes the activations per row to the weight's
+    format (the quantizer kernel) and runs the AIO GEMM on the stored
+    codes; the "ref" route multiplies float32 activations by the
+    dequantized weight. The two are different functions, as in the
+    reference. The weight's format rides in `wq.fmt`; the policy's
+    `format` is ignored here. The output is float32."""
+    if x.shape[-1] != wq.k:
+        raise ValueError(f"activation K {x.shape[-1]} != resident weight K "
+                         f"{wq.k} (format {wq.fmt!r})")
+    pol = _resolve(policy, backend=backend)
+    return _dispatch("matmul_codes", pol, x, wq)
+
+
+def quantize(x: torch.Tensor, *, format: Optional[str] = None,
+             backend: Optional[str] = None,
+             policy: Optional[ExecutionPolicy] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (M, N) -> (codes int8 (M, N), per-row pow2 scale (M, 1)): the
+    quantizer kernel (floor 1e-30, as the reference's kernel) or
+    `quantize_scaled` on "ref"."""
+    pol = _resolve(policy, format=format, backend=backend)
+    return _dispatch("quantize", pol, x)
 
 
 def attention_route(*, lq: int, lk: Optional[int] = None, causal: bool = True,

@@ -1,8 +1,10 @@
 """ExecutionPolicy: the one object that says how every op runs.
 
 The backend plane picks between the hand-written CUDA kernels and the plain
-PyTorch reference; the tiling plane carries the kernels' block lengths.
-Policies are frozen, so one engine pins one policy for its whole life.
+PyTorch reference; the format plane names the AIO number format of the
+quantized matmul and quantize ops; the tiling plane carries the attention
+kernels' block lengths. Policies are frozen, so one engine pins one policy
+for its whole life.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Iterator, Optional
 __all__ = ["ExecutionPolicy", "policy", "current_policy", "default_policy"]
 
 _BACKENDS = ("auto", "cuda", "ref")
+# formats of the quantized-matmul / quantize plane (formats.REGISTRY names)
+_FORMATS = ("bf16", "fp8a", "fp8b", "int8", "int4", "fp16", "uint8", "uint4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,10 +29,13 @@ class ExecutionPolicy:
              on CPU tensors. "cuda" routes to the kernels and refuses CPU
              tensors. "ref" runs the plain eager reference (`mha_ref`) on
              whatever device the tensors are on.
+    format:  AIO number format of the `matmul` and `quantize` ops
+             (`matmul_codes` takes its weight's).
     bkv:     length of the KV blocks the flash-decode kernel deals to its
              warps in turn (a multiple of 32).
     bq:      q-block length of the varlen flash-prefill kernel.
     """
+    format: str = "bf16"
     backend: str = "auto"
     bkv: int = 128
     bq: int = 32
@@ -36,13 +43,19 @@ class ExecutionPolicy:
     def __post_init__(self):
         if self.backend not in _BACKENDS:
             raise ValueError(f"backend {self.backend!r} not in {_BACKENDS}")
-        if self.bkv < 1 or self.bq < 1:
-            raise ValueError(f"tile lengths must be >= 1 (bkv={self.bkv}, "
-                             f"bq={self.bq})")
+        if self.format not in _FORMATS:
+            raise ValueError(f"format {self.format!r} not in {_FORMATS}")
+        tiles = dict(bkv=self.bkv, bq=self.bq)
+        if min(tiles.values()) < 1:
+            raise ValueError(f"tile lengths must be >= 1 ({tiles})")
 
     def use_kernels(self) -> bool:
         """True when shape-eligible calls route to the kernel impls."""
         return self.backend != "ref"
+
+    def impl(self) -> str:
+        """Registry impl key of the matmul and quantize ops."""
+        return "cuda" if self.use_kernels() else "ref"
 
     def override(self, **overrides) -> "ExecutionPolicy":
         """A copy with the non-None overrides applied (per-call kwargs)."""

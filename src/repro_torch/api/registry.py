@@ -12,10 +12,12 @@ from typing import Callable, Dict, List, Tuple
 
 __all__ = ["KernelRegistry", "registry", "register", "IMPLS"]
 
-IMPLS = ("cuda-decode", "cuda-prefill", "ref")
+IMPLS = ("cuda", "cuda-decode", "cuda-prefill", "ref")
 
 # packages whose import populates the registry
-_KERNEL_PACKAGES = ("repro_torch.kernels.flash_attention",)
+_KERNEL_PACKAGES = ("repro_torch.kernels.flash_attention",
+                    "repro_torch.kernels.aio_matmul",
+                    "repro_torch.kernels.aio_quant")
 
 
 class KernelRegistry:

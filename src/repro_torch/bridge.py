@@ -5,7 +5,10 @@ The JAX package stacks each segment's layer params along a leading
 (n_layers, ...) leaves); the port keeps one `DenseBlock` per layer. These
 functions take the JAX pytrees with every leaf already converted to numpy
 (``jax.tree.map(np.asarray, tree)``) — so this module imports no JAX — and
-unstack them into the port's layout, keeping the tied embedding tied.
+unstack them into the port's layout, keeping the tied embedding tied. A
+resident weight (the reference's `QuantWeight`, stacked (n_layers, K', N)
+codes and (n_layers, 1, N) scales) becomes the port's resident Linear with
+the same codes, so both packages compute with identical codes.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .core.formats import QuantWeight
 from .models.attention import KVCache, QuantKVCache
 from .models.transformer import ModelConfig, Transformer
 
@@ -45,7 +49,7 @@ def _dense_stack(np_params, cfg: ModelConfig) -> dict:
 def params_from_jax(np_params, cfg: ModelConfig,
                     device="cuda") -> Transformer:
     """A Transformer on `device` holding exactly the weights of a JAX
-    param pytree."""
+    param pytree (dense or resident Linear weights)."""
     device = resolve_device(device)
     model = Transformer(cfg, device=device)
     stack = _dense_stack(np_params, cfg)
@@ -58,7 +62,13 @@ def params_from_jax(np_params, cfg: ModelConfig,
         param.copy_(t)
 
     def linear(mod, p, i):
-        put(mod.w, p["w"][i])
+        w = p["w"]
+        if hasattr(w, "codes"):           # a resident QuantWeight leaf
+            mod.set_resident(QuantWeight(to_torch(w.codes[i], device),
+                                         to_torch(w.scale[i], device),
+                                         w.fmt, w.k))
+        else:
+            put(mod.w, w[i])
         if mod.b is not None:
             put(mod.b, p["b"][i])
 

@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cuda_error.cuh"
+
 namespace repro {
 
 constexpr float NEG_INF = -1e30f;
@@ -283,7 +285,3 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 }  // namespace repro
-
-extern "C" const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

@@ -1,0 +1,135 @@
+"""The AIO multi-format GEMM kernel: out (M, N) float32 =
+((float)(x . w) * x_scale[m]) * w_scale[n] over codes in five modes.
+
+`aio_matmul` launches the CUDA kernel of `csrc/aio_matmul.cu` on CUDA
+tensors and runs `aio_matmul_plain` on CPU tensors; the tests and
+`chip_smoke.py` hold the kernel to the plain version on the card (integer
+modes bitwise). It counts its kernel launches in `aio_matmul.launches`.
+
+Operands, per mode:
+    bf16        x (M, K), w (K, N) bfloat16; no scales.
+    fp8a, fp8b  x (M, K), w (K, N) int8 bit codes.
+    int8        x (M, K), w (K, N) int8.
+    int4        x (M, K) int8, one code per byte (low nibble); w
+                ((K+1)//2, N) int8, two codes per byte along K (low nibble
+                = even k), as `formats.quantize_weight` packs it.
+Scales: x_scale (M, 1) and w_scale (1, N) float32, both or neither
+(neither only in bf16 mode).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ...core import formats as F
+from ..common import call_kernel, check_cuda, decode_fp_code
+
+__all__ = ["MODES", "aio_matmul", "aio_matmul_plain", "decode_table"]
+
+MODES = ("bf16", "fp8a", "fp8b", "int8", "int4")
+_MODE_IDS = {"bf16": 0, "fp8a": 1, "fp8b": 1, "int8": 2, "int4": 3}
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+
+
+def _check_shapes(x, w, x_scale, w_scale, mode) -> tuple:
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} must "
+                         "be 2-D")
+    m, k = x.shape
+    n = w.shape[1]
+    w_rows = (k + 1) // 2 if mode == "int4" else k
+    if w.shape[0] != w_rows:
+        raise ValueError(f"{mode}: w has {w.shape[0]} rows, x's K={k} needs "
+                         f"{w_rows}")
+    if (x_scale is None) != (w_scale is None) or (
+            x_scale is None and mode != "bf16"):
+        raise ValueError(f"{mode}: x_scale and w_scale go together, and only "
+                         "bf16 may omit them")
+    if x_scale is not None and (x_scale.numel() != m or w_scale.numel() != n):
+        raise ValueError(f"scales {tuple(x_scale.shape)} / "
+                         f"{tuple(w_scale.shape)} do not fit ({m}, {n})")
+    return m, k, n
+
+
+def aio_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                     x_scale: Optional[torch.Tensor] = None,
+                     w_scale: Optional[torch.Tensor] = None, *,
+                     mode: str) -> torch.Tensor:
+    """Plain version: decode, multiply, rescale. Integer modes accumulate
+    exactly (a float64 product of integers below 2^53, as the kernel's
+    int32 accumulation), float modes in float32."""
+    m, k, n = _check_shapes(x, w, x_scale, w_scale, mode)
+    if mode == "bf16":
+        acc = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    elif mode in ("fp8a", "fp8b"):
+        fmt = F.REGISTRY[mode]
+        args = (fmt.ebits, fmt.mbits, fmt.bias)
+        acc = torch.matmul(decode_fp_code(x, *args), decode_fp_code(w, *args))
+    else:
+        xv = x.to(torch.int32)
+        if mode == "int4":
+            xv = (xv << 28) >> 28                    # low nibble, signed
+            wv = F.unpack_int4(w.t(), k=k).t()
+        else:
+            wv = w
+        acc = torch.matmul(xv.to(torch.float64), wv.to(torch.float64)).to(
+            torch.float32)
+    if x_scale is not None:
+        acc = (acc * x_scale.reshape(m, 1)) * w_scale.reshape(1, n)
+    return acc
+
+
+@functools.lru_cache(maxsize=None)
+def decode_table(mode: str, device: str) -> torch.Tensor:
+    """The 256 values of an fp8 format's codes as bfloat16 bit patterns
+    (int16), on `device`. Every fp8a/fp8b value is exactly a bfloat16."""
+    vals = F.decode(torch.arange(256, dtype=torch.int32), F.REGISTRY[mode])
+    bf = vals.to(torch.bfloat16)
+    if not torch.equal(bf.to(torch.float32), vals):
+        raise AssertionError(f"{mode} values are not all bfloat16 values")
+    return bf.view(torch.int16).to(device)
+
+
+def aio_matmul(x: torch.Tensor, w: torch.Tensor,
+               x_scale: Optional[torch.Tensor] = None,
+               w_scale: Optional[torch.Tensor] = None, *,
+               mode: str) -> torch.Tensor:
+    """The GEMM over codes (operands in the module docstring) -> (M, N)
+    float32."""
+    if x.device.type == "cpu":
+        return aio_matmul_plain(x, w, x_scale, w_scale, mode=mode)
+    m, k, n = _check_shapes(x, w, x_scale, w_scale, mode)
+    want = torch.bfloat16 if mode == "bf16" else torch.int8
+    for name, t in (("x", x), ("w", w)):
+        if t.dtype != want:
+            raise TypeError(f"{mode}: {name} must be {want}, got {t.dtype}")
+        check_cuda(name, t)
+    scales = (None, None)
+    if x_scale is not None:
+        scales = tuple(s.reshape(-1).contiguous() for s in (x_scale, w_scale))
+        for name, s in zip(("x_scale", "w_scale"), scales):
+            if s.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {s.dtype}")
+            check_cuda(name, s)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    table = decode_table(mode, str(x.device)) if mode in ("fp8a", "fp8b") \
+        else None
+    es = x.element_size()
+    call_kernel("aio_matmul", _ARGTYPES, _MODE_IDS[mode], x.data_ptr(),
+                w.data_ptr(), *(s.data_ptr() if s is not None else None
+                                for s in scales),
+                table.data_ptr() if table is not None else None,
+                out.data_ptr(), m, n, k, int(k * es % 16 == 0),
+                int(n * w.element_size() % 16 == 0))
+    aio_matmul.launches += 1
+    return out
+
+
+aio_matmul.launches = 0

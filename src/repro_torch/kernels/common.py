@@ -1,4 +1,6 @@
-"""Shared helpers for the kernel layer: the CUDA kernel build and launch check.
+"""Shared helpers for the kernel layer: the CUDA kernel build, the launch
+of a kernel's C entry point, and the fp code helpers the kernels' plain
+versions share.
 
 Each `csrc/<name>.cu` source is compiled by nvcc, at first use, into its own
 shared library with a plain C interface (no PyTorch headers, so a build
@@ -15,8 +17,9 @@ shared memory, spills) in `BUILD_REPORTS`.
 
 Every C entry point returns the `cudaError_t` of its launch
 (`cudaGetLastError()` right after it, so a refused launch is seen: it never
-runs and a later synchronize does not report it); `check_launch` is the one
-place that turns a non-zero code into an exception.
+runs and a later synchronize does not report it); `call_kernel` launches an
+entry point on the current stream and `check_launch` is the one place that
+turns a non-zero code into an exception.
 """
 from __future__ import annotations
 
@@ -27,9 +30,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
-__all__ = ["build_kernels", "load_kernel", "check_launch", "CSRC",
+import torch
+
+from ..core.formats import _ldexp
+
+__all__ = ["build_kernels", "load_kernel", "check_launch", "call_kernel",
+           "check_cuda", "decode_fp_code", "encode_fp_code", "CSRC",
            "BUILD_ROOT", "BUILD_REPORTS", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -37,7 +45,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # one library per kernel source; headers are shared by all of them
-SOURCES = ("flash_decode", "flash_prefill")
+SOURCES = ("flash_decode", "flash_prefill", "aio_matmul", "aio_quant")
 
 BUILD_REPORTS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -114,3 +122,74 @@ def check_launch(lib: ctypes.CDLL, what: str, code: int) -> None:
     if code != 0:
         msg = lib.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def call_kernel(name: str, argtypes: Sequence, *args) -> None:
+    """Launch C entry point `name` of library `name` on the current stream
+    (appended as the last argument) and raise on a non-zero cudaError_t.
+    `argtypes` are the ctypes of `args`, the stream excluded."""
+    lib = load_kernel(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    check_launch(lib, name, fn(*args, stream))
+
+
+def check_cuda(name: str, t: torch.Tensor, *, contiguous: bool = True):
+    """Raise unless `t` is a CUDA tensor, contiguous (unless told
+    otherwise) and 16-byte aligned, as the kernels read it."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# fp code helpers of the kernels (plain tensor functions). The reference's
+# in-kernel versions scale by exp2, which XLA's CPU backend computes
+# inexactly; these scale by exact powers of two and give the codes and
+# values of `formats.encode` / `decode`.
+# ---------------------------------------------------------------------------
+
+def decode_fp_code(code: torch.Tensor, ebits: int, mbits: int,
+                   bias: int) -> torch.Tensor:
+    """fp bit code [sign | e | m] (no specials) -> float32 value."""
+    code = code.to(torch.int32)
+    m = code & ((1 << mbits) - 1)
+    e = (code >> mbits) & ((1 << ebits) - 1)
+    s = (code >> (ebits + mbits)) & 1
+    normal = e > 0
+    sig = torch.where(normal, (1 << mbits) + m, m).to(torch.float32)
+    val = _ldexp(sig, torch.where(normal, e, 1) - bias - mbits)
+    return torch.where(s == 1, -val, val)
+
+
+def encode_fp_code(x: torch.Tensor, ebits: int, mbits: int,
+                   bias: int) -> torch.Tensor:
+    """Round-to-nearest-even float32 -> fp bit code (saturating at the
+    format's largest finite value; no specials). Equals
+    `formats.encode(x, fmt)` for the fp8 formats."""
+    x = x.to(torch.float32)
+    a = x.abs()
+    sgn = torch.signbit(x).to(torch.int32)
+    emin = 1 - bias
+    emax = (1 << ebits) - 1 - bias
+    max_finite = (2.0 - 2.0 ** (-mbits)) * 2.0 ** emax
+    _, e2 = torch.frexp(a.clamp_min(2.0 ** (emin - mbits)))
+    step = (e2 - 1).clamp(min=emin) - mbits
+    q = _ldexp(torch.round(_ldexp(a, -step)), step).clamp(max=max_finite)
+    # re-derive the exponent after rounding (it may cross a binade)
+    _, e2q = torch.frexp(q.clamp_min(2.0 ** (emin - mbits)))
+    ebq = (e2q - 1).clamp(min=emin)
+    is_normal = q >= 2.0 ** emin
+    e_code = torch.where(is_normal, ebq + bias, 0).to(torch.int32)
+    m_norm = torch.round(_ldexp(q, -(ebq - mbits))) - (1 << mbits)
+    m_sub = torch.round(_ldexp(q, -(emin - mbits)))
+    m_code = torch.where(is_normal, m_norm, m_sub).to(torch.int32)
+    sign_bit = sgn << (ebits + mbits)
+    code = sign_bit | (e_code << mbits) | m_code
+    return torch.where(a == 0, sign_bit, code)

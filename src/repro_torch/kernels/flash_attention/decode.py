@@ -21,7 +21,8 @@ from typing import Optional
 import torch
 
 from .ref import mha_ref
-from .shared import as_row_vector, call_kernel, dequant, launch_args
+from ..common import call_kernel
+from .shared import ARGTYPES, as_row_vector, dequant, launch_args
 
 __all__ = ["flash_decode", "flash_decode_quant", "flash_decode_plain",
            "flash_decode_quant_plain"]
@@ -58,9 +59,10 @@ def _launch(wrapper, q, k, v, k_scale, v_scale, pos, window, softcap, scale,
         raise ValueError(f"bkv must be a multiple of 32, got {bkv}")
     pos = as_row_vector(pos, b, q.device).contiguous()
     out = torch.empty((b, hq, lq, d), dtype=torch.float32, device=q.device)
-    call_kernel("flash_decode", *args, pos.data_ptr(), out.data_ptr(), b,
-                hkv, hq // hkv, lq, d, lk, bkv, window or 0,
-                d ** -0.5 if scale is None else scale, softcap or 0.0)
+    call_kernel("flash_decode", ARGTYPES["flash_decode"], *args,
+                pos.data_ptr(), out.data_ptr(), b, hkv, hq // hkv, lq, d, lk,
+                bkv, window or 0, d ** -0.5 if scale is None else scale,
+                softcap or 0.0)
     wrapper.launches += 1
     return out
 

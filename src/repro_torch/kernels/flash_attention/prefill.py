@@ -22,7 +22,8 @@ from typing import Optional
 import torch
 
 from .ref import mha_ref
-from .shared import as_row_vector, call_kernel, dequant, launch_args
+from ..common import call_kernel
+from .shared import ARGTYPES, as_row_vector, dequant, launch_args
 
 __all__ = ["flash_prefill", "flash_prefill_quant", "flash_prefill_plain",
            "flash_prefill_quant_plain"]
@@ -65,10 +66,10 @@ def _launch(wrapper, q, k, v, k_scale, v_scale, pos, lengths, window,
     pos = as_row_vector(pos, b, q.device).contiguous()
     lens = as_row_vector(lengths, b, q.device, fill=lq).contiguous()
     out = torch.empty((b, hq, lq, d), dtype=torch.float32, device=q.device)
-    call_kernel("flash_prefill", *args, pos.data_ptr(), lens.data_ptr(),
-                out.data_ptr(), b, hkv, hq // hkv, lq, bq, d, lk,
-                window or 0, d ** -0.5 if scale is None else scale,
-                softcap or 0.0)
+    call_kernel("flash_prefill", ARGTYPES["flash_prefill"], *args,
+                pos.data_ptr(), lens.data_ptr(), out.data_ptr(), b, hkv,
+                hq // hkv, lq, bq, d, lk, window or 0,
+                d ** -0.5 if scale is None else scale, softcap or 0.0)
     wrapper.launches += 1
     return out
 

@@ -1,6 +1,7 @@
 """Helpers shared by the serving attention kernels (decode + varlen
 prefill): the masked-score sentinel, per-row scalar-vector normalization,
-the int8-KV dequant rounding rule, and the ctypes launch of both kernels.
+the int8-KV dequant rounding rule, and the operand checks and ctypes
+argument types of both kernels (launched through `kernels.common.call_kernel`).
 
 The dequant lives here so there is exactly ONE copy of the rounding
 contract on the Python side (codes * scale cast through the q dtype, the
@@ -14,10 +15,10 @@ from typing import Optional
 
 import torch
 
-from ..common import check_launch, load_kernel
+from ..common import check_cuda
 
 __all__ = ["NEG_INF", "as_row_vector", "dequant", "kv_kind", "launch_args",
-           "call_kernel"]
+           "ARGTYPES"]
 
 NEG_INF = -1e30
 
@@ -48,15 +49,6 @@ def kv_kind(k: torch.Tensor) -> int:
     return _KV_KINDS[k.dtype]
 
 
-def _check_cuda(name: str, t: torch.Tensor, *, contiguous: bool = True):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
-    if contiguous and not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
 def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 k_scale: Optional[torch.Tensor],
                 v_scale: Optional[torch.Tensor], window: Optional[int],
@@ -72,7 +64,7 @@ def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, hq, _, d = q.shape
     if q.dtype != torch.float32:
         raise TypeError(f"q must be float32, got {q.dtype}")
-    _check_cuda("q", q, contiguous=False)
+    check_cuda("q", q, contiguous=False)
     if q.stride(-1) != 1:
         raise ValueError("q's last dimension must be contiguous")
     kind = kv_kind(k)
@@ -90,7 +82,7 @@ def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"head dims) and a cache row of it a multiple of 16 bytes (the "
             f"kernels stage rows with 16-byte copies)")
     for name, t in (("k", k), ("v", v)):
-        _check_cuda(name, t)
+        check_cuda(name, t)
     if (kind == 2) != (k_scale is not None):
         raise ValueError("int8 K/V need k_scale/v_scale, and only they do")
     scales = (None, None)
@@ -99,35 +91,23 @@ def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             if t is None or t.dtype != torch.float32 or t.shape != want:
                 raise ValueError(f"{name} must be float32 {want}")
-            _check_cuda(name, t)
+            check_cuda(name, t)
         scales = (k_scale.data_ptr(), v_scale.data_ptr())
     return [kind, q.data_ptr(), *q.stride()[:3], k.data_ptr(), v.data_ptr(),
             *scales]
 
 
-_ARGTYPES = {
+# ctypes of each entry point's arguments, the trailing stream excluded
+ARGTYPES = {
     "flash_decode": [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_void_p] +
-                    [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float,
-                                          ctypes.c_void_p],
+                    [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float],
     "flash_prefill": [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] +
-                     [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float,
-                                           ctypes.c_void_p],
+                     [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float],
 }
 
-
-def call_kernel(name: str, *args) -> None:
-    """Launch C entry point `name` of library `name` on the current stream
-    and raise on a non-zero cudaError_t."""
-    lib = load_kernel(name)
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream().cuda_stream
-    check_launch(lib, name, fn(*args, stream))

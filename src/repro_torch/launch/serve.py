@@ -4,10 +4,12 @@
         --requests 6 --max-new 8                         # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1p5b \\
         --smoke --device cpu --requests 2 --max-new 4    # plain, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1p5b \\
+        --weight-format int4                             # resident int4
 
 Random weights from seed 0, 4 slots of 128 positions, prompts of 3-9
-random tokens. Prints the routes the attention takes, the token rate and
-the launch counts of the kernels.
+random tokens. Prints the routes the attention and the Linear weights
+take, the token rate and the launch counts of the kernels.
 """
 from __future__ import annotations
 
@@ -19,9 +21,15 @@ import numpy as np
 import torch
 
 from ..configs import ARCH_IDS, get_config, get_smoke
-from ..kernels.flash_attention import KERNELS
+from ..core.formats import RESIDENT_FORMATS
+from ..kernels.aio_matmul import aio_matmul
+from ..kernels.aio_quant import aio_quant
+from ..kernels.flash_attention import KERNELS as ATTENTION_KERNELS
 from ..models import init_params
 from ..serving import Request, ServingEngine
+
+
+KERNELS = (*ATTENTION_KERNELS, aio_matmul, aio_quant)
 
 
 def main(argv=None):
@@ -32,6 +40,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache (codes + pow2 scales)")
+    ap.add_argument("--weight-format", choices=RESIDENT_FORMATS,
+                    help="serve the Linear weights resident in this format "
+                         "(quantizer + AIO GEMM kernels on every Linear)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--prefill-chunk", type=int, default=32,
@@ -42,12 +53,14 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, kv_quant=args.kv_quant)
     model = init_params(cfg, seed=0, device=args.device)
     eng = ServingEngine(cfg, model, slots=4, max_len=128,
+                        weight_format=args.weight_format,
                         prefill_chunk=args.prefill_chunk)
     t0 = time.perf_counter()
     eng.warmup()
     print(f"[serve:{args.arch}] warmup {time.perf_counter() - t0:.2f}s "
           f"(prefill route {eng.prefill_route()}, decode route "
-          f"{eng.decode_route()}, device {eng.device})")
+          f"{eng.decode_route()}, weight route {eng.weight_route()}, device "
+          f"{eng.device})")
     for k in KERNELS:
         k.launches = 0
     rng = np.random.RandomState(0)

@@ -17,7 +17,7 @@ from torch import nn
 from .. import resolve_device
 from ..api import ops as aio_ops
 from ..core.formats import pow2_ceil
-from .layers import Linear, rope
+from .layers import Linear, QuantPolicy, rope
 
 __all__ = ["KVCache", "QuantKVCache", "init_kv_cache", "Attention"]
 
@@ -126,9 +126,10 @@ class Attention(nn.Module):
                  qkv_bias: bool = False, *, rope_theta: float = 10000.0,
                  window: Optional[int] = None,
                  softcap: Optional[float] = None, gen=None, device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, policy: QuantPolicy = QuantPolicy()):
         super().__init__()
-        kw = dict(gen=gen, device=resolve_device(device), dtype=dtype)
+        kw = dict(gen=gen, device=resolve_device(device), dtype=dtype,
+                  policy=policy)
         self.q = Linear(d_model, n_heads * head_dim, qkv_bias, **kw)
         self.k = Linear(d_model, n_kv * head_dim, qkv_bias, **kw)
         self.v = Linear(d_model, n_kv * head_dim, qkv_bias, **kw)

@@ -2,6 +2,13 @@
 SwiGLU MLP, as `nn.Module`s whose weights keep the JAX package's layout
 (a Linear's weight is (d_in, d_out), applied as ``x @ w``).
 
+Every Linear can route through the AIO quantized-matmul plane: under a
+`QuantPolicy` it fake-quantizes its operands, and once made RESIDENT
+(`Linear.quantize_`, which `transformer.quantize_params` calls) it holds a
+`formats.QuantWeight` — int8 codes (int4 packed two per byte along K) and
+per-output-channel pow2 scales, as registered buffers, the dense weight
+freed — and dispatches through `api.ops.matmul_codes`.
+
 Initialization follows the JAX init scales (normal * d_in^-0.5 for a
 Linear, normal * 0.02 for the embedding, ones for a norm gain) from an
 explicit `torch.Generator`; the values differ from `jax.random`'s, so a
@@ -10,15 +17,56 @@ test that compares the two packages copies one set of weights into both
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from .. import resolve_device
+from ..api import ops as aio_ops
+from ..core import formats as F
 
-__all__ = ["Linear", "Embedding", "RMSNorm", "MLP", "linear", "rmsnorm",
-           "rope"]
+__all__ = ["QuantPolicy", "Linear", "Embedding", "RMSNorm", "MLP", "linear",
+           "rmsnorm", "rope"]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    """Which AIO format each tensor class runs in (paper Table II formats).
+
+    resident: weights live as codes (`formats.QuantWeight`, built by
+    `transformer.quantize_params`) instead of being fake-quantized from a
+    dense float32 copy on every call. Linears the conversion leaves dense
+    still fake-quantize under `weights`, the same math.
+    """
+    activations: str = "none"      # none | bf16 | fp8a | fp8b | int8 | int4
+    weights: str = "none"
+    resident: bool = False
+
+    @property
+    def active(self) -> bool:
+        return (self.activations != "none" or self.weights != "none"
+                or self.resident)
+
+
+def _maybe_quant(x: torch.Tensor, fmt_name: str) -> torch.Tensor:
+    """Per-tensor pow2-scaled fake-quant (the scale folds into the bias)."""
+    if fmt_name in ("none", "bf16"):
+        return x
+    scale = F.pow2_scale(x, F.REGISTRY[fmt_name])
+    return F.fake_quant(x / scale, fmt_name) * scale
+
+
+def _maybe_quant_weight(w: torch.Tensor, fmt_name: str) -> torch.Tensor:
+    """Weight fake-quant with PER-OUTPUT-CHANNEL pow2 scales (axis=-2, the
+    contraction axis of a (..., K, N) weight): the scale geometry of the
+    resident codes, so `dequantize_weight(quantize_weight(w, f))` equals
+    this bitwise."""
+    if fmt_name in ("none", "bf16"):
+        return w
+    scale = F.pow2_scale(w, F.REGISTRY[fmt_name], axis=-2)
+    return F.fake_quant(w / scale, fmt_name) * scale
 
 
 def _normal(shape, scale: float, gen: Optional[torch.Generator], device,
@@ -31,27 +79,68 @@ def _normal(shape, scale: float, gen: Optional[torch.Generator], device,
     return nn.Parameter(w, requires_grad=False)
 
 
-def linear(x: torch.Tensor, w: torch.Tensor,
-           b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ w accumulated in f32, cast to x's dtype, then the bias."""
-    y = torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+def linear(x: torch.Tensor, w: Union[torch.Tensor, F.QuantWeight],
+           b: Optional[torch.Tensor] = None,
+           policy: QuantPolicy = QuantPolicy()) -> torch.Tensor:
+    """x @ w, cast to x's dtype, then the bias. A resident `QuantWeight`
+    goes through `api.ops.matmul_codes`; a dense weight is multiplied in
+    float32 (fake-quantized first under an active policy)."""
+    if isinstance(w, F.QuantWeight):
+        x = _maybe_quant(x, policy.activations)
+        y = aio_ops.matmul_codes(x, w).to(x.dtype)
+    else:
+        if policy.active:
+            x = _maybe_quant(x, policy.activations)
+            w = _maybe_quant_weight(w, policy.weights)
+        y = torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(
+            x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
 
 
 class Linear(nn.Module):
+    """A (d_in, d_out) Linear: a dense weight `w`, or — once `quantize_` or
+    `set_resident` ran — resident codes in the buffers `w_codes` and
+    `w_scale` (format `fmt`, contraction length `k`) with `w` freed."""
+
     def __init__(self, d_in: int, d_out: int, bias: bool = False, *,
                  gen: Optional[torch.Generator] = None, device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, policy: QuantPolicy = QuantPolicy()):
         super().__init__()
         device = resolve_device(device)
         self.w = _normal((d_in, d_out), d_in ** -0.5, gen, device, dtype)
         self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device),
                               requires_grad=False) if bias else None
+        self.policy = policy
+        self.fmt: Optional[str] = None
+        self.k = d_in
+
+    @property
+    def qweight(self) -> Optional[F.QuantWeight]:
+        """The resident weight, or None while the weight is dense."""
+        if self.fmt is None:
+            return None
+        return F.QuantWeight(self.w_codes, self.w_scale, self.fmt, self.k)
+
+    def set_resident(self, qw: F.QuantWeight) -> None:
+        """Hold `qw` as this Linear's weight and free the dense one."""
+        if qw.codes.dim() != 2 or qw.k != self.k:
+            raise ValueError(f"resident weight {tuple(qw.codes.shape)} (k "
+                             f"{qw.k}) does not fit a Linear of d_in {self.k}")
+        self.w = None
+        self.register_buffer("w_codes", qw.codes)
+        self.register_buffer("w_scale", qw.scale)
+        self.fmt = qw.fmt
+
+    @torch.no_grad()
+    def quantize_(self, fmt: str) -> None:
+        """Convert the dense weight into resident codes in `fmt`, in place."""
+        self.set_resident(F.quantize_weight(self.w, fmt))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(x, self.w, self.b)
+        w = self.qweight
+        return linear(x, self.w if w is None else w, self.b, self.policy)
 
 
 class Embedding(nn.Module):
@@ -108,9 +197,10 @@ class MLP(nn.Module):
 
     def __init__(self, d_model: int, d_ff: int, *,
                  gen: Optional[torch.Generator] = None, device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, policy: QuantPolicy = QuantPolicy()):
         super().__init__()
-        kw = dict(gen=gen, device=resolve_device(device), dtype=dtype)
+        kw = dict(gen=gen, device=resolve_device(device), dtype=dtype,
+                  policy=policy)
         self.gate = Linear(d_model, d_ff, **kw)
         self.up = Linear(d_model, d_ff, **kw)
         self.down = Linear(d_ff, d_model, **kw)

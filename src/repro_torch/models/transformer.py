@@ -6,6 +6,10 @@ The JAX package scans stacked layer params with `lax.scan`; here the layers
 are an `nn.ModuleList` run in a Python loop, and the caches a list with one
 cache per layer, updated in place. Only the `dense` family is ported; the
 other families raise NotImplementedError (ROADMAP A7).
+
+`quantize_params` makes the Linear weights resident in an AIO format, in
+place (the dense weights are freed, as the reference's donating launcher
+frees them); `resident_format` reports it.
 """
 from __future__ import annotations
 
@@ -16,18 +20,20 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..core import formats as F
 from .attention import Attention, KVCache, QuantKVCache, init_kv_cache
-from .layers import MLP, Embedding, Linear, RMSNorm, linear
+from .layers import MLP, Embedding, Linear, QuantPolicy, RMSNorm, linear
 
 __all__ = ["ModelConfig", "Transformer", "DenseBlock", "init_params",
-           "forward", "decode_step", "init_caches", "reset_slots"]
+           "forward", "decode_step", "init_caches", "reset_slots",
+           "quantize_params", "resident_format"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description, the fields of the JAX package's
-    ModelConfig that describe the model (its JAX-only execution knobs —
-    quantization policy, remat, scan unroll — are not carried)."""
+    """Architecture description: the fields of the JAX package's
+    ModelConfig that describe the model, and its quantization policy (its
+    JAX-only execution knobs — remat, scan unroll — are not carried)."""
     name: str
     family: str                    # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
@@ -68,6 +74,7 @@ class ModelConfig:
     learned_pos: bool = False
     subquadratic: bool = False               # may run long_500k
     kv_quant: bool = False                   # int8 KV caches (format plane)
+    quant: QuantPolicy = QuantPolicy()       # Linear format plane
 
     @property
     def hd(self) -> int:
@@ -107,10 +114,11 @@ class DenseBlock(nn.Module):
         self.attn = Attention(
             d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
             rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-            softcap=cfg.softcap_attn, gen=gen, device=device, dtype=dtype)
+            softcap=cfg.softcap_attn, gen=gen, device=device, dtype=dtype,
+            policy=cfg.quant)
         self.ln2 = RMSNorm(d, device=device, dtype=dtype)
         self.mlp = MLP(d, cfg.d_ff if cfg.d_ff else 4 * d, gen=gen,
-                       device=device, dtype=dtype)
+                       device=device, dtype=dtype, policy=cfg.quant)
         self.pn1 = self.pn2 = None
         if cfg.post_norm:
             self.pn1 = RMSNorm(d, device=device, dtype=dtype)
@@ -156,6 +164,38 @@ class Transformer(nn.Module):
         if cap:
             logits = cap * torch.tanh(logits / cap)
         return logits
+
+
+# Module paths whose Linears stay dense: those that never receive the
+# model's QuantPolicy in the reference (its `_RESIDENT_SKIP`; in the dense
+# family only `lm_head`). Embeddings and norms are not Linears.
+_RESIDENT_SKIP = ("router", "mamba", "mlstm", "slstm", "lm_head", "moe")
+
+
+@torch.no_grad()
+def quantize_params(model: Transformer, fmt: str, *,
+                    skip=_RESIDENT_SKIP) -> Transformer:
+    """Make each policy-covered Linear's weight resident in `fmt` (int4
+    packed two per byte along K, int8/fp8 codes; per-output-channel pow2
+    scales), IN PLACE: each dense weight is freed as its codes are built,
+    so the device never holds both. Linears already resident are left as
+    they are. Returns `model`."""
+    if fmt not in F.RESIDENT_FORMATS:
+        raise ValueError(f"resident weight format {fmt!r} not in "
+                         f"{F.RESIDENT_FORMATS}")
+    for name, mod in model.named_modules():
+        if (isinstance(mod, Linear) and mod.fmt is None
+                and not set(name.split(".")) & set(skip)):
+            mod.quantize_(fmt)
+    return model
+
+
+def resident_format(model: Transformer) -> Optional[str]:
+    """The residency format of a model's Linears (None when dense)."""
+    for mod in model.modules():
+        if isinstance(mod, Linear) and mod.fmt is not None:
+            return mod.fmt
+    return None
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",

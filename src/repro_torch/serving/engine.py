@@ -21,9 +21,11 @@ kernel failure raises too.
 
 Attention dispatches under the engine's ExecutionPolicy:
 `decode_route()` / `prefill_route()` report the impls ("cuda-decode" /
-"cuda-prefill" on the default policy). The caches are updated in place
-(the JAX engine donates them instead). Paging, swap, fault injection,
-deadlines and snapshots are later slices.
+"cuda-prefill" on the default policy). With `weight_format=` the Linear
+weights are resident codes and every covered Linear runs the quantizer and
+the AIO GEMM kernels (`weight_route()`: "resident-<fmt>"). The caches are
+updated in place (the JAX engine donates them instead). Paging, swap,
+fault injection, deadlines and snapshots are later slices.
 """
 from __future__ import annotations
 
@@ -74,6 +76,7 @@ class ServingEngine:
                  slots: int = 4, max_len: int = 512,
                  eos_id: Optional[int] = None,
                  policy: Optional[api.ExecutionPolicy] = None,
+                 weight_format: Optional[str] = None,
                  prefill_chunk: int = 32,
                  max_queue: Optional[int] = None):
         """model: the Transformer to serve; the engine runs on the device
@@ -83,11 +86,21 @@ class ServingEngine:
         policy: the ExecutionPolicy every op of the engine dispatches
         under; one engine = one policy.
 
+        weight_format: make the Linear weights RESIDENT in this AIO format
+        (int4/int8/fp8a/fp8b): `quantize_params` converts `model` IN PLACE
+        (its dense Linear weights are freed; other engines sharing the
+        model see the codes too) and every covered Linear dispatches
+        through `api.ops.matmul_codes`. Other format names (incl. "bf16")
+        raise: they are not residency formats. A model that is already
+        resident is served in its own format.
+
         prefill_chunk: tokens a new prompt advances per admission launch
         (clamped to max_len). Greedy outputs are identical for any chunk.
 
         max_queue: bound on the admission queue; beyond it `submit()`
         REJECTS (returns False) instead of queueing. None = unbounded."""
+        if weight_format not in (None, "none"):
+            T.quantize_params(model, weight_format)
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk ({prefill_chunk}) must be >= 1")
         self.cfg = cfg
@@ -332,6 +345,19 @@ class ServingEngine:
         return self
 
     # ---------------------------------------------------------- introspection
+    def weight_route(self) -> str:
+        """How the Linear weights reach the matmul plane: "resident-<fmt>"
+        (codes through api.ops.matmul_codes), "fake-quant-<fmt>" (dense
+        float32 re-quantized per call under the QuantPolicy the model's
+        Linears were built with), or "dense"."""
+        rfmt = T.resident_format(self.model)
+        if rfmt is not None:
+            return f"resident-{rfmt}"
+        weights = self.model.cfg.quant.weights
+        if weights != "none":
+            return f"fake-quant-{weights}"
+        return "dense"
+
     def decode_route(self) -> str:
         """Attention impl the engine's decode steps dispatch to under its
         policy: "cuda-decode" (flash-decode kernel), or "ref"."""

@@ -152,8 +152,9 @@ def test_registry_lookup():
         "cuda-decode", "cuda-prefill", "ref"]
     with pytest.raises(KeyError, match="no 'cuda' implementation"):
         api.registry.lookup("attention", "cuda")
+    assert api.registry.implementations("matmul_codes") == ["cuda", "ref"]
     with pytest.raises(KeyError, match="unknown op"):
-        api.registry.lookup("matmul", "ref")
+        api.registry.lookup("depthwise_conv", "ref")
     with pytest.raises(ValueError, match="not in"):
         api.register("attention", "pallas")
 

@@ -4,10 +4,13 @@ machine with an H100:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-This file imports no JAX (the machine with the card has none). Tolerance
-1e-4 (atol and rtol): f32 attention summed in another order than the plain
-version's. The fused int8-KV kernels must equal the same kernels run on the
-dequantized f32 K/V bitwise, and prefill pad rows must be exact zeros."""
+This file imports no JAX (the machine with the card has none). Attention:
+tolerance 1e-4 (atol and rtol), f32 attention summed in another order than
+the plain version's; the fused int8-KV kernels must equal the same kernels
+run on the dequantized f32 K/V bitwise, and prefill pad rows must be exact
+zeros. AIO GEMM: integer modes bitwise, float modes rtol 2e-5, atol 2e-5 *
+max|plain|; the quantizer bitwise."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -16,6 +19,12 @@ import torch
 
 from repro_torch import api
 from repro_torch.configs import get_smoke
+from repro_torch.core import formats as F
+from repro_torch.kernels.aio_matmul import (MODES, aio_matmul,
+                                            aio_matmul_plain,
+                                            quantize_operands_ref)
+from repro_torch.kernels.aio_quant import (KERNEL_FLOOR, aio_quant,
+                                           aio_quant_plain, quant_edge_rows)
 from repro_torch.kernels.flash_attention import (KERNELS, flash_decode,
                                                  flash_decode_plain,
                                                  flash_decode_quant,
@@ -164,3 +173,120 @@ def test_engine_on_card_matches_ref_engine(dev, kv_quant):
         else:
             assert not any(launched.values()), launched
     assert outs["auto"] == outs["ref"]
+
+
+# ====================================================== AIO GEMM + quantizer
+def _gemm_operands(dev, mode, m, k, n, seed):
+    """Quantized operands as the kernel takes them: x codes (int4: one per
+    byte), w codes (int4: packed along K), per-row / per-column pow2
+    scales; bf16 operands without scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev)
+    w = torch.randn(k, n, generator=g, device=dev) * k ** -0.5
+    xq, wq, xs, ws = quantize_operands_ref(x, w, mode)
+    if mode == "bf16":
+        return xq, wq, None, None
+    if mode == "int4":
+        return (xq.to(torch.int8), F.pack_int4(wq.t()).t().contiguous(),
+                xs, ws)
+    return xq.to(torch.int8), wq.to(torch.int8), xs, ws
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,k,n", [(8, 1536, 256), (256, 1536, 1536),
+                                   (7, 131, 40), (33, 200, 130),
+                                   (16, 64, 16)])
+def test_gemm_kernel_matches_plain(dev, mode, m, k, n):
+    """Integer modes bitwise; float modes within rtol 2e-5, atol 2e-5 *
+    max|plain| (float32 sums in another order)."""
+    x, w, xs, ws = _gemm_operands(dev, mode, m, k, n, seed=m + k + n)
+    before = aio_matmul.launches
+    got = aio_matmul(x, w, xs, ws, mode=mode)
+    torch.cuda.synchronize()
+    assert aio_matmul.launches == before + 1
+    want = aio_matmul_plain(x, w, xs, ws, mode=mode)
+    if mode in ("int8", "int4"):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-5,
+                                   atol=2e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("mode", ["fp8a", "int4"])
+def test_gemm_rows_do_not_depend_on_m(dev, mode):
+    """A row's result is the same at the decode width and the chunk width
+    (the K reduction order does not depend on M), bitwise."""
+    x, w, xs, ws = _gemm_operands(dev, mode, 256, 1536, 1536, seed=9)
+    full = aio_matmul(x, w, xs, ws, mode=mode)
+    part = aio_matmul(x[:8].contiguous(), w, xs[:8].contiguous(), ws,
+                      mode=mode)
+    assert torch.equal(full[:8], part)
+
+
+@pytest.mark.parametrize("fmt", ["fp8a", "fp8b", "int8", "int4"])
+@pytest.mark.parametrize("floor", [KERNEL_FLOOR, F.FLT_MIN])
+@pytest.mark.parametrize("m,n", [(8, 1536), (37, 130)])
+def test_quantizer_kernel_matches_plain_bitwise(dev, fmt, floor, m, n):
+    """Rows over many binades, the first seven replaced by
+    `quant_edge_rows` (all zero, between the floors, RNE ties at scales 1,
+    2^-20 and 2^12, saturation and +-inf, NaN)."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    x = torch.randn(m, n, generator=g, device=dev) * torch.exp(
+        torch.randn(m, 1, generator=g, device=dev) * 4)
+    edge = quant_edge_rows(fmt, n).to(dev)
+    x[: len(edge)] = edge
+    before = aio_quant.launches
+    codes, scale = aio_quant(x, fmt_name=fmt, floor=floor)
+    torch.cuda.synchronize()
+    assert aio_quant.launches == before + 1
+    want_codes, want_scale = aio_quant_plain(x, fmt_name=fmt, floor=floor)
+    assert torch.equal(codes, want_codes)
+    assert torch.equal(scale, want_scale)
+
+
+def test_resident_engine_on_card_matches_plain_gemm_engine(dev):
+    """The smoke config with resident int4 weights served through the
+    kernels emits the tokens of the same engine computing every resident
+    Linear with the plain versions of the quantizer and the GEMM (attention
+    on the kernels in both), and both AIO kernels launched."""
+    cfg = get_smoke("qwen2_1p5b")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, n).astype(np.int32)
+               for n in (3, 40, 5, 18)]
+    outs = {}
+    for plain in (False, True):
+        model = init_params(cfg, seed=0)
+        eng = ServingEngine(cfg, model, slots=2, max_len=128,
+                            prefill_chunk=16, weight_format="int4")
+        aio_matmul.launches = aio_quant.launches = 0
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, max_new_tokens=6))
+        if plain:
+            with _plain_resident_gemms():
+                done = eng.run_until_drained()
+            assert aio_matmul.launches == aio_quant.launches == 0
+        else:
+            done = eng.run_until_drained()
+            assert aio_matmul.launches > 0 and aio_quant.launches > 0
+        outs[plain] = {r.rid: r.out_tokens for r in done}
+    assert outs[False] == outs[True]
+
+
+@contextlib.contextmanager
+def _plain_resident_gemms():
+    """Swap the kernel route of `matmul_codes` for the plain versions of
+    the quantizer and the GEMM, for this test only."""
+    key = ("matmul_codes", "cuda")
+    saved = api.registry._impls[key]
+
+    def plain(x, wq, *, policy):
+        x2 = x.reshape(-1, wq.k).to(torch.float32)
+        xq, xs = aio_quant_plain(x2, fmt_name=wq.fmt, floor=F.FLT_MIN)
+        out = aio_matmul_plain(xq, wq.codes, xs, wq.scale, mode=wq.fmt)
+        return out.reshape(*x.shape[:-1], -1)
+
+    api.registry._impls[key] = plain
+    try:
+        yield
+    finally:
+        api.registry._impls[key] = saved
