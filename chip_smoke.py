@@ -28,6 +28,16 @@ of JAX or of the JAX package `repro`. Phases:
    max_finite, which saturate; a NaN): codes and scales bitwise. A plain
    quantizer that rounds half away from zero (C's roundf) must give other
    codes on every row with ties.
+   Paged attention (the same four kernels read through a block table:
+   flash_decode_paged, flash_decode_paged_quant, flash_prefill_paged,
+   flash_prefill_paged_quant) at the same serving shapes, the cache
+   scattered into a pool by a shuffled table (unused pool blocks hold NaN,
+   so a misaddressed read shows), at block sizes 16, 32 and 128: each
+   kernel within 1e-4 of its plain version (gather the pages, then the flat
+   plain version) and bitwise equal to the flat kernel on the un-paged
+   cache, at ragged positions (0, 37, the full cache) and lengths (a full
+   chunk, 3, 0); prefill pad rows exactly 0; fused int8 bitwise equal to
+   the paged kernel on the dequantized pool.
 4. Timing: CUDA-event time per launch of each kernel, its plain version and
    one PyTorch library call computing the same function (timed only here),
    beside the least time the card could take: the larger of the bytes the
@@ -40,9 +50,12 @@ of JAX or of the JAX package `repro`. Phases:
    and (8960, 1536) (down), against torch.matmul on operands decoded to
    bf16 beforehand and, where its shape rules allow (M = 256), torch._int_mm
    on int8 operands. AIO quantizer: each format at M = 8 and 256 of
-   N = 1536 and 8960; no single library call computes it. Inputs rotate
-   over enough copies to exceed the 50 MB L2, as 28 layers' caches and
-   weights do on the serving path.
+   N = 1536 and 8960; no single library call computes it. Paged attention
+   at block size 16 beside the flat kernel on the same data (the cost of
+   the address indirection); its bound adds the table entries the rows
+   read; no single library call reads through a block table. Inputs
+   rotate over enough copies to exceed the 50 MB L2, as 28 layers' caches
+   and weights do on the serving path.
 5. Engine: ServingEngine on the full-width qwen2_1p5b CONFIG (random f32
    weights, seed 0), 8 slots, max_len 2048, prefill chunk 32, 8 requests
    with prompts of 16..1000 tokens and 32 new tokens each — dense bf16-KV,
@@ -68,6 +81,18 @@ of JAX or of the JAX package `repro`. Phases:
    bitwise equal codes and scale from the plain quantizer and the kernel;
    the lockstep GEMMs then take the kernel engine's codes, so the two
    differ only by their float32 sums.
+5b. Paged engine: ServingEngine(paged=True, block_size=16) on the same
+   full-width model, 8 slots, max_len 2048, chunk 32, serving 16 requests
+   that share a 300-token prompt head (18 full blocks and 12 tokens, so the
+   boundary block forks) with tails of 16, 700, 137, 212, 64, 500, 3 and
+   33 tokens, each length twice, 32 new tokens each: (a) bf16 KV, default
+   pool; (b) int8 KV; (c) bf16 KV with a 160-block pool, which forces
+   deferral and LRU eviction. Each beside the flat kernel engine on the
+   same mix: every request's tokens must be equal; prefix hits, shared
+   tokens and copy-on-write forks must be > 0 in (a) and (b), deferrals
+   and evictions > 0 in (c); the paged kernels of the path must launch and
+   the flat attention kernels must not during a paged pass. Reports
+   tokens/s, step medians, peak memory, launches per step and pool_stats().
 6. Summary: a `{"kernels": [...]}` line, the script's wall time, then as
    the last line `{"ok": true, "device": {...}}`. Any failed check exits
    non-zero before.
@@ -100,10 +125,13 @@ from repro_torch.kernels.aio_matmul import (MODES, aio_matmul,  # noqa: E402
 from repro_torch.kernels.aio_quant import (KERNEL_FLOOR,  # noqa: E402
                                            aio_quant, aio_quant_plain,
                                            quant_edge_rows)
-from repro_torch.kernels.flash_attention import KERNELS  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_decode, flash_decode_plain, flash_decode_quant,
-    flash_decode_quant_plain, flash_prefill, flash_prefill_plain,
+    KERNELS, PAGED_KERNELS, flash_decode, flash_decode_paged,
+    flash_decode_paged_plain, flash_decode_paged_quant,
+    flash_decode_paged_quant_plain, flash_decode_plain, flash_decode_quant,
+    flash_decode_quant_plain, flash_prefill, flash_prefill_paged,
+    flash_prefill_paged_plain, flash_prefill_paged_quant,
+    flash_prefill_paged_quant_plain, flash_prefill_plain,
     flash_prefill_quant, flash_prefill_quant_plain)
 from repro_torch.kernels.flash_attention.shared import dequant  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
@@ -131,7 +159,15 @@ GEMM_M = (8, 256)                  # decode and chunk widths (8 slots x 32)
 QUANT_FORMATS = ("fp8a", "fp8b", "int8", "int4")
 RESIDENT = ("int4", "fp8a")        # the resident engine variants
 AIO_KERNELS = (aio_matmul, aio_quant)
-ALL_KERNELS = (*KERNELS, *AIO_KERNELS)
+ALL_KERNELS = (*KERNELS, *PAGED_KERNELS, *AIO_KERNELS)
+
+# paged attention: block sizes held bitwise to the flat kernels, the one
+# timed (the engine's default), ragged positions and lengths
+PAGED_BS = (16, 32, 128)
+PAGED_TIMED_BS = 16
+PAGED_DECODE_POS = [0, 37, 128, 1000, LK - 1, 500, 1500, 64]
+PAGED_PREFILL_POS = [0, 37, 128, 1000, LK - W, 300, 1700, 64]
+PAGED_PREFILL_LEN = [W, 3, 17, 0, W, 5, W, 20]
 
 KERNEL_META = {
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
@@ -142,6 +178,17 @@ KERNEL_META = {
                       "src/repro/kernels/flash_attention/prefill.py:364"),
     "flash_prefill_quant": ("src/repro_torch/csrc/flash_prefill.cu",
                             "src/repro/kernels/flash_attention/prefill.py:395"),
+    "flash_decode_paged": ("src/repro_torch/csrc/flash_decode.cu",
+                           "src/repro/kernels/flash_attention/decode.py:225"),
+    "flash_decode_paged_quant": (
+        "src/repro_torch/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_attention/decode.py:247"),
+    "flash_prefill_paged": (
+        "src/repro_torch/csrc/flash_prefill.cu",
+        "src/repro/kernels/flash_attention/prefill.py:255"),
+    "flash_prefill_paged_quant": (
+        "src/repro_torch/csrc/flash_prefill.cu",
+        "src/repro/kernels/flash_attention/prefill.py:275"),
     "aio_matmul": ("src/repro_torch/csrc/aio_matmul.cu",
                    "src/repro/kernels/aio_matmul/kernel.py:109"),
     "aio_quant": ("src/repro_torch/csrc/aio_quant.cu",
@@ -243,10 +290,11 @@ def library_call(name, c):
                                                   enable_gqa=True)
 
 
-def bound(name, c):
+def bound(name, c, bs=None):
     """Least time (ms) for this run's inputs, and what sets it: the bytes
     that must move (the K/V positions the rows need, once; valid q rows in,
-    the output out) over the memory rate, or the f32 flops of the kept
+    the output out; paged, with block size bs, also the table entries that
+    map those positions) over the memory rate, or the f32 flops of the kept
     (query, key) pairs over the f32 rate."""
     b, hq, lq, d = c["q"].shape
     hkv = c["k"].shape[1]
@@ -258,6 +306,9 @@ def bound(name, c):
     keys = sum(p + n for p, n in zip(pos, lens) if n > 0)
     pairs = sum(p + i + 1 for p, n in zip(pos, lens) for i in range(n))
     nbytes = keys * per_pos + (sum(lens) + b * lq) * hq * d * 4 + 8 * b
+    if bs is not None:
+        nbytes += 4 * sum(-(-(p + n) // bs) for p, n in zip(pos, lens)
+                          if n > 0)
     flops = pairs * hq * d * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -334,6 +385,116 @@ def kernel_phase(dev):
     return errs
 
 
+def paged_case(dev, c, bs, seed):
+    """Case c with its caches (bf16 K/V; int8 codes and scales) scattered
+    into pools of block size bs by a shuffled table (pk, pv, pkc, pks, pvc,
+    pvs; table). 64 pool blocks that no table names hold NaN (codes 127
+    with a NaN scale): a read through a wrong address shows."""
+    b, hkv, lk, _ = c["k"].shape
+    nblk = lk // bs
+    g = torch.Generator().manual_seed(seed)
+    n_pool = b * nblk + 64
+    table = torch.randperm(n_pool, generator=g)[: b * nblk].reshape(b, nblk)
+    out = dict(c, table=table.to(device=dev, dtype=torch.int32))
+    for name in ("k", "v", "kc", "ks", "vc", "vs"):
+        a = c[name]
+        x = a.shape[-1]
+        blocks = a.reshape(b, hkv, nblk, bs, x).transpose(1, 2) \
+            .reshape(-1, hkv, bs, x)
+        fill = 127 if a.dtype == torch.int8 else float("nan")
+        pool = torch.full((n_pool, hkv, bs, x), fill, dtype=a.dtype,
+                          device=dev)
+        pool[table.reshape(-1).to(dev)] = blocks
+        out["p" + name] = pool
+    return out
+
+
+def paged_calls(name, c, kw):
+    """(paged kernel call, its plain version, the flat kernel on the
+    un-paged cache, the paged kernel on the dequantized pool or None) of
+    one paged kernel on paged case c."""
+    q, pos, t = c["q"], c["pos"], c["table"]
+    if "prefill" in name:
+        kw = dict(kw, lengths=c["lens"])
+    if name == "flash_decode_paged":
+        pools = (c["pk"], c["pv"])
+        return (lambda: flash_decode_paged(q, *pools, table=t, pos=pos, **kw),
+                lambda: flash_decode_paged_plain(q, *pools, table=t, pos=pos,
+                                                 **kw),
+                lambda: flash_decode(q, c["k"], c["v"], pos=pos, **kw), None)
+    if name == "flash_prefill_paged":
+        pools = (c["pk"], c["pv"])
+        return (lambda: flash_prefill_paged(q, *pools, table=t, pos=pos,
+                                            **kw),
+                lambda: flash_prefill_paged_plain(q, *pools, table=t,
+                                                  pos=pos, **kw),
+                lambda: flash_prefill(q, c["k"], c["v"], pos=pos, **kw), None)
+    pools = (c["pkc"], c["pks"], c["pvc"], c["pvs"])
+    flat = (c["kc"], c["ks"], c["vc"], c["vs"])
+    deq = (dequant(c["pkc"], c["pks"], q.dtype),
+           dequant(c["pvc"], c["pvs"], q.dtype))
+    if name == "flash_decode_paged_quant":
+        return (lambda: flash_decode_paged_quant(q, *pools, table=t, pos=pos,
+                                                 **kw),
+                lambda: flash_decode_paged_quant_plain(q, *pools, table=t,
+                                                       pos=pos, **kw),
+                lambda: flash_decode_quant(q, *flat, pos=pos, **kw),
+                lambda: flash_decode_paged(q, *deq, table=t, pos=pos, **kw))
+    return (lambda: flash_prefill_paged_quant(q, *pools, table=t, pos=pos,
+                                              **kw),
+            lambda: flash_prefill_paged_quant_plain(q, *pools, table=t,
+                                                    pos=pos, **kw),
+            lambda: flash_prefill_quant(q, *flat, pos=pos, **kw),
+            lambda: flash_prefill_paged(q, *deq, table=t, pos=pos, **kw))
+
+
+def paged_kernel_phase(dev):
+    phase("3c. paged attention vs plain (max |diff| <= 1e-4) and vs the "
+          "flat kernel on the un-paged cache (bitwise), block sizes 16, 32, "
+          "128; pad rows 0; int8 fused == paged kernel on the dequantized "
+          "pool bitwise")
+    flat = {"decode": make_case(dev, 5, b=B, hq=HQ, hkv=HKV, lq=1, lk=LK,
+                                pos=PAGED_DECODE_POS),
+            "prefill": make_case(dev, 6, b=B, hq=HQ, hkv=HKV, lq=W, lk=LK,
+                                 pos=PAGED_PREFILL_POS,
+                                 lens=PAGED_PREFILL_LEN)}
+    errs = {}
+    for bs in PAGED_BS:
+        cases = {kind: paged_case(dev, c, bs, seed=bs)
+                 for kind, c in flat.items()}
+        for name in (k.__name__ for k in PAGED_KERNELS):
+            c = cases["prefill" if "prefill" in name else "decode"]
+            for label, kw in (("", {}), ("window48-softcap30",
+                                         dict(window=48, softcap=30.0))):
+                kern, plain, flat_kern, deq = paged_calls(name, c, kw)
+                got, want, ref = kern(), plain(), flat_kern()
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                ok = torch.allclose(got, want, atol=TOL, rtol=TOL)
+                same = torch.equal(got, ref)
+                line = (f"  {name:26s} bs {bs:3d} {label:18s} max|diff| "
+                        f"{err:.3e}  == flat kernel: {same}")
+                if "lens" in c:
+                    pad = torch.arange(W, device=dev)[None, :] \
+                        >= c["lens"][:, None]
+                    zero = not got.transpose(1, 2)[pad].any().item()
+                    line += f"  pad rows zero: {zero}"
+                    check(zero, f"{name} bs {bs}: pad rows not exactly zero")
+                if deq is not None:
+                    fused = torch.equal(got, deq())
+                    line += f"  fused == dequantized: {fused}"
+                    check(fused, f"{name} bs {bs}: fused int8 differs from "
+                          "the paged kernel on the dequantized pool")
+                print(line, flush=True)
+                check(ok, f"{name} bs {bs} {label}: max |diff| {err} above "
+                      f"{TOL}")
+                check(same, f"{name} bs {bs} {label}: not bitwise equal to "
+                      "the flat kernel on the un-paged cache")
+                errs[name] = max(errs.get(name, 0.0), err)
+        del cases
+    return errs
+
+
 def timing_phase(dev):
     phase("4. timing at the serving shapes (ms per launch, CUDA events)")
     copies = {"decode": [], "prefill": []}
@@ -357,6 +518,36 @@ def timing_phase(dev):
                           bound_ms=bound_ms, bound_by=bound_by)
         print(f"  {name:20s} kernel {ms:.4f}  plain {plain_ms:.4f}  "
               f"library {library_ms:.4f}  bound {bound_ms:.4f} ({bound_by}; "
+              f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+    return rows
+
+
+def paged_timing_phase(dev):
+    phase(f"4c. paged attention timing at block size {PAGED_TIMED_BS} (ms "
+          "per launch, CUDA events), beside the flat kernel on the same "
+          "data")
+    copies = {"decode": [], "prefill": []}
+    for i in range(6):          # 6 x >= 8 MB of K/V per kernel: > 50 MB L2
+        copies["decode"].append(paged_case(
+            dev, make_case(dev, 30 + i, b=B, hq=HQ, hkv=HKV, lq=1, lk=LK,
+                           pos=PAGED_DECODE_POS), PAGED_TIMED_BS, seed=i))
+        copies["prefill"].append(paged_case(
+            dev, make_case(dev, 40 + i, b=B, hq=HQ, hkv=HKV, lq=W, lk=LK,
+                           pos=PAGED_PREFILL_POS, lens=PAGED_PREFILL_LEN),
+            PAGED_TIMED_BS, seed=i))
+    rows = {}
+    for name in (k.__name__ for k in PAGED_KERNELS):
+        cases = copies["prefill" if "prefill" in name else "decode"]
+        fns = [paged_calls(name, c, {}) for c in cases]
+        ms = cuda_ms([f[0] for f in fns], 60)
+        flat_ms = cuda_ms([f[2] for f in fns], 60)
+        plain_ms = cuda_ms([f[1] for f in fns], 12)
+        bound_ms, bound_by = bound(name, cases[0], bs=PAGED_TIMED_BS)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        print(f"  {name:26s} kernel {ms:.4f}  flat kernel {flat_ms:.4f} "
+              f"({100 * (ms / flat_ms - 1):+.1f}%)  plain {plain_ms:.4f}  "
+              f"library none  bound {bound_ms:.5f} ({bound_by}; "
               f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
     return rows
 
@@ -866,6 +1057,8 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
     st = eng.stats
     check(all(counts[n] > 0 for n in path),
           f"{label}: a kernel of the path never launched: {counts}")
+    check(not any(counts[k.__name__] for k in PAGED_KERNELS),
+          f"{label}: a paged kernel launched on the flat path: {counts}")
     per_call = 7 * cfg.n_layers * st.model_calls
     if resident:
         check(counts["aio_matmul"] == counts["aio_quant"] == per_call,
@@ -973,6 +1166,97 @@ def engine_phase(dev, card):
     return launches
 
 
+PAGED_HEAD = 300                   # 18 full blocks of 16 and 12 tokens
+PAGED_TAILS = [16, 700, 137, 212, 64, 500, 3, 33]
+PAGED_VARIANTS = [("paged bf16-KV", False, None),
+                  ("paged int8-KV", True, None),
+                  ("paged bf16-KV, pool 160", False, 160)]
+
+
+def paged_engine_phase(dev, card):
+    phase("5b. paged engine: qwen2_1p5b CONFIG, 8 slots, max_len 2048, "
+          "chunk 32, block size 16; 16 requests sharing a 300-token head")
+    base = get_config("qwen2_1p5b")
+    model = init_params(base, seed=0, device=dev)
+    rng = np.random.RandomState(1)
+    head = rng.randint(1, base.vocab, PAGED_HEAD).astype(np.int32)
+    prompts = [np.concatenate([head, rng.randint(1, base.vocab, n)])
+               .astype(np.int32) for n in PAGED_TAILS * 2]
+    max_new = 32
+    launches = {k.__name__: 0 for k in PAGED_KERNELS}
+    flat_served = {}      # the flat kernel engine's tokens, per KV layout
+    for label, kv_quant, pool_blocks in PAGED_VARIANTS:
+        cfg = dataclasses.replace(base, kv_quant=kv_quant)
+        served = {False: flat_served.get(kv_quant), True: None}
+        if served[False] is not None:
+            print(f"  [{label}] flat: the flat kernel engine's pass above "
+                  "(same layout, model and mix)", flush=True)
+        for paged in (False, True):
+            if served[paged] is not None:
+                continue
+            kind = "paged" if paged else "flat"
+            eng = ServingEngine(cfg, model, slots=8, max_len=LK,
+                                prefill_chunk=W, paged=paged, block_size=16,
+                                pool_blocks=pool_blocks if paged else None)
+            routes = (eng.decode_route(), eng.prefill_route())
+            check(routes == ("cuda-decode", "cuda-prefill"),
+                  f"{label}: routes {routes}")
+            eng.warmup()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in ALL_KERNELS:
+                k.launches = 0
+            wall_s, chunk_ms, decode_ms = serve_timed(eng, prompts, max_new)
+            counts = {k.__name__: k.launches for k in ALL_KERNELS}
+            peak = torch.cuda.max_memory_allocated()
+            used, idle = (PAGED_KERNELS, KERNELS) if paged else \
+                (KERNELS, PAGED_KERNELS)
+            path = [k.__name__ for k in used
+                    if k.__name__.endswith("_quant") == kv_quant]
+            check(all(counts[n] > 0 for n in path),
+                  f"{label} ({kind}): a kernel of the path never launched: "
+                  f"{counts}")
+            check(not any(counts[k.__name__] for k in idle),
+                  f"{label} ({kind}): a kernel of the other layout "
+                  f"launched: {counts}")
+            st = eng.stats
+            n_tok = st.generated_tokens
+            print(f"  [{label}] {kind}: {n_tok} tokens in {wall_s:.3f} s = "
+                  f"{n_tok / wall_s:.1f} tok/s; {len(chunk_ms)} chunk steps "
+                  f"(median {np.median(chunk_ms):.2f} ms), {len(decode_ms)} "
+                  f"decode-only steps (median {np.median(decode_ms):.2f} "
+                  f"ms); launches per step: decode "
+                  f"{counts[path[0]] / st.decode_steps:g}, prefill "
+                  f"{counts[path[1]] / st.prefill_chunk_calls:g} "
+                  f"({counts[path[0]]} / {counts[path[1]]}); "
+                  f"max_memory_allocated {peak / 2**30:.2f} GiB; {card}",
+                  flush=True)
+            served[paged] = tokens(eng)
+            if not paged:
+                flat_served[kv_quant] = served[False]
+            else:
+                ps = eng.pool_stats()
+                print(f"  [{label}] pool_stats {json.dumps(ps)}", flush=True)
+                for n in path:
+                    launches[n] += counts[n]
+            del eng
+            torch.cuda.empty_cache()
+        check(served[True] == served[False],
+              f"{label}: the paged engine's tokens differ from the flat "
+              "kernel engine's")
+        need = ("deferred_admissions", "evictions") if pool_blocks else \
+            ("prefix_hits", "shared_tokens", "cow_copies")
+        check(all(ps[k] > 0 for k in need), f"{label}: want {need} > 0, "
+              f"got {ps}")
+        n_tok = sum(map(len, served[True].values()))
+        print(f"  [{label}] all {len(served[True])} requests' tokens equal "
+              f"to the flat kernel engine's ({n_tok} tokens); "
+              + ", ".join(f"{k} {ps[k]}" for k in need), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     dev_info = device_phase()
@@ -982,10 +1266,13 @@ def main() -> int:
     dev = torch.device("cuda")
     build_phase()
     errs = kernel_phase(dev)
+    errs.update(paged_kernel_phase(dev))
     errs.update(aio_kernel_phase(dev))
     times = timing_phase(dev)
+    times.update(paged_timing_phase(dev))
     times.update(aio_timing_phase(dev))
     launches = engine_phase(dev, smi)
+    launches.update(paged_engine_phase(dev, smi))
     phase("6. summary")
     kernels = []
     for kname in (k.__name__ for k in ALL_KERNELS):

@@ -124,19 +124,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     prefill kernel returns exact zeros past it. k_scale/v_scale: when given,
     k/v are int8 codes with per-position pow2 scales (B,Hkv,Lk,1) f32 —
     dequantized inside the kernels, or at dispatch on the ref route.
-    block_tables (paged caches) is not ported yet and raises.
+    block_tables: when given, k/v (and the scales) are (P, Hkv, bs, .)
+    block pools and block_tables the (B, nblk) int32 per-row block map: the
+    kernels read through it, the ref route gathers `pool[table]`; the cache
+    length is nblk * bs.
     """
-    if block_tables is not None:
-        raise NotImplementedError(
-            "paged attention (block_tables) is not ported yet: ROADMAP B6/B7")
     pol = _resolve(policy, backend=backend, bkv=bkv, bq=bq)
     if pol.backend == "cuda" and q.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {q.device}")
     offset_ndim = offset.dim() if isinstance(offset, torch.Tensor) else 0
-    impl = attention_route(lq=q.shape[2], lk=k.shape[2], causal=causal,
+    lk = k.shape[2] if block_tables is None \
+        else block_tables.shape[1] * k.shape[2]
+    impl = attention_route(lq=q.shape[2], lk=lk, causal=causal,
                            offset_ndim=offset_ndim,
                            quantized=k_scale is not None, policy=pol)
     fn = registry.lookup("attention", impl)
     return fn(q, k, v, causal=causal, window=window, softcap=softcap,
               scale=scale, offset=offset, lengths=lengths, k_scale=k_scale,
-              v_scale=v_scale, policy=pol)
+              v_scale=v_scale, block_tables=block_tables, policy=pol)

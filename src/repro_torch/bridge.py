@@ -8,7 +8,9 @@ functions take the JAX pytrees with every leaf already converted to numpy
 unstack them into the port's layout, keeping the tied embedding tied. A
 resident weight (the reference's `QuantWeight`, stacked (n_layers, K', N)
 codes and (n_layers, 1, N) scales) becomes the port's resident Linear with
-the same codes, so both packages compute with identical codes.
+the same codes, so both packages compute with identical codes. A paged
+cache (stacked (n_layers, P, ...) pools and (n_layers, B, nblk) tables)
+becomes the port's per-layer paged caches over one shared table.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from . import resolve_device
 from .core.formats import QuantWeight
-from .models.attention import KVCache, QuantKVCache
+from .models.attention import KVCache, QuantKVCache, paged_kv_cache
 from .models.transformer import ModelConfig, Transformer
 
 __all__ = ["params_from_jax", "caches_from_jax", "to_torch"]
@@ -90,14 +92,26 @@ def params_from_jax(np_params, cfg: ModelConfig,
 
 
 def caches_from_jax(np_caches, cfg: ModelConfig, device="cuda") -> List:
-    """Per-layer KVCache / QuantKVCache copies of the JAX engine's stacked
-    cache pytree (segment list of {"0_dense": stacked cache}), on
-    `device`."""
+    """Per-layer KVCache / QuantKVCache / PagedKVCache / PagedQuantKVCache
+    copies of the JAX engine's stacked cache pytree (segment list of
+    {"0_dense": stacked cache}), on `device`. The layers of a paged cache
+    share one table tensor, as `init_caches` builds them (the JAX layers'
+    tables are equal)."""
     device = resolve_device(device)
     if len(np_caches) != 1 or list(np_caches[0]) != ["0_dense"]:
         raise NotImplementedError("only the single dense segment is ported")
     c = np_caches[0]["0_dense"]
     fields = c._asdict()
-    kind = QuantKVCache if "k_codes" in fields else KVCache
-    return [kind(**{f: to_torch(a[i], device) for f, a in fields.items()})
+    if "table" not in fields:
+        kind = QuantKVCache if "k_codes" in fields else KVCache
+        return [kind(**{f: to_torch(a[i], device) for f, a in fields.items()})
+                for i in range(cfg.n_layers)]
+    tables = np.asarray(fields.pop("table"))
+    if any(not np.array_equal(t, tables[0]) for t in tables):
+        raise ValueError("the JAX paged layers' block tables differ")
+    table = to_torch(tables[0], device)
+    pos = fields.pop("pos")
+    return [paged_kv_cache(table, to_torch(pos[i], device),
+                           **{f: to_torch(a[i], device)
+                              for f, a in fields.items()})
             for i in range(cfg.n_layers)]

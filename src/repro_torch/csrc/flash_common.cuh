@@ -1,7 +1,8 @@
 // Shared parts of the flash-decode and varlen flash-prefill kernels:
 // the K/V sources (bf16, f32, or int8 codes times an f32 scale), which
 // stage a tile of 32 keys into shared memory as stored, with cp.async (all
-// of a tile's copies in flight at once, no registers spent), and the
+// of a tile's copies in flight at once, no registers spent) from a flat
+// per-row cache or through a block table from a paged pool, and the
 // per-warp online-softmax step over one tile.
 //
 // A warp owns up to RW = 8 packed query rows (the GQA group of one
@@ -103,16 +104,32 @@ __device__ __forceinline__ float4 widen4(const int8_t* p) {
   return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
 }
 
-// The K/V sources: a cache of element type E, (B, Hkv, Lk, D) contiguous,
-// plus one f32 pow2 scale per position when E is int8 codes. `copy` stages
-// keys [base, base + TK) of flat rows kv_row0 + kpos into a Tile with `n`
-// threads of which this is `i0`; keys past hi are zero-filled and never
-// read. key4 / val4 read 4 head dims of tile key t back, widened to f32.
+// The K/V sources: a cache or pool of element type E, contiguous, plus one
+// f32 pow2 scale per position (same layout, last dim 1) when E is int8
+// codes. Both copies stage keys [base, base + TK) into a Tile with `n`
+// threads of which this is `i0`; keys past hi are zero-filled, never read
+// and never looked up. key4 / val4 read 4 head dims of tile key t back,
+// widened to f32.
+//
+// `copy` reads a flat cache (B, Hkv, Lk, D) at rows kv_row0 + kpos.
+// `copy_paged` reads a block pool (P, Hkv, bs, D) through row b's block
+// table (`table` points at its nblk entries): key kpos lives in physical
+// block table[kpos / bs], at row (table[kpos / bs] * Hkv + h) * bs +
+// kpos % bs. The address is resolved per key, so a tile may span several
+// blocks (bs < TK) or part of one (bs > TK), and the walk over keys, and
+// so the order of every sum, is the flat cache's for any bs. Each lane
+// looks up the row of tile key `lane` once (only keys <= hi, so only
+// table entries the row owns are read), and every 16-byte copy of key t
+// takes it from lane t by a shuffle: one table load per key, not per copy.
+// The flat copy keeps its own loop and its caller's base (b * Hkv + h) * Lk
+// computed as one int times Lk: these kernels are latency-bound (one warp
+// per scheduler), and a shared address functor whose base was a 64-bit
+// ((long)b * Hkv + h) * Lk cost the flat decode kernel 12% on an H100.
 template <typename E, bool SCALED>
 struct KVSource {
   const E* k;
   const E* v;
-  const float* ks;  // (B, Hkv, Lk, 1), SCALED only
+  const float* ks;  // SCALED only
   const float* vs;
   static constexpr int ES = sizeof(E);
 
@@ -136,6 +153,37 @@ struct KVSource {
         const int bytes = kpos <= hi ? 4 : 0;
         cp_async4(tl.ks + t, ks + row, bytes);
         cp_async4(tl.vs + t, vs + row, bytes);
+      }
+    }
+    cp_async_wait_all();
+  }
+
+  // n is a multiple of 32 (whole warps) and TK * cpr too, so a warp's
+  // lanes run the loops together and each shuffle has them all
+  __device__ __forceinline__ void copy_paged(const Tile& tl,
+                                             const int* table, int hkv,
+                                             int h, int bs, int base, int hi,
+                                             int D, int i0, int n) const {
+    const int cpr = D * ES / 16;
+    const int key = base + (i0 & 31);
+    const long my_row =
+        key <= hi
+            ? ((long)__ldg(table + key / bs) * hkv + h) * bs + key % bs
+            : 0;
+    for (int i = i0; i < TK * cpr; i += n) {
+      const int t = i / cpr, c = i % cpr;
+      const long row = __shfl_sync(0xffffffffu, my_row, t);
+      const int bytes = base + t <= hi ? 16 : 0;
+      cp_async16(tl.k + t * (D * ES + 16) + c * 16,
+                 reinterpret_cast<const char*>(k + row * D) + c * 16, bytes);
+      cp_async16(tl.v + t * D * ES + c * 16,
+                 reinterpret_cast<const char*>(v + row * D) + c * 16, bytes);
+    }
+    if (SCALED) {
+      for (int t = i0; t < TK; t += n) {  // t is the lane: my_row is t's
+        const int bytes = base + t <= hi ? 4 : 0;
+        cp_async4(tl.ks + t, ks + my_row, bytes);
+        cp_async4(tl.vs + t, vs + my_row, bytes);
       }
     }
     cp_async_wait_all();
@@ -272,6 +320,29 @@ __device__ __forceinline__ void warp_tile(Rows& st, const KV& kv,
     }
   }
   __syncwarp();  // Ps (and the caller's tile) may be rewritten after this
+}
+
+// Call launch(kv) with the K/V source of storage kind kv_kind (bf16, f32,
+// or int8 codes with f32 scales); returns its cudaError_t.
+template <class Launch>
+int with_kv_source(int kv_kind, const void* k, const void* v,
+                   const void* k_scale, const void* v_scale, Launch launch) {
+  switch (kv_kind) {
+    case KV_BF16:
+      return launch(KVBf16{static_cast<const __nv_bfloat16*>(k),
+                           static_cast<const __nv_bfloat16*>(v), nullptr,
+                           nullptr});
+    case KV_F32:
+      return launch(KVF32{static_cast<const float*>(k),
+                          static_cast<const float*>(v), nullptr, nullptr});
+    case KV_INT8:
+      return launch(KVInt8{static_cast<const int8_t*>(k),
+                           static_cast<const int8_t*>(v),
+                           static_cast<const float*>(k_scale),
+                           static_cast<const float*>(v_scale)});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs more

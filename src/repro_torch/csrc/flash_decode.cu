@@ -2,7 +2,12 @@
 // KV cache, dense (bf16 or f32 K/V) and fused int8-KV.
 //
 // Replaces the Pallas kernels flash_decode_pallas and
-// flash_decode_quant_pallas (src/repro/kernels/flash_attention/decode.py).
+// flash_decode_quant_pallas (src/repro/kernels/flash_attention/decode.py),
+// and, as `flash_decode_paged`, flash_decode_paged_pallas and
+// flash_decode_paged_quant_pallas: the same kernel reading a (P, Hkv, bs, D)
+// block pool through a per-row block table (`copy_paged` in
+// flash_common.cuh), bitwise equal to the flat kernel on the gathered cache
+// for any block size bs, since the key walk does not depend on bs.
 //
 // What bounds it on an H100: bytes. Each step reads every K/V position a
 // row needs (2 x keys x D per kv-head, in bf16 or int8 plus a scale) and
@@ -44,13 +49,14 @@ __host__ __device__ inline size_t decode_smem_bytes(int D, int es) {
          (warps > merge ? warps : merge);
 }
 
-template <class KV>
+template <class KV, bool PAGED>
 __global__ void __launch_bounds__(NT)
     flash_decode_kernel(KV kv, const float* __restrict__ q, long qsb,
                         long qsh, long qsl, const int* __restrict__ pos,
                         float* __restrict__ out, int Hkv, int group, int Lq,
                         int D, int Lk, int bkv, int window, float scale,
-                        float softcap) {
+                        float softcap, const int* __restrict__ table,
+                        int nblk, int bs) {
   extern __shared__ float4 smem4[];
   const int rows = group * Lq;
   const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
@@ -83,13 +89,17 @@ __global__ void __launch_bounds__(NT)
   const int hi = min(start + Lq - 1, Lk - 1);
   const int lo = window > 0 ? max(start - window + 1, 0) : 0;
   const long kv_row0 = (long)bh * Lk;
+  if (PAGED) table += (long)b * nblk;  // row b's block table
   Rows st;
   st.init();
   // KV blocks of bkv keys, dealt to the warps in turn
   for (int blk = lo + warp * bkv; blk <= hi; blk += WARPS * bkv) {
     const int end = min(blk + bkv - 1, hi);
     for (int t0 = blk; t0 <= end; t0 += TK) {
-      kv.copy(tl, kv_row0, t0, end, D, lane, 32);
+      if constexpr (PAGED)
+        kv.copy_paged(tl, table, Hkv, h, bs, t0, end, D, lane, 32);
+      else
+        kv.copy(tl, kv_row0, t0, end, D, lane, 32);
       __syncwarp();
       warp_tile(st, kv, tl, Qs, qpos, valid, nr, Ps, t0, Lk, D, window,
                 scale, softcap, lane);
@@ -131,20 +141,22 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <class KV>
-static int launch(KV kv, const float* q, long qsb, long qsh, long qsl,
-                  const int* pos, float* out, int B, int Hkv, int group,
-                  int Lq, int D, int Lk, int bkv, int window, float scale,
-                  float softcap, cudaStream_t stream) {
-  if (D % 4 || D > MAX_D || (D * KV::ES) % 16 || bkv < TK || bkv % TK)
+template <bool PAGED, class KV>
+static int launch(KV kv, const int* table, int nblk, int bs, const float* q,
+                  long qsb, long qsh, long qsl, const int* pos, float* out,
+                  int B, int Hkv, int group, int Lq, int D, int Lk, int bkv,
+                  int window, float scale, float softcap,
+                  cudaStream_t stream) {
+  if (D % 4 || D > MAX_D || (D * KV::ES) % 16 || bkv < TK || bkv % TK ||
+      (PAGED && (bs < 1 || nblk < 1 || !table)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = decode_smem_bytes(D, KV::ES);
-  cudaError_t err = allow_smem(flash_decode_kernel<KV>, smem);
+  cudaError_t err = allow_smem(flash_decode_kernel<KV, PAGED>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * Hkv, (group * Lq + RW - 1) / RW);
-  flash_decode_kernel<KV><<<grid, NT, smem, stream>>>(
+  flash_decode_kernel<KV, PAGED><<<grid, NT, smem, stream>>>(
       kv, q, qsb, qsh, qsl, pos, out, Hkv, group, Lq, D, Lk, bkv, window,
-      scale, softcap);
+      scale, softcap, table, nblk, bs);
   return (int)cudaGetLastError();
 }
 
@@ -164,30 +176,35 @@ extern "C" int flash_decode(int kv_kind, const void* q, long long qsb,
                             int bkv, int window, float scale, float softcap,
                             void* stream) {
   using namespace repro;
-  const float* qf = static_cast<const float*>(q);
-  const int* p = static_cast<const int*>(pos);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kv_kind) {
-    case KV_BF16:
-      return launch(KVBf16{static_cast<const __nv_bfloat16*>(k),
-                           static_cast<const __nv_bfloat16*>(v), nullptr,
-                           nullptr},
-                    qf, qsb, qsh, qsl, p, o, B, Hkv, group, Lq, D, Lk, bkv,
-                    window, scale, softcap, s);
-    case KV_F32:
-      return launch(KVF32{static_cast<const float*>(k),
-                          static_cast<const float*>(v), nullptr, nullptr},
-                    qf, qsb, qsh, qsl, p, o, B, Hkv, group, Lq, D, Lk, bkv,
-                    window, scale, softcap, s);
-    case KV_INT8:
-      return launch(KVInt8{static_cast<const int8_t*>(k),
-                           static_cast<const int8_t*>(v),
-                           static_cast<const float*>(k_scale),
-                           static_cast<const float*>(v_scale)},
-                    qf, qsb, qsh, qsl, p, o, B, Hkv, group, Lq, D, Lk, bkv,
-                    window, scale, softcap, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_kv_source(kv_kind, k, v, k_scale, v_scale, [&](auto kv) {
+    return launch<false>(kv, nullptr, 0, 0, static_cast<const float*>(q),
+                         qsb, qsh, qsl, static_cast<const int*>(pos),
+                         static_cast<float*>(out), B, Hkv, group, Lq, D, Lk,
+                         bkv, window, scale, softcap,
+                         static_cast<cudaStream_t>(stream));
+  });
+}
+
+// Paged: k, v: (P, Hkv, bs, D) block pools, k_scale, v_scale: (P, Hkv, bs,
+// 1); table: (B, nblk) int32 on the device, row b's logical block j at
+// physical block table[b, j] (every entry a row's frontier reaches must
+// name a block of the pool); the row's keys are positions [0, nblk * bs).
+// The rest as flash_decode.
+extern "C" int flash_decode_paged(int kv_kind, const void* q, long long qsb,
+                                  long long qsh, long long qsl, const void* k,
+                                  const void* v, const void* k_scale,
+                                  const void* v_scale, const void* table,
+                                  const void* pos, void* out, int B, int Hkv,
+                                  int group, int Lq, int D, int nblk, int bs,
+                                  int bkv, int window, float scale,
+                                  float softcap, void* stream) {
+  using namespace repro;
+  return with_kv_source(kv_kind, k, v, k_scale, v_scale, [&](auto kv) {
+    return launch<true>(kv, static_cast<const int*>(table), nblk, bs,
+                        static_cast<const float*>(q), qsb, qsh, qsl,
+                        static_cast<const int*>(pos),
+                        static_cast<float*>(out), B, Hkv, group, Lq, D,
+                        nblk * bs, bkv, window, scale, softcap,
+                        static_cast<cudaStream_t>(stream));
+  });
 }

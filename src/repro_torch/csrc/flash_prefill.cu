@@ -4,7 +4,12 @@
 // chunk's keys. Dense (bf16 or f32 K/V) and fused int8-KV.
 //
 // Replaces the Pallas kernels flash_prefill_pallas and
-// flash_prefill_quant_pallas (src/repro/kernels/flash_attention/prefill.py).
+// flash_prefill_quant_pallas (src/repro/kernels/flash_attention/prefill.py),
+// and, as `flash_prefill_paged`, flash_prefill_paged_pallas and
+// flash_prefill_paged_quant_pallas: the same kernel reading a (P, Hkv, bs,
+// D) block pool through a per-row block table (`copy_paged` in
+// flash_common.cuh), bitwise equal to the flat kernel on the gathered cache
+// for any block size bs, since the key walk does not depend on bs.
 //
 // What bounds it on an H100: at the serving shapes (group 6, W = 32), f32
 // arithmetic. A q-block of 32 queries times 6 heads does ~2 x 192 flops per
@@ -37,14 +42,15 @@ __host__ __device__ inline size_t prefill_smem_bytes(int D, int es) {
          tile_bytes(D, es);
 }
 
-template <class KV>
+template <class KV, bool PAGED>
 __global__ void __launch_bounds__(NT)
     flash_prefill_kernel(KV kv, const float* __restrict__ q, long qsb,
                          long qsh, long qsl, const int* __restrict__ pos,
                          const int* __restrict__ lengths,
                          float* __restrict__ out, int Hkv, int group, int W,
                          int bq, int D, int Lk, int window, float scale,
-                         float softcap) {
+                         float softcap, const int* __restrict__ table,
+                         int nblk, int bs) {
   extern __shared__ float4 smem4[];
   const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
   const int rows = group * bq, r0 = blockIdx.z * RB;
@@ -94,10 +100,14 @@ __global__ void __launch_bounds__(NT)
   const int hi = min(start + qhi, Lk - 1);
   const int lo = window > 0 ? min(max(start + qlo - window + 1, 0), hi) : 0;
   const int wr0 = warp * RW, wnr = max(0, min(RW, nr - wr0));
+  if (PAGED) table += (long)b * nblk;  // row b's block table
   Rows st;
   st.init();
   for (int t0 = lo; t0 <= hi; t0 += TK) {
-    kv.copy(tl, (long)bh * Lk, t0, hi, D, tid, NT);
+    if constexpr (PAGED)
+      kv.copy_paged(tl, table, Hkv, h, bs, t0, hi, D, tid, NT);
+    else
+      kv.copy(tl, (long)bh * Lk, t0, hi, D, tid, NT);
     __syncthreads();
     if (wnr > 0)
       warp_tile(st, kv, tl, Qs + wr0 * D, qpos + wr0, valid + wr0, wnr, Ps,
@@ -122,21 +132,22 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <class KV>
-static int launch(KV kv, const float* q, long qsb, long qsh, long qsl,
-                  const int* pos, const int* lengths, float* out, int B,
-                  int Hkv, int group, int W, int bq, int D, int Lk,
-                  int window, float scale, float softcap,
-                  cudaStream_t stream) {
-  if (D % 4 || D > MAX_D || (D * KV::ES) % 16 || bq < 1 || bq > W)
+template <bool PAGED, class KV>
+static int launch(KV kv, const int* table, int nblk, int bs, const float* q,
+                  long qsb, long qsh, long qsl, const int* pos,
+                  const int* lengths, float* out, int B, int Hkv, int group,
+                  int W, int bq, int D, int Lk, int window, float scale,
+                  float softcap, cudaStream_t stream) {
+  if (D % 4 || D > MAX_D || (D * KV::ES) % 16 || bq < 1 || bq > W ||
+      (PAGED && (bs < 1 || nblk < 1 || !table)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = prefill_smem_bytes(D, KV::ES);
-  cudaError_t err = allow_smem(flash_prefill_kernel<KV>, smem);
+  cudaError_t err = allow_smem(flash_prefill_kernel<KV, PAGED>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * Hkv, (W + bq - 1) / bq, (group * bq + RB - 1) / RB);
-  flash_prefill_kernel<KV><<<grid, NT, smem, stream>>>(
+  flash_prefill_kernel<KV, PAGED><<<grid, NT, smem, stream>>>(
       kv, q, qsb, qsh, qsl, pos, lengths, out, Hkv, group, W, bq, D, Lk,
-      window, scale, softcap);
+      window, scale, softcap, table, nblk, bs);
   return (int)cudaGetLastError();
 }
 
@@ -158,31 +169,38 @@ extern "C" int flash_prefill(int kv_kind, const void* q, long long qsb,
                              int window, float scale, float softcap,
                              void* stream) {
   using namespace repro;
-  const float* qf = static_cast<const float*>(q);
-  const int* p = static_cast<const int*>(pos);
-  const int* ln = static_cast<const int*>(lengths);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kv_kind) {
-    case KV_BF16:
-      return launch(KVBf16{static_cast<const __nv_bfloat16*>(k),
-                           static_cast<const __nv_bfloat16*>(v), nullptr,
-                           nullptr},
-                    qf, qsb, qsh, qsl, p, ln, o, B, Hkv, group, W, bq, D, Lk,
-                    window, scale, softcap, s);
-    case KV_F32:
-      return launch(KVF32{static_cast<const float*>(k),
-                          static_cast<const float*>(v), nullptr, nullptr},
-                    qf, qsb, qsh, qsl, p, ln, o, B, Hkv, group, W, bq, D, Lk,
-                    window, scale, softcap, s);
-    case KV_INT8:
-      return launch(KVInt8{static_cast<const int8_t*>(k),
-                           static_cast<const int8_t*>(v),
-                           static_cast<const float*>(k_scale),
-                           static_cast<const float*>(v_scale)},
-                    qf, qsb, qsh, qsl, p, ln, o, B, Hkv, group, W, bq, D, Lk,
-                    window, scale, softcap, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_kv_source(kv_kind, k, v, k_scale, v_scale, [&](auto kv) {
+    return launch<false>(kv, nullptr, 0, 0, static_cast<const float*>(q),
+                         qsb, qsh, qsl, static_cast<const int*>(pos),
+                         static_cast<const int*>(lengths),
+                         static_cast<float*>(out), B, Hkv, group, W, bq, D,
+                         Lk, window, scale, softcap,
+                         static_cast<cudaStream_t>(stream));
+  });
+}
+
+// Paged: k, v: (P, Hkv, bs, D) block pools, k_scale, v_scale: (P, Hkv, bs,
+// 1); table: (B, nblk) int32 on the device, row b's logical block j at
+// physical block table[b, j] (every entry a row's frontier reaches must
+// name a block of the pool); the row's keys are positions [0, nblk * bs).
+// The rest as flash_prefill.
+extern "C" int flash_prefill_paged(int kv_kind, const void* q, long long qsb,
+                                   long long qsh, long long qsl,
+                                   const void* k, const void* v,
+                                   const void* k_scale, const void* v_scale,
+                                   const void* table, const void* pos,
+                                   const void* lengths, void* out, int B,
+                                   int Hkv, int group, int W, int bq, int D,
+                                   int nblk, int bs, int window, float scale,
+                                   float softcap, void* stream) {
+  using namespace repro;
+  return with_kv_source(kv_kind, k, v, k_scale, v_scale, [&](auto kv) {
+    return launch<true>(kv, static_cast<const int*>(table), nblk, bs,
+                        static_cast<const float*>(q), qsb, qsh, qsl,
+                        static_cast<const int*>(pos),
+                        static_cast<const int*>(lengths),
+                        static_cast<float*>(out), B, Hkv, group, W, bq, D,
+                        nblk * bs, window, scale, softcap,
+                        static_cast<cudaStream_t>(stream));
+  });
 }

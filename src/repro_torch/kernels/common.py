@@ -30,7 +30,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -124,11 +124,13 @@ def check_launch(lib: ctypes.CDLL, what: str, code: int) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def call_kernel(name: str, argtypes: Sequence, *args) -> None:
-    """Launch C entry point `name` of library `name` on the current stream
-    (appended as the last argument) and raise on a non-zero cudaError_t.
-    `argtypes` are the ctypes of `args`, the stream excluded."""
-    lib = load_kernel(name)
+def call_kernel(name: str, argtypes: Sequence, *args,
+                source: Optional[str] = None) -> None:
+    """Launch C entry point `name` of the library of kernel source `source`
+    (default: `name`) on the current stream (appended as the last argument)
+    and raise on a non-zero cudaError_t. `argtypes` are the ctypes of
+    `args`, the stream excluded."""
+    lib = load_kernel(source or name)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = [*argtypes, ctypes.c_void_p]

@@ -9,10 +9,18 @@ its warps in KV blocks of `bkv` keys, with the GQA group packed into its
 query rows. The int8-KV variant takes `(codes, pow2 scale)` and
 dequantizes inside the kernel, bit-identical to dequantize-then-dense-kernel.
 
+`flash_decode_paged` / `flash_decode_paged_quant` are the same kernel over
+a (P, Hkv, bs, D) block pool shared by all rows: row b's logical block j
+is physical block table[b, j], and the kernel resolves each key's address
+through the table (the `flash_decode_paged` entry point of the same
+source). At the same `bkv` a paged launch is bitwise equal to the flat
+kernel on the gathered cache, for any block size.
+
 On CPU tensors each wrapper runs its plain PyTorch version
-(`flash_decode_plain`, `flash_decode_quant_plain`), which the tests and
-`chip_smoke.py` also compare the kernel against on the card. Each wrapper
-counts its kernel launches in `.launches`.
+(`flash_decode_plain`, `flash_decode_quant_plain`; the paged ones gather
+the pages, then run those), which the tests and `chip_smoke.py` also
+compare the kernel against on the card. Each wrapper counts its kernel
+launches in `.launches`.
 """
 from __future__ import annotations
 
@@ -22,10 +30,12 @@ import torch
 
 from .ref import mha_ref
 from ..common import call_kernel
-from .shared import ARGTYPES, as_row_vector, dequant, launch_args
+from .shared import ARGTYPES, as_row_vector, dequant, gather_pages, launch_args
 
 __all__ = ["flash_decode", "flash_decode_quant", "flash_decode_plain",
-           "flash_decode_quant_plain"]
+           "flash_decode_quant_plain", "flash_decode_paged",
+           "flash_decode_paged_quant", "flash_decode_paged_plain",
+           "flash_decode_paged_quant_plain"]
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -50,19 +60,50 @@ def flash_decode_quant_plain(q: torch.Tensor, k_codes: torch.Tensor,
                               window=window, softcap=softcap, scale=scale)
 
 
+def flash_decode_paged_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, table: torch.Tensor, pos,
+                             window: Optional[int] = None,
+                             softcap: Optional[float] = None,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the paged kernel: gather the pages, then attend."""
+    return flash_decode_plain(q, gather_pages(k, table),
+                              gather_pages(v, table), pos=pos, window=window,
+                              softcap=softcap, scale=scale)
+
+
+def flash_decode_paged_quant_plain(q: torch.Tensor, k_codes: torch.Tensor,
+                                   k_scale: torch.Tensor,
+                                   v_codes: torch.Tensor,
+                                   v_scale: torch.Tensor, *,
+                                   table: torch.Tensor, pos,
+                                   window: Optional[int] = None,
+                                   softcap: Optional[float] = None,
+                                   scale: Optional[float] = None
+                                   ) -> torch.Tensor:
+    """Plain version of the paged int8-KV kernel: gather codes and scales,
+    dequantize, then attend."""
+    return flash_decode_quant_plain(
+        q, *(gather_pages(a, table) for a in (k_codes, k_scale, v_codes,
+                                              v_scale)),
+        pos=pos, window=window, softcap=softcap, scale=scale)
+
+
 def _launch(wrapper, q, k, v, k_scale, v_scale, pos, window, softcap, scale,
-            bkv) -> torch.Tensor:
+            bkv, table=None) -> torch.Tensor:
     b, hq, lq, d = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
-    args = launch_args(q, k, v, k_scale, v_scale, window, softcap)
+    hkv = k.shape[1]
+    args = launch_args(q, k, v, k_scale, v_scale, window, softcap, table)
     if bkv < 32 or bkv % 32:
         raise ValueError(f"bkv must be a multiple of 32, got {bkv}")
     pos = as_row_vector(pos, b, q.device).contiguous()
     out = torch.empty((b, hq, lq, d), dtype=torch.float32, device=q.device)
-    call_kernel("flash_decode", ARGTYPES["flash_decode"], *args,
-                pos.data_ptr(), out.data_ptr(), b, hkv, hq // hkv, lq, d, lk,
-                bkv, window or 0, d ** -0.5 if scale is None else scale,
-                softcap or 0.0)
+    # flat: the cache length; paged: the table width and the block size
+    keys = [k.shape[2]] if table is None else [table.shape[1], k.shape[2]]
+    entry = "flash_decode" if table is None else "flash_decode_paged"
+    call_kernel(entry, ARGTYPES[entry], *args, pos.data_ptr(),
+                out.data_ptr(), b, hkv, hq // hkv, lq, d, *keys, bkv,
+                window or 0, d ** -0.5 if scale is None else scale,
+                softcap or 0.0, source="flash_decode")
     wrapper.launches += 1
     return out
 
@@ -101,5 +142,44 @@ def flash_decode_quant(q: torch.Tensor, k_codes: torch.Tensor,
                    pos, window, softcap, scale, bkv)
 
 
+def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, table: torch.Tensor, pos,
+                       window: Optional[int] = None,
+                       softcap: Optional[float] = None,
+                       scale: Optional[float] = None,
+                       bkv: int = 128) -> torch.Tensor:
+    """Paged decode. k, v: (P, Hkv, bs, D) block pools (bf16 or f32) shared
+    by all rows; table: (B, nblk) int32 block table, row b's cache position
+    j * bs + i at pool block table[b, j], offset i (a row reaches positions
+    up to nblk * bs - 1). Every entry up to a row's frontier must name a
+    pool block. The rest as `flash_decode`."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(q, k, v, table=table, pos=pos,
+                                        window=window, softcap=softcap,
+                                        scale=scale)
+    return _launch(flash_decode_paged, q, k, v, None, None, pos, window,
+                   softcap, scale, bkv, table)
+
+
+def flash_decode_paged_quant(q: torch.Tensor, k_codes: torch.Tensor,
+                             k_scale: torch.Tensor, v_codes: torch.Tensor,
+                             v_scale: torch.Tensor, *, table: torch.Tensor,
+                             pos, window: Optional[int] = None,
+                             softcap: Optional[float] = None,
+                             scale: Optional[float] = None,
+                             bkv: int = 128) -> torch.Tensor:
+    """Paged int8-KV decode: codes (P, Hkv, bs, D) int8 + pow2 scales
+    (P, Hkv, bs, 1) f32 pools, read through the table and dequantized
+    inside the kernel."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_quant_plain(
+            q, k_codes, k_scale, v_codes, v_scale, table=table, pos=pos,
+            window=window, softcap=softcap, scale=scale)
+    return _launch(flash_decode_paged_quant, q, k_codes, v_codes, k_scale,
+                   v_scale, pos, window, softcap, scale, bkv, table)
+
+
 flash_decode.launches = 0
 flash_decode_quant.launches = 0
+flash_decode_paged.launches = 0
+flash_decode_paged_quant.launches = 0

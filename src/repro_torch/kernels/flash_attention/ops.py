@@ -11,6 +11,10 @@ codes with per-position pow2 scales (the QuantKVCache layout) and the impl
 dequantizes — inside the kernels, up front on the ref route. Every impl
 also accepts `lengths`: the varlen prefill kernel zeroes rows past it; the
 others ignore it (their outputs at invalid positions are never consumed).
+And every impl accepts `block_tables`: when given, k/v (and the scales)
+are (P, Hkv, bs, .) block pools and block_tables the (B, nblk) int32
+per-row map — the kernels read through it, the ref route gathers the pages
+(`pool[table]`).
 """
 from __future__ import annotations
 
@@ -20,10 +24,12 @@ import torch
 
 from ...api.policy import ExecutionPolicy
 from ...api.registry import register
-from .decode import flash_decode, flash_decode_quant
-from .prefill import flash_prefill, flash_prefill_quant
+from .decode import (flash_decode, flash_decode_paged,
+                     flash_decode_paged_quant, flash_decode_quant)
+from .prefill import (flash_prefill, flash_prefill_paged,
+                      flash_prefill_paged_quant, flash_prefill_quant)
 from .ref import mha_ref
-from .shared import dequant
+from .shared import dequant, gather_pages
 
 __all__ = []
 
@@ -42,8 +48,18 @@ def _attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        lengths: Optional[torch.Tensor] = None,
                        k_scale: Optional[torch.Tensor] = None,
                        v_scale: Optional[torch.Tensor] = None,
+                       block_tables: Optional[torch.Tensor] = None,
                        policy: ExecutionPolicy) -> torch.Tensor:
     assert causal, "the varlen prefill kernel is causal by construction"
+    if block_tables is not None:
+        if k_scale is not None:
+            return flash_prefill_paged_quant(
+                q, k, k_scale, v, v_scale, table=block_tables, pos=offset,
+                lengths=lengths, window=window, softcap=softcap, scale=scale,
+                bq=policy.bq)
+        return flash_prefill_paged(q, k, v, table=block_tables, pos=offset,
+                                   lengths=lengths, window=window,
+                                   softcap=softcap, scale=scale, bq=policy.bq)
     if k_scale is not None:
         return flash_prefill_quant(q, k, k_scale, v, v_scale, pos=offset,
                                    lengths=lengths, window=window,
@@ -60,8 +76,17 @@ def _attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       lengths: Optional[torch.Tensor] = None,
                       k_scale: Optional[torch.Tensor] = None,
                       v_scale: Optional[torch.Tensor] = None,
+                      block_tables: Optional[torch.Tensor] = None,
                       policy: ExecutionPolicy) -> torch.Tensor:
     assert causal, "the decode kernel is causal by construction"
+    if block_tables is not None:
+        if k_scale is not None:
+            return flash_decode_paged_quant(
+                q, k, k_scale, v, v_scale, table=block_tables, pos=offset,
+                window=window, softcap=softcap, scale=scale, bkv=policy.bkv)
+        return flash_decode_paged(q, k, v, table=block_tables, pos=offset,
+                                  window=window, softcap=softcap, scale=scale,
+                                  bkv=policy.bkv)
     if k_scale is not None:
         return flash_decode_quant(q, k, k_scale, v, v_scale, pos=offset,
                                   window=window, softcap=softcap, scale=scale,
@@ -78,7 +103,15 @@ def _attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    lengths: Optional[torch.Tensor] = None,
                    k_scale: Optional[torch.Tensor] = None,
                    v_scale: Optional[torch.Tensor] = None,
+                   block_tables: Optional[torch.Tensor] = None,
                    policy: ExecutionPolicy) -> torch.Tensor:
+    if block_tables is not None:
+        # gather codes AND scales through the table, then dequantize: the
+        # values of dequantize-then-gather, without an f32 pool copy
+        k, v = gather_pages(k, block_tables), gather_pages(v, block_tables)
+        if k_scale is not None:
+            k_scale = gather_pages(k_scale, block_tables)
+            v_scale = gather_pages(v_scale, block_tables)
     k, v = _maybe_dequant(q, k, v, k_scale, v_scale)
     return mha_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                    scale=scale, offset=offset)

@@ -11,9 +11,15 @@ to their causal frontier (and from their window's lower bound). Invalid
 (pad) query rows return EXACT zeros. The int8-KV variant dequantizes inside
 the kernel, bit-identical to dequantize-then-dense-kernel.
 
+`flash_prefill_paged` / `flash_prefill_paged_quant` are the same kernel
+over a (P, Hkv, bs, D) block pool read through a per-row block table (the
+`flash_prefill_paged` entry point of the same source), bitwise equal to the
+flat kernel on the gathered cache for any block size.
+
 On CPU tensors each wrapper runs its plain PyTorch version
-(`flash_prefill_plain`, `flash_prefill_quant_plain`). Each wrapper counts
-its kernel launches in `.launches`.
+(`flash_prefill_plain`, `flash_prefill_quant_plain`; the paged ones gather
+the pages, then run those). Each wrapper counts its kernel launches in
+`.launches`.
 """
 from __future__ import annotations
 
@@ -23,10 +29,12 @@ import torch
 
 from .ref import mha_ref
 from ..common import call_kernel
-from .shared import ARGTYPES, as_row_vector, dequant, launch_args
+from .shared import ARGTYPES, as_row_vector, dequant, gather_pages, launch_args
 
 __all__ = ["flash_prefill", "flash_prefill_quant", "flash_prefill_plain",
-           "flash_prefill_quant_plain"]
+           "flash_prefill_quant_plain", "flash_prefill_paged",
+           "flash_prefill_paged_quant", "flash_prefill_paged_plain",
+           "flash_prefill_paged_quant_plain"]
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -57,19 +65,52 @@ def flash_prefill_quant_plain(q: torch.Tensor, k_codes: torch.Tensor,
                                softcap=softcap, scale=scale)
 
 
+def flash_prefill_paged_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, table: torch.Tensor, pos,
+                              lengths=None, window: Optional[int] = None,
+                              softcap: Optional[float] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the paged kernel: gather the pages, then attend."""
+    return flash_prefill_plain(q, gather_pages(k, table),
+                               gather_pages(v, table), pos=pos,
+                               lengths=lengths, window=window,
+                               softcap=softcap, scale=scale)
+
+
+def flash_prefill_paged_quant_plain(q: torch.Tensor, k_codes: torch.Tensor,
+                                    k_scale: torch.Tensor,
+                                    v_codes: torch.Tensor,
+                                    v_scale: torch.Tensor, *,
+                                    table: torch.Tensor, pos, lengths=None,
+                                    window: Optional[int] = None,
+                                    softcap: Optional[float] = None,
+                                    scale: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """Plain version of the paged int8-KV kernel: gather codes and scales,
+    dequantize, then attend."""
+    return flash_prefill_quant_plain(
+        q, *(gather_pages(a, table) for a in (k_codes, k_scale, v_codes,
+                                              v_scale)),
+        pos=pos, lengths=lengths, window=window, softcap=softcap,
+        scale=scale)
+
+
 def _launch(wrapper, q, k, v, k_scale, v_scale, pos, lengths, window,
-            softcap, scale, bq) -> torch.Tensor:
+            softcap, scale, bq, table=None) -> torch.Tensor:
     b, hq, lq, d = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
-    args = launch_args(q, k, v, k_scale, v_scale, window, softcap)
+    hkv = k.shape[1]
+    args = launch_args(q, k, v, k_scale, v_scale, window, softcap, table)
     bq = max(1, min(bq, lq))
     pos = as_row_vector(pos, b, q.device).contiguous()
     lens = as_row_vector(lengths, b, q.device, fill=lq).contiguous()
     out = torch.empty((b, hq, lq, d), dtype=torch.float32, device=q.device)
-    call_kernel("flash_prefill", ARGTYPES["flash_prefill"], *args,
-                pos.data_ptr(), lens.data_ptr(), out.data_ptr(), b, hkv,
-                hq // hkv, lq, bq, d, lk, window or 0,
-                d ** -0.5 if scale is None else scale, softcap or 0.0)
+    # flat: the cache length; paged: the table width and the block size
+    keys = [k.shape[2]] if table is None else [table.shape[1], k.shape[2]]
+    entry = "flash_prefill" if table is None else "flash_prefill_paged"
+    call_kernel(entry, ARGTYPES[entry], *args, pos.data_ptr(),
+                lens.data_ptr(), out.data_ptr(), b, hkv, hq // hkv, lq, bq,
+                d, *keys, window or 0, d ** -0.5 if scale is None else scale,
+                softcap or 0.0, source="flash_prefill")
     wrapper.launches += 1
     return out
 
@@ -110,5 +151,44 @@ def flash_prefill_quant(q: torch.Tensor, k_codes: torch.Tensor,
                    v_scale, pos, lengths, window, softcap, scale, bq)
 
 
+def flash_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, table: torch.Tensor, pos, lengths=None,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None,
+                        bq: int = 32) -> torch.Tensor:
+    """Paged varlen prefill. k, v: (P, Hkv, bs, D) block pools (bf16 or
+    f32) already holding the chunk's keys; table: (B, nblk) int32 block
+    table (the keys of row b are positions [0, nblk * bs)). The rest as
+    `flash_prefill`."""
+    if q.device.type == "cpu":
+        return flash_prefill_paged_plain(q, k, v, table=table, pos=pos,
+                                         lengths=lengths, window=window,
+                                         softcap=softcap, scale=scale)
+    return _launch(flash_prefill_paged, q, k, v, None, None, pos, lengths,
+                   window, softcap, scale, bq, table)
+
+
+def flash_prefill_paged_quant(q: torch.Tensor, k_codes: torch.Tensor,
+                              k_scale: torch.Tensor, v_codes: torch.Tensor,
+                              v_scale: torch.Tensor, *, table: torch.Tensor,
+                              pos, lengths=None,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None,
+                              scale: Optional[float] = None,
+                              bq: int = 32) -> torch.Tensor:
+    """Paged int8-KV prefill: codes (P, Hkv, bs, D) int8 + pow2 scales
+    (P, Hkv, bs, 1) f32 pools, read through the table and dequantized
+    inside the kernel."""
+    if q.device.type == "cpu":
+        return flash_prefill_paged_quant_plain(
+            q, k_codes, k_scale, v_codes, v_scale, table=table, pos=pos,
+            lengths=lengths, window=window, softcap=softcap, scale=scale)
+    return _launch(flash_prefill_paged_quant, q, k_codes, v_codes, k_scale,
+                   v_scale, pos, lengths, window, softcap, scale, bq, table)
+
+
 flash_prefill.launches = 0
 flash_prefill_quant.launches = 0
+flash_prefill_paged.launches = 0
+flash_prefill_paged_quant.launches = 0

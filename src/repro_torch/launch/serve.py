@@ -6,10 +6,13 @@
         --smoke --device cpu --requests 2 --max-new 4    # plain, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1p5b \\
         --weight-format int4                             # resident int4
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --paged --block-size 8                           # paged KV pool
 
 Random weights from seed 0, 4 slots of 128 positions, prompts of 3-9
 random tokens. Prints the routes the attention and the Linear weights
-take, the token rate and the launch counts of the kernels.
+take, the token rate and the launch counts of the kernels, and with
+--paged the block pool's occupancy and sharing counters.
 """
 from __future__ import annotations
 
@@ -25,11 +28,12 @@ from ..core.formats import RESIDENT_FORMATS
 from ..kernels.aio_matmul import aio_matmul
 from ..kernels.aio_quant import aio_quant
 from ..kernels.flash_attention import KERNELS as ATTENTION_KERNELS
+from ..kernels.flash_attention import PAGED_KERNELS
 from ..models import init_params
 from ..serving import Request, ServingEngine
 
 
-KERNELS = (*ATTENTION_KERNELS, aio_matmul, aio_quant)
+KERNELS = (*ATTENTION_KERNELS, *PAGED_KERNELS, aio_matmul, aio_quant)
 
 
 def main(argv=None):
@@ -47,6 +51,14 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="prompt tokens a row advances per admission launch")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the paged block-pool KV cache (prefix "
+                         "sharing, copy-on-write, LRU eviction)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="positions per pool block (--paged; divides 128)")
+    ap.add_argument("--pool-blocks", type=int, default=None,
+                    help="blocks in the pool (--paged; default: every slot "
+                         "can reach max_len)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
@@ -54,7 +66,9 @@ def main(argv=None):
     model = init_params(cfg, seed=0, device=args.device)
     eng = ServingEngine(cfg, model, slots=4, max_len=128,
                         weight_format=args.weight_format,
-                        prefill_chunk=args.prefill_chunk)
+                        prefill_chunk=args.prefill_chunk, paged=args.paged,
+                        block_size=args.block_size,
+                        pool_blocks=args.pool_blocks)
     t0 = time.perf_counter()
     eng.warmup()
     print(f"[serve:{args.arch}] warmup {time.perf_counter() - t0:.2f}s "
@@ -79,6 +93,15 @@ def main(argv=None):
           f"steps, {st.prefill_chunk_calls} chunked prefills)")
     print(f"[serve:{args.arch}] kernel launches: "
           + ", ".join(f"{k.__name__}={k.launches}" for k in KERNELS))
+    if args.paged:
+        ps = eng.pool_stats()
+        print(f"[serve:{args.arch}] pool: {ps['pool_blocks']} blocks "
+              f"(block_size={ps['block_size']}) used={ps['used_blocks']} "
+              f"registry={ps['registry_entries']} "
+              f"hits={ps['prefix_hits']}/{ps['admitted']} "
+              f"shared_tokens={ps['shared_tokens']} cow={ps['cow_copies']} "
+              f"evictions={ps['evictions']} skips={ps['eviction_skips']} "
+              f"deferred={ps['deferred_admissions']}")
     return done
 
 

@@ -1,5 +1,6 @@
 """The dense decoder model: layers, attention with KV caches, transformer."""
 from .layers import QuantPolicy  # noqa: F401
-from .transformer import (ModelConfig, Transformer, decode_step, forward,  # noqa: F401
+from .transformer import (ModelConfig, Transformer,  # noqa: F401
+                          copy_pool_blocks, decode_step, forward,
                           init_caches, init_params, quantize_params,
-                          reset_slots, resident_format)
+                          reset_slots, resident_format, set_block_tables)

@@ -1,8 +1,10 @@
-"""GQA attention block with a per-row KV cache: QKV bias (qwen2), logit
-softcap and sliding window, and the int8 KV cache format.
+"""GQA attention block with a KV cache: QKV bias (qwen2), logit softcap
+and sliding window, the int8 KV cache format, and the paged block-pool
+layout of both.
 
 The caches are updated IN PLACE: each step writes its new K/V into the
-preallocated (B, Hkv, max_len, D) buffers and advances `pos`. That takes
+preallocated (B, Hkv, max_len, D) buffers, or into the (P, Hkv, bs, D)
+block pool through each row's block table, and advances `pos`. That takes
 the place of the JAX engine's buffer donation (`donate_argnums`): no step
 copies the KV residency.
 """
@@ -19,7 +21,9 @@ from ..api import ops as aio_ops
 from ..core.formats import pow2_ceil
 from .layers import Linear, QuantPolicy, rope
 
-__all__ = ["KVCache", "QuantKVCache", "init_kv_cache", "Attention"]
+__all__ = ["KVCache", "QuantKVCache", "PagedKVCache", "PagedQuantKVCache",
+           "PAGED_TYPES", "init_kv_cache", "init_paged_kv_cache",
+           "paged_kv_cache", "striped_table", "Attention"]
 
 
 @dataclasses.dataclass
@@ -44,6 +48,41 @@ class QuantKVCache:
     pos: torch.Tensor
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """Block-pool decode cache: all rows share one pool of fixed-size KV
+    blocks, and row b's logical block j is physical block table[b, j], so
+    rows pay only for the context they hold and equal prompt prefixes can
+    alias the same blocks (copy-on-write, managed by the serving engine).
+
+    k/v:   (P + 1, Hkv, bs, D) — P pool blocks of bs positions, then one
+           trash block (index P) that no table names: writes the update
+           drops (pad tokens, positions past the table) land there
+    table: (B, nblk) int32 — per-row logical -> physical block map
+    pos:   (B,) — per-row write frontier, as KVCache.pos
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    table: torch.Tensor
+    pos: torch.Tensor
+
+
+@dataclasses.dataclass
+class PagedQuantKVCache:
+    """INT8 block-pool cache: the PagedKVCache layout with QuantKVCache
+    formats — codes (P + 1, Hkv, bs, D) int8, scales (P + 1, Hkv, bs, 1) f32
+    pow2, the last block the trash block."""
+    k_codes: torch.Tensor
+    k_scale: torch.Tensor
+    v_codes: torch.Tensor
+    v_scale: torch.Tensor
+    table: torch.Tensor
+    pos: torch.Tensor
+
+
+PAGED_TYPES = (PagedKVCache, PagedQuantKVCache)
+
+
 def init_kv_cache(batch: int, n_kv: int, max_len: int, head_dim: int, *,
                   device, dtype=torch.bfloat16, quantized: bool = False):
     pos = torch.zeros(batch, dtype=torch.int32, device=device)
@@ -58,6 +97,55 @@ def init_kv_cache(batch: int, n_kv: int, max_len: int, head_dim: int, *,
             pos=pos)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device), pos=pos)
+
+
+def striped_table(batch: int, nblk: int, pool_blocks: int, *,
+                  device) -> torch.Tensor:
+    """The (batch, nblk) int32 striped identity block table (row b's
+    logical block j -> physical (b * nblk + j) mod P): a fresh paged cache
+    behaves like per-slot stripes until an allocator rewrites it."""
+    return ((torch.arange(batch, device=device)[:, None] * nblk
+             + torch.arange(nblk, device=device)[None, :])
+            % pool_blocks).to(torch.int32)
+
+
+def paged_kv_cache(table: torch.Tensor, pos: torch.Tensor, **pools):
+    """The port's paged cache over P-block pools, given as k, v (a
+    PagedKVCache) or k_codes, k_scale, v_codes, v_scale (a
+    PagedQuantKVCache): each pool gets the trash block appended (zeros,
+    ones for the scales). With `_paged_update`, the one place that knows
+    the trash block exists; callers see P blocks."""
+    def grow(name, pool):
+        trash = torch.full((1,) + tuple(pool.shape[1:]),
+                           1.0 if name.endswith("_scale") else 0.0,
+                           dtype=pool.dtype, device=pool.device)
+        return torch.cat([pool, trash])
+
+    kind = PagedQuantKVCache if "k_codes" in pools else PagedKVCache
+    return kind(table=table, pos=pos,
+                **{name: grow(name, p) for name, p in pools.items()})
+
+
+def init_paged_kv_cache(n_kv: int, pool_blocks: int, block_size: int,
+                        head_dim: int, table: torch.Tensor, *,
+                        dtype=torch.bfloat16, quantized: bool = False):
+    """Block-pool cache init: empty pools of pool_blocks blocks, read
+    through `table` (B, nblk), used as it is (the layers of a model share
+    one table tensor), on the table's device."""
+    device = table.device
+    pos = torch.zeros(table.shape[0], dtype=torch.int32, device=device)
+    shape = (pool_blocks, n_kv, block_size, head_dim)
+    if quantized:
+        sshape = shape[:3] + (1,)
+        return paged_kv_cache(
+            table, pos,
+            k_codes=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.ones(sshape, dtype=torch.float32, device=device),
+            v_codes=torch.zeros(shape, dtype=torch.int8, device=device),
+            v_scale=torch.ones(sshape, dtype=torch.float32, device=device))
+    return paged_kv_cache(table, pos,
+                          k=torch.zeros(shape, dtype=dtype, device=device),
+                          v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _q8(x: torch.Tensor):
@@ -108,17 +196,48 @@ def _row_update(buf: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
     buf[rows, :, wpos] = torch.where(take[..., None, None], fresh, old)
 
 
+def _paged_update(updates, start: torch.Tensor, table: torch.Tensor,
+                  lengths: Optional[torch.Tensor]) -> None:
+    """Scatter (B, H, l, X) updates into (P + 1, H, bs, X) block pools, in
+    place; `updates` holds (pool, new) pairs of one layout (the K and V
+    pools, with the int8 scales), which share one index computation.
+    Token i of row b lands at physical block table[b, (start[b] + i) //
+    bs], offset (start[b] + i) % bs. Positions at or past lengths[b] (right
+    pad, or a row sitting the launch out) or past the table's reach are
+    DROPPED: written to the trash block P, which no table names, never
+    clamped onto a live position. Valid writes of one call never alias: a
+    row writes only positions at or past its frontier, which lie in blocks
+    it owns alone (shared prefix blocks end below it; the engine forks the
+    boundary block). No host sync: start and lengths stay on the device."""
+    pool, new = updates[0]
+    l, trash, bs = new.shape[2], pool.shape[0] - 1, pool.shape[2]
+    nblk = table.shape[1]
+    tok = start[:, None].long() + torch.arange(l, device=pool.device)
+    lb = tok // bs                                           # (B, l)
+    phys = torch.gather(table.long(), 1, lb.clamp(max=nblk - 1))
+    valid = lb < nblk
+    if lengths is not None:
+        valid &= torch.arange(l, device=pool.device)[None, :] \
+            < lengths[:, None]
+    phys, off = torch.where(valid, phys, trash), tok % bs
+    for pool, new in updates:
+        # advanced indices around a slice: the view is (B, l, H, X)
+        pool[phys, :, off] = new.to(pool.dtype).transpose(1, 2)
+
+
 def _cached_attn(q, ck, cv, start, causal, window, softcap, lengths=None,
-                 k_scale=None, v_scale=None):
+                 k_scale=None, v_scale=None, block_tables=None):
     """Cache attention: row b's query positions start[b]..start[b]+l-1 over
     a cache of static length; the per-row offset lines the causal mask up
     and also masks the not-yet-written tail. With k_scale/v_scale, ck/cv are
-    int8 codes (dequantized inside the kernels or at dispatch). A bf16 cache
-    goes to the kernels as it is stored: they widen it to f32 as they read
-    it (bf16 -> f32 is exact); the ref route widens it up front."""
+    int8 codes (dequantized inside the kernels or at dispatch); with
+    block_tables, they are block pools. A bf16 cache goes to the kernels as
+    it is stored: they widen it to f32 as they read it (bf16 -> f32 is
+    exact); the ref route widens it up front."""
     return aio_ops.attention(q, ck, cv, causal=causal, window=window,
                              softcap=softcap, offset=start, lengths=lengths,
-                             k_scale=k_scale, v_scale=v_scale)
+                             k_scale=k_scale, v_scale=v_scale,
+                             block_tables=block_tables)
 
 
 class Attention(nn.Module):
@@ -168,7 +287,23 @@ class Attention(nn.Module):
         q = rope(q, positions, self.rope_theta)
         k = rope(k, positions, self.rope_theta)
         keep_row = None if lengths is None else lengths > 0
-        if isinstance(cache, QuantKVCache):
+        if isinstance(cache, PagedQuantKVCache):
+            kc, ks = _q8(k)
+            vc, vs = _q8(v)
+            _paged_update(((cache.k_codes, kc), (cache.k_scale, ks),
+                           (cache.v_codes, vc), (cache.v_scale, vs)),
+                          start, cache.table, lengths)
+            out = _cached_attn(q, cache.k_codes, cache.v_codes, start, True,
+                               self.window, self.softcap, lengths=lengths,
+                               k_scale=cache.k_scale, v_scale=cache.v_scale,
+                               block_tables=cache.table)
+        elif isinstance(cache, PagedKVCache):
+            _paged_update(((cache.k, k), (cache.v, v)), start, cache.table,
+                          lengths)
+            out = _cached_attn(q, cache.k, cache.v, start, True, self.window,
+                               self.softcap, lengths=lengths,
+                               block_tables=cache.table)
+        elif isinstance(cache, QuantKVCache):
             kc, ks = _q8(k)
             vc, vs = _q8(v)
             for buf, new in ((cache.k_codes, kc), (cache.k_scale, ks),

@@ -10,23 +10,31 @@ other families raise NotImplementedError (ROADMAP A7).
 `quantize_params` makes the Linear weights resident in an AIO format, in
 place (the dense weights are freed, as the reference's donating launcher
 frees them); `resident_format` reports it.
+
+`init_caches(..., paged=(pool_blocks, block_size))` gives block-pool caches
+instead (every layer a pool, all layers sharing one (B, nblk) block table);
+`set_block_tables` and `copy_pool_blocks` are the device halves of the
+serving engine's block allocator.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from .. import resolve_device
 from ..core import formats as F
-from .attention import Attention, KVCache, QuantKVCache, init_kv_cache
+from .attention import (PAGED_TYPES, Attention, KVCache, PagedKVCache,
+                        QuantKVCache, init_kv_cache, init_paged_kv_cache,
+                        striped_table)
 from .layers import MLP, Embedding, Linear, QuantPolicy, RMSNorm, linear
 
 __all__ = ["ModelConfig", "Transformer", "DenseBlock", "init_params",
            "forward", "decode_step", "init_caches", "reset_slots",
-           "quantize_params", "resident_format"]
+           "set_block_tables", "copy_pool_blocks", "quantize_params",
+           "resident_format"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,13 +243,31 @@ def decode_step(model: Transformer, caches: List, tokens: torch.Tensor, *,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                device="cuda", dtype=torch.bfloat16) -> List:
+                device="cuda", dtype=torch.bfloat16,
+                paged: Optional[Tuple[int, int]] = None) -> List:
     """One KV cache per layer: KVCache (bf16 by default) or, with
-    cfg.kv_quant, QuantKVCache (int8 codes + pow2 scales)."""
+    cfg.kv_quant, QuantKVCache (int8 codes + pow2 scales).
+
+    paged: (pool_blocks, block_size) — block-pool PagedKVCache /
+    PagedQuantKVCache layers instead, each with its own pool of pool_blocks
+    blocks of block_size positions and all sharing ONE (batch, nblk) block
+    table tensor, nblk = ceil(max_len / block_size)."""
     dev = resolve_device(device)
-    return [init_kv_cache(batch, cfg.n_kv_heads, max_len, cfg.hd, device=dev,
-                          dtype=dtype, quantized=cfg.kv_quant)
+    if paged is None:
+        return [init_kv_cache(batch, cfg.n_kv_heads, max_len, cfg.hd,
+                              device=dev, dtype=dtype,
+                              quantized=cfg.kv_quant)
+                for _ in range(cfg.n_layers)]
+    pool_blocks, block_size = paged
+    table = striped_table(batch, -(-max_len // block_size), pool_blocks,
+                          device=dev)
+    return [init_paged_kv_cache(cfg.n_kv_heads, pool_blocks, block_size,
+                                cfg.hd, table, dtype=dtype,
+                                quantized=cfg.kv_quant)
             for _ in range(cfg.n_layers)]
+
+
+_CACHE_TYPES = (KVCache, QuantKVCache) + PAGED_TYPES
 
 
 def reset_slots(caches: List, slot_mask: torch.Tensor,
@@ -250,11 +276,56 @@ def reset_slots(caches: List, slot_mask: torch.Tensor,
     (or new_pos), in place — the slot-refill primitive for continuous
     batching. Stale K/V sit beyond the new causal frontier, so attention
     never sees them, and each position is overwritten before the frontier
-    reaches it."""
+    reaches it. new_pos lets the paged engine start a row that shares a
+    prompt prefix at the shared-token count."""
     for c in caches:
-        if not isinstance(c, (KVCache, QuantKVCache)):
+        if not isinstance(c, _CACHE_TYPES):
             raise TypeError(f"not a KV cache: {type(c).__name__}")
         to = torch.zeros_like(c.pos) if new_pos is None \
             else new_pos.to(c.pos.dtype)
         c.pos = torch.where(slot_mask, to, c.pos)
+    return caches
+
+
+def _paged(caches: List) -> List:
+    for c in caches:
+        if not isinstance(c, PAGED_TYPES):
+            raise TypeError(f"not a paged KV cache: {type(c).__name__}")
+    return caches
+
+
+def set_block_tables(caches: List, table: torch.Tensor) -> List:
+    """Install a (B, nblk) block table, in place, into the one table tensor
+    every paged cache layer shares (`init_caches` and
+    `bridge.caches_from_jax` both build them so)."""
+    shared = _paged(caches)[0].table
+    if any(c.table is not shared for c in caches):
+        raise ValueError("the paged cache layers do not share one table")
+    shared.copy_(table)
+    return caches
+
+
+def _pools(c) -> Tuple[torch.Tensor, ...]:
+    if isinstance(c, PagedKVCache):
+        return c.k, c.v
+    return c.k_codes, c.k_scale, c.v_codes, c.v_scale
+
+
+@torch.no_grad()
+def copy_pool_blocks(caches: List, src: Sequence[int],
+                     dst: Sequence[int]) -> List:
+    """Copy physical pool blocks src[i] -> dst[i] in every paged cache layer,
+    in place: the device half of copy-on-write (a shared block is forked
+    before a row writes into it). Only real pairs are passed: no dst is
+    also a src."""
+    if len(src) != len(dst):
+        raise ValueError(f"{len(src)} sources for {len(dst)} destinations")
+    if not len(src):
+        return caches
+    dev = caches[0].pos.device
+    s = torch.as_tensor(src, dtype=torch.long, device=dev)
+    d = torch.as_tensor(dst, dtype=torch.long, device=dev)
+    for c in _paged(caches):
+        for pool in _pools(c):
+            pool[d] = pool[s]
     return caches

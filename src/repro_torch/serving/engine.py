@@ -19,20 +19,36 @@ launches whose tokens are consumed. A non-finite row raises: quarantine and
 replay are a later slice (ROADMAP A6), and there is no fallback route — a
 kernel failure raises too.
 
+With `paged=True` the KV residency is a BLOCK POOL instead of per-slot
+stripes: every cache layer holds `pool_blocks` blocks of `block_size`
+positions, and a per-row block table (one device tensor, shared by the
+layers) maps each row's positions onto pool blocks; the paged attention
+kernels read through it. A host-side refcounted allocator reserves a
+row's whole block budget at admission, shares fully covered prompt-prefix
+blocks through a prompt-hash prefix registry, forks the one partly covered
+boundary block copy-on-write before the row writes into it, evicts cold
+registry prefixes LRU when the pool runs short, and DEFERS admission at
+the queue head (FIFO kept) when the pool cannot hold the reservation;
+sustained pressure then backs up into the bounded queue's REJECTED path.
+Greedy outputs are identical to the per-slot engine. All of it happens at
+admission, where the host synchronizes anyway; the steps stay unchanged.
+
 Attention dispatches under the engine's ExecutionPolicy:
 `decode_route()` / `prefill_route()` report the impls ("cuda-decode" /
 "cuda-prefill" on the default policy). With `weight_format=` the Linear
 weights are resident codes and every covered Linear runs the quantizer and
 the AIO GEMM kernels (`weight_route()`: "resident-<fmt>"). The caches are
-updated in place (the JAX engine donates them instead). Paging, swap,
-fault injection, deadlines and snapshots are later slices.
+updated in place (the JAX engine donates them instead). Host swap and
+preemption, fault injection, deadlines and snapshots are later slices.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
+import hashlib
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -78,7 +94,10 @@ class ServingEngine:
                  policy: Optional[api.ExecutionPolicy] = None,
                  weight_format: Optional[str] = None,
                  prefill_chunk: int = 32,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None,
+                 paged: bool = False,
+                 block_size: int = 16,
+                 pool_blocks: Optional[int] = None):
         """model: the Transformer to serve; the engine runs on the device
         its weights live on (`init_params` puts them on the card unless
         asked for the CPU).
@@ -98,11 +117,22 @@ class ServingEngine:
         (clamped to max_len). Greedy outputs are identical for any chunk.
 
         max_queue: bound on the admission queue; beyond it `submit()`
-        REJECTS (returns False) instead of queueing. None = unbounded."""
+        REJECTS (returns False) instead of queueing. None = unbounded.
+
+        paged / block_size / pool_blocks: block-pool KV residency. Every KV
+        cache layer becomes a pool of `pool_blocks` blocks of `block_size`
+        positions (default: slots x max_len / block_size, the token
+        capacity of the per-slot stripes) plus a (slots, max_len /
+        block_size) block table the host allocator owns. block_size must
+        divide max_len; any size works for the kernels (they resolve each
+        key's block, so it need not match their tiles)."""
         if weight_format not in (None, "none"):
             T.quantize_params(model, weight_format)
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk ({prefill_chunk}) must be >= 1")
+        self._paged = bool(paged)
+        if self._paged:
+            self._pg_init(slots, max_len, block_size, pool_blocks)
         self.cfg = cfg
         self.model = model
         self.device = model.embed.table.device
@@ -115,7 +145,9 @@ class ServingEngine:
         self.queue: Deque[Request] = deque()
         self.finished: List[Request] = []
         self.stats = EngineStats()
-        self.caches = T.init_caches(cfg, slots, max_len, device=self.device)
+        self.caches = T.init_caches(
+            cfg, slots, max_len, device=self.device,
+            paged=(self._pg_pool, self._pg_bs) if self._paged else None)
         self._slot_req: List[Optional[Request]] = [None] * slots
         self._last = np.zeros((slots, 1), np.int32)
         self._remaining = np.zeros(slots, np.int64)
@@ -209,13 +241,27 @@ class ServingEngine:
         self._slot_req[slot] = None
         self._remaining[slot] = 0
         self._prefilling[slot] = False
+        if self._paged:
+            self._pg_release_row(slot)
 
     def _admit(self, newly: List[Request]):
         """Assign queued requests to free slots and rewind their cache rows.
         No model call happens here: the prompts advance chunk by chunk in
-        the following steps, interleaved with everyone else's decode."""
+        the following steps, interleaved with everyone else's decode.
+
+        Paged engines also RESERVE each request's whole block budget here
+        (shared prefix blocks counted out), fork the partly covered
+        boundary block copy-on-write, install the updated block table and
+        rewind the admitted rows to their shared-prefix frontier. A request
+        whose reservation cannot be met even after LRU prefix eviction is
+        DEFERRED at the queue head and admission stops for the step."""
         admitted = []
+        new_pos = np.zeros(self.slots, np.int32)
+        cow: List[tuple] = []
+        deferred = False
         for s in range(self.slots):
+            if deferred:
+                break
             while self._slot_req[s] is None and self.queue:
                 req = self.queue.popleft()
                 if req.max_new_tokens == 0:
@@ -225,16 +271,232 @@ class ServingEngine:
                     self.finished.append(req)
                     newly.append(req)
                     continue
+                covered = 0
+                if self._paged:
+                    got = self._pg_admit(s, req)
+                    if got is None:
+                        # the pool cannot hold the reservation: back to the
+                        # HEAD, and no later (smaller) request may pass it
+                        self.queue.appendleft(req)
+                        self._pg_deferred += 1
+                        deferred = True
+                        break
+                    covered, pairs = got
+                    new_pos[s] = covered
+                    cow += pairs
                 req.status = "active"
                 self._slot_req[s] = req
                 self._prefilling[s] = True
-                self._prefill_off[s] = 0
+                self._prefill_off[s] = covered
                 self._remaining[s] = req.max_new_tokens
                 admitted.append(s)
         if admitted:
             mask = np.zeros(self.slots, bool)
             mask[admitted] = True
-            T.reset_slots(self.caches, self._tensor(mask))
+            if self._paged:
+                if cow:
+                    src, dst = zip(*cow)
+                    T.copy_pool_blocks(self.caches, src, dst)
+                    self._pg_cow_copies += len(cow)
+                T.set_block_tables(self.caches, self._tensor(self._pg_table))
+                T.reset_slots(self.caches, self._tensor(mask),
+                              new_pos=self._tensor(new_pos))
+            else:
+                T.reset_slots(self.caches, self._tensor(mask))
+
+    # ------------------------------------------------------ paged block pool
+    def _pg_init(self, slots: int, max_len: int, block_size: int,
+                 pool_blocks: Optional[int]):
+        """The allocator's state: free list, refcounts, rows' blocks, the
+        host copy of the block table, the prefix registry, counters."""
+        if block_size < 1 or max_len % block_size:
+            raise ValueError(
+                f"block_size ({block_size}) must divide max_len "
+                f"({max_len})")
+        self._pg_bs = int(block_size)
+        self._pg_nblk = max_len // block_size
+        self._pg_pool = int(pool_blocks) if pool_blocks is not None \
+            else slots * self._pg_nblk
+        if self._pg_pool < self._pg_nblk:
+            raise ValueError(
+                f"pool_blocks ({self._pg_pool}) cannot hold even one "
+                f"full row ({self._pg_nblk} blocks)")
+        # the free list is kept sorted, so allocation is deterministic
+        self._pg_free: List[int] = list(range(self._pg_pool))
+        self._pg_ref = np.zeros(self._pg_pool, np.int64)
+        self._pg_rows: List[List[int]] = [[] for _ in range(slots)]
+        self._pg_table = np.zeros((slots, self._pg_nblk), np.int32)
+        # prefix registry: sha1(prompt) -> {tokens, blocks, reg_tokens,
+        # last_used}; an entry holds its own block references, so a
+        # prefix outlives its donor request until LRU eviction
+        self._pg_registry: Dict[str, dict] = {}
+        self._pg_clock = 0
+        self._pg_admits = 0
+        self._pg_hits = 0
+        self._pg_shared_tokens = 0
+        self._pg_cow_copies = 0
+        self._pg_evictions = 0
+        self._pg_deferred = 0
+        self._pg_evict_skips = 0
+
+    def _pg_key(self, prompt: np.ndarray) -> str:
+        return hashlib.sha1(
+            np.ascontiguousarray(prompt, np.int32).tobytes()).hexdigest()
+
+    def _pg_free_block(self, b: int):
+        """Drop one reference to block b; at none it returns to the free
+        list (kept sorted)."""
+        self._pg_ref[b] -= 1
+        if self._pg_ref[b] == 0:
+            bisect.insort(self._pg_free, b)
+
+    def _pg_take_block(self) -> int:
+        b = self._pg_free.pop(0)
+        self._pg_ref[b] = 1
+        return b
+
+    def _pg_release_row(self, slot: int):
+        """Drop the slot's block references."""
+        for b in self._pg_rows[slot]:
+            self._pg_free_block(b)
+        self._pg_rows[slot] = []
+
+    def _pg_evict(self, target_free: int, protect=None):
+        """LRU-evict registry prefixes until `target_free` blocks are free.
+        Only the registry's own references are dropped: blocks still shared
+        with an active row stay until that row finishes. An entry whose
+        blocks are ALL pinned by in-flight sharers is SKIPPED (and counted),
+        not evicted: dropping it would free nothing now and destroy sharing
+        a resident row is using. `protect` shields the entry the current
+        admission is about to share."""
+        order = sorted(self._pg_registry.items(),
+                       key=lambda kv: kv[1]["last_used"])
+        for key, ent in order:
+            if len(self._pg_free) >= target_free:
+                break
+            if ent is protect:
+                continue
+            if all(self._pg_ref[b] > 1 for b in ent["blocks"]):
+                self._pg_evict_skips += 1
+                continue
+            for b in ent["blocks"]:
+                self._pg_free_block(b)
+            del self._pg_registry[key]
+            self._pg_evictions += 1
+
+    def _pg_lookup(self, prompt: np.ndarray):
+        """Longest usable shared prefix in the registry: (entry, covered),
+        covered capped at prompt_len - 1 so the row prefills at least its
+        last prompt token (its first sampled logits come from its own
+        launch) and at the entry's registered tokens; or (None, 0)."""
+        plen = int(prompt.shape[0])
+        best, best_cov = None, 0
+        for ent in self._pg_registry.values():
+            toks = ent["tokens"]
+            n = min(len(toks), plen)
+            neq = np.flatnonzero(toks[:n] != prompt[:n])
+            common = int(neq[0]) if neq.size else n
+            cov = min(common, plen - 1, ent["reg_tokens"])
+            if cov > best_cov:
+                best, best_cov = ent, cov
+        return best, best_cov
+
+    def _pg_admit(self, slot: int, req: Request):
+        """Reserve the row's whole block budget: shared prefix blocks by
+        reference, the partly covered boundary block by a copy-on-write
+        fork, the rest fresh. Returns (covered, [(src, dst) copies]), or
+        None when the pool cannot hold the reservation even after
+        eviction."""
+        bs = self._pg_bs
+        prompt = np.asarray(req.prompt)
+        plen = int(prompt.shape[0])
+        total = min(-(-(plen + int(req.max_new_tokens)) // bs),
+                    self._pg_nblk)
+        ent, covered = self._pg_lookup(prompt)
+        shared_full = covered // bs
+        fresh_needed = total - shared_full
+        if len(self._pg_free) < fresh_needed:
+            self._pg_evict(fresh_needed, protect=ent)
+        if len(self._pg_free) < fresh_needed:
+            return None
+        blocks: List[int] = []
+        pairs: List[tuple] = []
+        if ent is not None and covered > 0:
+            for b in ent["blocks"][:shared_full]:
+                self._pg_ref[b] += 1
+                blocks.append(b)
+            if covered % bs:
+                # the boundary block is only partly covered: this row will
+                # write positions >= covered into it, so it gets a private
+                # copy first
+                dst = self._pg_take_block()
+                blocks.append(dst)
+                pairs.append((ent["blocks"][shared_full], dst))
+            ent["last_used"] = self._pg_clock
+            self._pg_clock += 1
+            self._pg_hits += 1
+            self._pg_shared_tokens += covered
+        while len(blocks) < total:
+            blocks.append(self._pg_take_block())
+        self._pg_rows[slot] = blocks
+        # table entries past the reservation repeat the row's first block:
+        # a block the row owns (nothing reads or writes them: the row's
+        # frontier stays inside its reservation)
+        row = np.full(self._pg_nblk, blocks[0], np.int32)
+        row[:len(blocks)] = blocks
+        self._pg_table[slot] = row
+        self._pg_admits += 1
+        return covered, pairs
+
+    def _pg_register(self, slot: int):
+        """Register a freshly prefilled prompt in the prefix registry: the
+        blocks covering [0, prompt_len) gain a registry reference, so the
+        prefix outlives its donor. Decode tokens the donor appends past
+        prompt_len may land in the registered tail block — harmless: a
+        later sharer forks that block and prefills past `covered`."""
+        prompt = np.asarray(self._slot_req[slot].prompt)
+        key = self._pg_key(prompt)
+        ent = self._pg_registry.get(key)
+        if ent is not None:
+            ent["last_used"] = self._pg_clock
+            self._pg_clock += 1
+            return
+        nb = -(-int(prompt.shape[0]) // self._pg_bs)
+        blocks = list(self._pg_rows[slot][:nb])
+        for b in blocks:
+            self._pg_ref[b] += 1
+        self._pg_registry[key] = {
+            "tokens": prompt.astype(np.int32).copy(),
+            "blocks": blocks,
+            "reg_tokens": int(prompt.shape[0]),
+            "last_used": self._pg_clock,
+        }
+        self._pg_clock += 1
+
+    def pool_stats(self) -> dict:
+        """Block-pool occupancy and prefix-sharing counters; {"paged":
+        False} for a per-slot engine."""
+        if not self._paged:
+            return {"paged": False}
+        used = self._pg_pool - len(self._pg_free)
+        return {
+            "paged": True,
+            "pool_blocks": self._pg_pool,
+            "block_size": self._pg_bs,
+            "used_blocks": used,
+            "free_blocks": len(self._pg_free),
+            "occupancy": used / self._pg_pool,
+            "registry_entries": len(self._pg_registry),
+            "admitted": self._pg_admits,
+            "prefix_hits": self._pg_hits,
+            "prefix_hit_rate": (self._pg_hits / self._pg_admits
+                                if self._pg_admits else 0.0),
+            "shared_tokens": self._pg_shared_tokens,
+            "cow_copies": self._pg_cow_copies,
+            "evictions": self._pg_evictions,
+            "eviction_skips": self._pg_evict_skips,
+            "deferred_admissions": self._pg_deferred,
+        }
 
     # -------------------------------------------------------------- stepping
     def _emit(self, s: int, tok: int, newly: List[Request]):
@@ -287,6 +549,11 @@ class ServingEngine:
         self._check_health(ok)
         for s in finishing:
             self._prefilling[s] = False
+            if self._paged:
+                # the prompt's K/V is resident now: register the prefix
+                # before the finish check, so even a one-token request
+                # donates its prompt
+                self._pg_register(s)
             self._emit(s, int(first[s]), newly)
 
     def _decode_launch(self, newly: List[Request]):

@@ -201,13 +201,6 @@ def test_api_attention_matches_jax(lq, backend):
     _close(got, want)
 
 
-def test_api_attention_paged_not_ported():
-    q, k, v = _t(*_data(9, 1, 2, 1, 1, 16))
-    with pytest.raises(NotImplementedError, match="B6/B7"):
-        api.ops.attention(q, k, v, offset=torch.tensor([3]),
-                          block_tables=torch.zeros((1, 1), dtype=torch.int32))
-
-
 def test_cuda_backend_refuses_cpu_tensors():
     q, k, v = _t(*_data(10, 1, 2, 1, 1, 16))
     with pytest.raises(ValueError, match="CUDA tensors"):

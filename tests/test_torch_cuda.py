@@ -7,8 +7,9 @@ machine with an H100:
 This file imports no JAX (the machine with the card has none). Attention:
 tolerance 1e-4 (atol and rtol), f32 attention summed in another order than
 the plain version's; the fused int8-KV kernels must equal the same kernels
-run on the dequantized f32 K/V bitwise, and prefill pad rows must be exact
-zeros. AIO GEMM: integer modes bitwise, float modes rtol 2e-5, atol 2e-5 *
+run on the dequantized f32 K/V bitwise, prefill pad rows must be exact
+zeros, and the paged kernels must equal the flat kernels on the un-paged
+cache bitwise at every block size. AIO GEMM: integer modes bitwise, float modes rtol 2e-5, atol 2e-5 *
 max|plain|; the quantizer bitwise."""
 import contextlib
 import dataclasses
@@ -25,12 +26,12 @@ from repro_torch.kernels.aio_matmul import (MODES, aio_matmul,
                                             quantize_operands_ref)
 from repro_torch.kernels.aio_quant import (KERNEL_FLOOR, aio_quant,
                                            aio_quant_plain, quant_edge_rows)
-from repro_torch.kernels.flash_attention import (KERNELS, flash_decode,
-                                                 flash_decode_plain,
-                                                 flash_decode_quant,
-                                                 flash_prefill,
-                                                 flash_prefill_plain,
-                                                 flash_prefill_quant)
+from repro_torch.kernels.flash_attention import (
+    KERNELS, PAGED_KERNELS, flash_decode, flash_decode_paged,
+    flash_decode_paged_plain, flash_decode_paged_quant, flash_decode_plain,
+    flash_decode_quant, flash_prefill, flash_prefill_paged,
+    flash_prefill_paged_plain, flash_prefill_paged_quant,
+    flash_prefill_plain, flash_prefill_quant)
 from repro_torch.kernels.flash_attention.shared import dequant
 from repro_torch.models import init_params
 from repro_torch.models.attention import _q8
@@ -173,6 +174,141 @@ def test_engine_on_card_matches_ref_engine(dev, kv_quant):
         else:
             assert not any(launched.values()), launched
     assert outs["auto"] == outs["ref"]
+
+
+# ======================================================= paged attention
+def _paged(dev, flat, bs, seed):
+    """A (B, Hkv, L, X) cache scattered into a shuffled (B * L / bs, Hkv,
+    bs, X) pool, and its (B, L / bs) int32 table."""
+    b, _, lk, _ = flat[0].shape
+    nblk = lk // bs
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randperm(b * nblk, generator=g).reshape(b, nblk).to(dev)
+    pools = []
+    for a in flat:
+        blocks = a.reshape(b, a.shape[1], nblk, bs, a.shape[3]).transpose(1, 2)
+        pool = torch.empty((b * nblk,) + blocks.shape[2:], dtype=a.dtype,
+                           device=dev)
+        pool[table.reshape(-1)] = blocks.reshape((-1,) + blocks.shape[2:])
+        pools.append(pool)
+    return pools, table.to(torch.int32)
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32, 128])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_kernels_bitwise_equal_flat(dev, bs, kv):
+    """At the same bkv the paged kernels read through the table the keys
+    the flat kernels read, in the same order: bitwise equal outputs, at
+    ragged positions (a fresh row, a full one) and lengths (a full chunk,
+    3 tokens, an idle row)."""
+    b, hkv, group, lk, w = 4, 2, 6, 512, 32
+    q1, k, v = _data(dev, 11, b, hkv * group, hkv, 1, lk)
+    qw, _, _ = _data(dev, 12, b, hkv * group, hkv, w, lk)
+    if kv == "int8":
+        kc, ks = _q8(k)
+        vc, vs = _q8(v)
+        flat, dec, pre = (kc, ks, vc, vs), flash_decode_quant, \
+            flash_prefill_quant
+        pdec, ppre = flash_decode_paged_quant, flash_prefill_paged_quant
+    else:
+        flat = (k.to(torch.bfloat16), v.to(torch.bfloat16))
+        dec, pre = flash_decode, flash_prefill
+        pdec, ppre = flash_decode_paged, flash_prefill_paged
+    pools, table = _paged(dev, flat, bs, seed=bs)
+    pos = torch.tensor([0, 37, lk - 1, 200], dtype=torch.int32, device=dev)
+    ppos = torch.tensor([0, 37, lk - w, 200], dtype=torch.int32, device=dev)
+    lens = torch.tensor([w, 3, w, 0], dtype=torch.int32, device=dev)
+    n = pdec.launches, ppre.launches
+    for kw in ({}, dict(window=48, softcap=30.0)):
+        assert torch.equal(pdec(q1, *pools, table=table, pos=pos, **kw),
+                           dec(q1, *flat, pos=pos, **kw))
+        assert torch.equal(
+            ppre(qw, *pools, table=table, pos=ppos, lengths=lens, **kw),
+            pre(qw, *flat, pos=ppos, lengths=lens, **kw))
+    torch.cuda.synchronize()
+    assert (pdec.launches, ppre.launches) == (n[0] + 2, n[1] + 2)
+
+
+@pytest.mark.parametrize("bs,kv_dtype", [(16, torch.bfloat16),
+                                         (8, torch.float32)])
+def test_paged_kernels_match_plain(dev, bs, kv_dtype):
+    b, hkv, group, lk, w = 5, 2, 4, 304, 20
+    q1, k, v = _data(dev, 13, b, hkv * group, hkv, 1, lk)
+    qw, _, _ = _data(dev, 14, b, hkv * group, hkv, w, lk)
+    pools, table = _paged(dev, (k.to(kv_dtype), v.to(kv_dtype)), bs, seed=1)
+    pos = torch.tensor([0, 127, 128, 5, lk - w], dtype=torch.int32,
+                       device=dev)
+    lens = torch.tensor([w, 1, 11, 0, w], dtype=torch.int32, device=dev)
+    kw = dict(window=48, softcap=30.0)
+    _close(flash_decode_paged(q1, *pools, table=table, pos=pos, **kw),
+           flash_decode_paged_plain(q1, *pools, table=table, pos=pos, **kw))
+    got = flash_prefill_paged(qw, *pools, table=table, pos=pos,
+                              lengths=lens, **kw)
+    _close(got, flash_prefill_paged_plain(qw, *pools, table=table, pos=pos,
+                                          lengths=lens, **kw))
+    pad = torch.arange(w, device=dev)[None, :] >= lens[:, None]
+    assert not got.transpose(1, 2)[pad].any()
+
+
+def test_paged_fused_int8_equals_kernel_on_dequantized_pool(dev):
+    b, hkv, group, lk = 4, 2, 6, 256
+    q1, k, v = _data(dev, 15, b, hkv * group, hkv, 1, lk)
+    qw, _, _ = _data(dev, 16, b, hkv * group, hkv, 32, lk)
+    kc, ks = _q8(k)
+    vc, vs = _q8(v)
+    (pkc, pks, pvc, pvs), table = _paged(dev, (kc, ks, vc, vs), 16, seed=2)
+    pkd, pvd = dequant(pkc, pks, torch.float32), dequant(pvc, pvs,
+                                                         torch.float32)
+    pos = torch.tensor([0, 100, 200, lk - 32], dtype=torch.int32, device=dev)
+    lens = torch.tensor([32, 7, 0, 32], dtype=torch.int32, device=dev)
+    kw = dict(table=table, pos=pos)
+    assert torch.equal(flash_decode_paged_quant(q1, pkc, pks, pvc, pvs, **kw),
+                       flash_decode_paged(q1, pkd, pvd, **kw))
+    assert torch.equal(
+        flash_prefill_paged_quant(qw, pkc, pks, pvc, pvs, lengths=lens, **kw),
+        flash_prefill_paged(qw, pkd, pvd, lengths=lens, **kw))
+
+
+def test_paged_wrapper_rejects_bad_operands(dev):
+    q, k, v = _data(dev, 17, 2, 4, 2, 1, 64)
+    (pk, pv), table = _paged(dev, (k.to(torch.bfloat16),
+                                   v.to(torch.bfloat16)), 16, seed=3)
+    with pytest.raises(ValueError, match="block table"):
+        flash_decode_paged(q, pk, pv, table=table.long(), pos=3)
+    with pytest.raises(ValueError, match="block table"):
+        flash_decode_paged(q, pk, pv, table=table[:1], pos=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_prefill_paged(q, pk, pv, table=table.cpu(), pos=3)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_paged_engine_on_card_matches_flat_engine(dev, kv_quant):
+    """The smoke config served from the block pool through the paged
+    kernels emits the per-slot kernel engine's tokens over a mix sharing a
+    prompt prefix; only the paged kernels launch in the paged pass."""
+    cfg = dataclasses.replace(get_smoke("qwen2_1p5b"), kv_quant=kv_quant)
+    model = init_params(cfg, seed=0)
+    rng = np.random.RandomState(0)
+    head = rng.randint(1, cfg.vocab, 37).astype(np.int32)
+    prompts = [np.concatenate([head, rng.randint(1, cfg.vocab, n)])
+               .astype(np.int32) for n in (3, 40, 5, 18)]
+    outs = {}
+    for paged in (False, True):
+        eng = ServingEngine(cfg, model, slots=2, max_len=128,
+                            prefill_chunk=16, paged=paged, block_size=16)
+        for kern in (*KERNELS, *PAGED_KERNELS):
+            kern.launches = 0
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, max_new_tokens=6))
+        outs[paged] = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        used, idle = (PAGED_KERNELS, KERNELS) if paged else \
+            (KERNELS, PAGED_KERNELS)
+        used = [kern for kern in used
+                if kern.__name__.endswith("_quant") == kv_quant]
+        assert all(kern.launches > 0 for kern in used)
+        assert not any(kern.launches for kern in idle)
+    assert outs[True] == outs[False]
+    assert eng.pool_stats()["prefix_hits"] > 0
 
 
 # ====================================================== AIO GEMM + quantizer
