@@ -38,6 +38,13 @@ of JAX or of the JAX package `repro`. Phases:
    cache, at ragged positions (0, 37, the full cache) and lengths (a full
    chunk, 3, 0); prefill pad rows exactly 0; fused int8 bitwise equal to
    the paged kernel on the dequantized pool.
+3d. The full-sequence flash kernel (B8) on the reference's six cases
+   (tests/test_kernels.py), a non-causal case, bf16 K/V and GQA group 6
+   (Hq 12, Hkv 2, D 128): max |diff| <= 1e-4 and no NaN; all-bf16 within
+   one bf16 ulp + 1e-4. The grouped GEMM (B9) on ragged tenants packed at
+   bm = bk = bn in {128, 64, 16}, f32 and bf16: max |kernel - plain| <=
+   1e-5 * max |plain|. The depthwise conv (B11) at 3x3, 5x5, 7x7, odd H and
+   W, C = 3, 130, 576, f32 and bf16: bitwise.
 4. Timing: CUDA-event time per launch of each kernel, its plain version and
    one PyTorch library call computing the same function (timed only here),
    beside the least time the card could take: the larger of the bytes the
@@ -56,6 +63,15 @@ of JAX or of the JAX package `repro`. Phases:
    read; no single library call reads through a block table. Inputs
    rotate over enough copies to exceed the 50 MB L2, as 28 layers' caches
    and weights do on the serving path.
+4d. B8 at B 4, Hq 12, Hkv 2, D 128, L 2048, causal, f32, against SDPA
+   (K/V expanded to Hq beforehand), bound by its f32 flops at 67 TFLOP/s.
+   B9 on the tenant mixes of examples/morphable_inference.py and
+   qwen2-1.5B's q projection (256, 1536, 1536) beside llama2-7B's (128,
+   4096, 4096), against one torch.matmul per tenant (TF32 off), bound by
+   max(bytes / 3.35 TB/s, 2 T K N / 67 TFLOP/s) of the packed launch. B11
+   at MobileNetV2 (8,56,56,144) and (8,14,14,576) 3x3 and ConvNeXt-S
+   (8,56,56,96) and (8,14,14,384) 7x7, against conv2d(groups=C), bound by
+   bytes.
 5. Engine: ServingEngine on the full-width qwen2_1p5b CONFIG (random f32
    weights, seed 0), 8 slots, max_len 2048, prefill chunk 32, 8 requests
    with prompts of 16..1000 tokens and 32 new tokens each — dense bf16-KV,
@@ -93,9 +109,23 @@ of JAX or of the JAX package `repro`. Phases:
    and evictions > 0 in (c); the paged kernels of the path must launch and
    the flat attention kernels must not during a paged pass. Reports
    tokens/s, step medians, peak memory, launches per step and pool_stats().
-6. Summary: a `{"kernels": [...]}` line, the script's wall time, then as
-   the last line `{"ok": true, "device": {...}}`. Any failed check exits
-   non-zero before.
+6. Full-sequence path: the qwen2_1p5b CONFIG at full width and depth
+   (phase 5's weights, seed 0), 4 random prompts of 1,920 tokens:
+   `forward`, `launch.steps.make_prefill_step` and `loss_fn` (labels the
+   next token) on the kernel route and on the ref route. B8 must launch
+   exactly 28 times per forward and no other kernel; max |dlogit| <= 1e-3 *
+   max |logit|, greedy tokens equal, loss within 1e-4 (relative). The same
+   prompts through the serving engine (chunked prefill through the varlen
+   prefill kernel, f32 caches so it computes the forward's function): its
+   first tokens must equal make_prefill_step's. Prints the forward's wall
+   ms, prompt tokens/s, peak memory and one profiled forward.
+7. Morphable ops: api.ops.morphable_multi_gemm on each 4d mix (one grouped
+   launch each; every tenant within 1e-5 of its plain product; the MAC
+   utilization equal to the plain packing's) and api.ops.depthwise_conv on
+   a MobileNetV2 block (one launch, bitwise).
+8. Summary: a `{"kernels": [...]}` line (13 kernel entry points), the
+   script's wall time, then as the last line `{"ok": true, "device":
+   {...}}`. Any failed check exits non-zero before.
 """
 from __future__ import annotations
 
@@ -125,8 +155,11 @@ from repro_torch.kernels.aio_matmul import (MODES, aio_matmul,  # noqa: E402
 from repro_torch.kernels.aio_quant import (KERNEL_FLOOR,  # noqa: E402
                                            aio_quant, aio_quant_plain,
                                            quant_edge_rows)
+from repro_torch.kernels.depthwise import (depthwise_conv,  # noqa: E402
+                                           depthwise_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    KERNELS, PAGED_KERNELS, flash_decode, flash_decode_paged,
+    KERNELS, PAGED_KERNELS, flash_attention, flash_attention_plain,
+    flash_decode, flash_decode_paged,
     flash_decode_paged_plain, flash_decode_paged_quant,
     flash_decode_paged_quant_plain, flash_decode_plain, flash_decode_quant,
     flash_decode_quant_plain, flash_prefill, flash_prefill_paged,
@@ -134,7 +167,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_prefill_paged_quant_plain, flash_prefill_plain,
     flash_prefill_quant, flash_prefill_quant_plain)
 from repro_torch.kernels.flash_attention.shared import dequant  # noqa: E402
-from repro_torch.models import init_params  # noqa: E402
+from repro_torch.kernels.grouped_matmul import (  # noqa: E402
+    grouped_matmul, grouped_matmul_plain, make_group_ids, pack_tenants)
+from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models import (forward, init_caches,  # noqa: E402
+                                init_params, loss_fn)
 from repro_torch.models.attention import _q8  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
@@ -159,7 +196,32 @@ GEMM_M = (8, 256)                  # decode and chunk widths (8 slots x 32)
 QUANT_FORMATS = ("fp8a", "fp8b", "int8", "int4")
 RESIDENT = ("int4", "fp8a")        # the resident engine variants
 AIO_KERNELS = (aio_matmul, aio_quant)
-ALL_KERNELS = (*KERNELS, *PAGED_KERNELS, *AIO_KERNELS)
+# the kernels of the full-sequence path (B8) and of the morphable ops (B9,
+# B11)
+FULL_KERNELS = (flash_attention, grouped_matmul, depthwise_conv)
+ALL_KERNELS = (*KERNELS, *PAGED_KERNELS, *AIO_KERNELS, *FULL_KERNELS)
+
+# full-sequence attention, timed at qwen2-1.5B's heads over 4 x 2048 tokens
+FULL_B, FULL_L = 4, 2048
+# phase 6: 4 prompts of 1,920 tokens (15 x 128), qwen2-1.5B at full width
+SEQ_B, SEQ_L = 4, 1920
+LOGIT_TOL = 1e-3                   # max |dlogit| <= 1e-3 * max |logit|
+LOSS_TOL = 1e-4                    # relative
+# grouped GEMM tenant mixes (M, K, N): examples/morphable_inference.py's,
+# and qwen2-1.5B's q projection at a 256-token chunk beside llama2-7B's at
+# 128 tokens
+MIXES = {
+    "one big GEMM": [(1024, 1024, 1024)],
+    "two wide GEMMs (Fig 3)": [(128, 512, 2048), (128, 512, 1536)],
+    "four small tenants": [(100, 64, 96), (60, 128, 64), (200, 96, 128),
+                           (50, 256, 80)],
+    "qwen2-1.5B q + llama2-7B q": [(256, 1536, 1536), (128, 4096, 4096)],
+}
+SUMMARY_MIX = "qwen2-1.5B q + llama2-7B q"
+# depthwise layers of the repo's vision workloads (N, H, W, C, k):
+# MobileNetV2 3x3 and ConvNeXt-S 7x7 (src/repro/perfmodel/workloads.py)
+DW_SHAPES = [(8, 56, 56, 144, 3), (8, 14, 14, 576, 3), (8, 56, 56, 96, 7),
+             (8, 14, 14, 384, 7)]
 
 # paged attention: block sizes held bitwise to the flat kernels, the one
 # timed (the engine's default), ragged positions and lengths
@@ -193,6 +255,12 @@ KERNEL_META = {
                    "src/repro/kernels/aio_matmul/kernel.py:109"),
     "aio_quant": ("src/repro_torch/csrc/aio_quant.cu",
                   "src/repro/kernels/aio_quant/kernel.py:57"),
+    "flash_attention": ("src/repro_torch/csrc/flash_full.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:92"),
+    "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
+                       "src/repro/kernels/grouped_matmul/kernel.py:58"),
+    "depthwise_conv": ("src/repro_torch/csrc/depthwise.cu",
+                       "src/repro/kernels/depthwise/kernel.py:64"),
 }
 
 
@@ -804,27 +872,31 @@ def copy_state(dst, src):
     dst._last[:] = src._last
 
 
-def profile_step(eng) -> str:
-    """One engine step under torch.profiler: its wall time, the device time
-    of the kernels it ran, the device's idle share, and the host's kernel
-    launches."""
+def profiled(fn) -> str:
+    """fn() once under torch.profiler: its wall time, the device time of
+    what ran on the card (kernels, copies), the device's idle share, the
+    host's kernel launches and the largest device items. Only events that
+    ran on the device are summed: a CPU op's own device time is the time of
+    the kernels it launched, which appear again as events of their own."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         ts = time.perf_counter()
-        eng.step()
+        fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - ts)
     avg = prof.key_averages()
+    on_card = [e for e in avg if e.device_type == DeviceType.CUDA]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
-    busy = sum(dev_us(e) for e in avg) / 1e3
+    busy = sum(dev_us(e) for e in on_card) / 1e3
     launches = sum(e.count for e in avg
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
-    top = sorted(avg, key=dev_us, reverse=True)[:4]
+    top = sorted(on_card, key=dev_us, reverse=True)[:4]
     busy_txt = (f"device busy {busy:.2f} ms, idle "
                 f"{100 * (1 - busy / wall):.0f}%" if busy > 0
                 else "device time not measured (no CUDA events)")
@@ -976,7 +1048,7 @@ def drive_checked(eng, shadow, free, prompts, max_new, profile_at,
         copy_state(shadow, eng)
         before = {r.rid: len(r.out_tokens) for r in reqs}
         if step in profile_at:
-            profiles.append((step, profile_step(eng)))
+            profiles.append((step, profiled(eng.step)))
         else:
             eng.step()
         shadow.step()
@@ -1257,6 +1329,377 @@ def paged_engine_phase(dev, card):
     return launches
 
 
+# ------------------------------------- full-sequence attention, B9 and B11
+FULL_CASES = [
+    # the reference's six cases (tests/test_kernels.py), then non-causal,
+    # bf16 K/V, and GQA group 6 at qwen2-1.5B's heads
+    ("causal", dict(b=2, hq=4, hkv=2, lq=128, lk=128, d=64)),
+    ("lk 300", dict(b=1, hq=8, hkv=2, lq=256, lk=300, d=64)),
+    ("window 100", dict(b=1, hq=4, hkv=4, lq=128, lk=256, d=64, window=100)),
+    ("softcap 30", dict(b=1, hq=4, hkv=2, lq=128, lk=256, d=64,
+                        softcap=30.0)),
+    ("offset 256", dict(b=1, hq=4, hkv=2, lq=128, lk=384, d=64, offset=256)),
+    ("window 64 softcap 50", dict(b=1, hq=2, hkv=1, lq=128, lk=128, d=128,
+                                  window=64, softcap=50.0)),
+    ("non-causal", dict(b=2, hq=6, hkv=2, lq=128, lk=200, d=32,
+                        causal=False)),
+    ("bf16 K/V", dict(b=2, hq=12, hkv=2, lq=256, lk=256, d=128,
+                      kv=torch.bfloat16)),
+    ("group 6", dict(b=2, hq=12, hkv=2, lq=512, lk=512, d=128)),
+]
+
+
+def full_case(dev, seed, *, b, hq, hkv, lq, lk, d, kv=torch.float32, **_):
+    """q as the model hands it over (a head-split, strided f32 view), K/V
+    f32 or bf16."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, lq, hq, d, generator=g, device=dev).transpose(1, 2)
+    k = torch.randn(b, hkv, lk, d, generator=g, device=dev) * 0.5
+    v = torch.randn(b, hkv, lk, d, generator=g, device=dev)
+    return q * 0.5, k.to(kv), v.to(kv)
+
+
+def attn_kw(case):
+    return {k: case[k] for k in ("causal", "window", "softcap", "offset")
+            if k in case}
+
+
+def tenant_data(dev, shapes, seed, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(m, k, generator=g, device=dev).to(dtype),
+             (torch.randn(k, n, generator=g, device=dev) * k ** -0.5
+              ).to(dtype)) for m, k, n in shapes]
+
+
+def packed(tenants, pol=api.default_policy):
+    """The grouped launch of a tenant mix as `morphable_multi_gemm` makes
+    it: group ids, packed x (T, K), stacked w (G, K, N)."""
+    x, w, sizes, _ = pack_tenants(tenants, pol.bm, pol.bk, pol.bn)
+    return make_group_ids(sizes, pol.bm, device=x.device), x, w
+
+
+def new_kernel_phase(dev):
+    phase("3d. full-sequence attention vs plain (max |diff| <= 1e-4, no "
+          "NaN), grouped GEMM vs plain (max |diff| <= 1e-5 * max |plain|), "
+          "depthwise conv vs plain (bitwise)")
+    errs = {"flash_attention": 0.0, "grouped_matmul": 0.0,
+            "depthwise_conv": 0.0}
+    for i, (label, case) in enumerate(FULL_CASES):
+        q, k, v = full_case(dev, 50 + i, **case)
+        got = flash_attention(q, k, v, **attn_kw(case))
+        want = flash_attention_plain(q, k, v, **attn_kw(case))
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        nan = got.isnan().any().item()
+        print(f"  flash_attention {label:22s} {tuple(q.shape)} K/V "
+              f"{tuple(k.shape)} {str(k.dtype)[6:]}: max|diff| {err:.3e}, "
+              f"NaN {nan}", flush=True)
+        check(err <= TOL and not nan, f"flash_attention {label}: max |diff| "
+              f"{err} above {TOL} or NaN")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    # all bf16 (a bf16 output): the f32 results agree to 1e-4 before the
+    # final rounding, so to one bf16 ulp (at most 2^-7 of the value) plus
+    # 1e-4 after it
+    q, k, v = (t.to(torch.bfloat16) for t in full_case(
+        dev, 60, b=2, hq=12, hkv=2, lq=256, lk=256, d=128))
+    got, want = flash_attention(q, k, v), flash_attention_plain(q, k, v)
+    ok = torch.allclose(got.float(), want.float(), rtol=2 ** -7, atol=TOL)
+    print(f"  flash_attention all bf16 (bf16 output): within one bf16 ulp "
+          f"+ 1e-4: {ok}", flush=True)
+    check(ok, "flash_attention all-bf16: beyond one bf16 ulp + 1e-4")
+
+    ragged = [(100, 64, 96), (300, 120, 50), (60, 256, 256), (7, 1536, 33)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for bm in (128, 64, 16):
+            pol = api.ExecutionPolicy(bm=bm, bk=bm, bn=bm)
+            gids, x, w = packed(tenant_data(dev, ragged, bm, dtype), pol)
+            got = grouped_matmul(gids, x, w, bm=bm)
+            want = grouped_matmul_plain(gids, x, w, bm=bm)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            print(f"  grouped_matmul {str(dtype)[6:]:8s} bm=bk=bn={bm:3d} "
+                  f"tenants {ragged} -> x {tuple(x.shape)} w "
+                  f"{tuple(w.shape)}: max|diff| {err:.3e} ({rel:.2e} of "
+                  "max|plain|)", flush=True)
+            check(rel <= 1e-5, f"grouped_matmul {dtype} bm={bm}: {rel}")
+            errs["grouped_matmul"] = max(errs["grouped_matmul"], err)
+    # odd H and W, C = 3, 130, 576 (also not multiples of 4), 3/5/7 taps
+    for n, h, w_, c, kk in [(2, 9, 7, 3, 3), (1, 13, 11, 130, 5),
+                            (2, 15, 9, 576, 7), (1, 7, 13, 130, 3),
+                            (2, 11, 11, 3, 7), (1, 9, 15, 576, 5)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(kk * c)
+            x = torch.randn(n, h, w_, c, generator=g, device=dev).to(dtype)
+            f = torch.randn(kk, kk, c, generator=g, device=dev).to(dtype)
+            got, want = depthwise_conv(x, f), depthwise_plain(x, f)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            print(f"  depthwise_conv {str(dtype)[6:]:8s} x {(n, h, w_, c)} "
+                  f"{kk}x{kk}: bitwise equal {same}", flush=True)
+            check(same, f"depthwise_conv {dtype} {(n, h, w_, c, kk)}: not "
+                  "bitwise equal to the plain version")
+    return errs
+
+
+def full_bound(b, hq, hkv, lq, lk, d, es=4):
+    """Least time (ms) of causal full-sequence attention: the f32 flops of
+    the kept (query, key) pairs over the f32 CUDA-core rate (the rate B3's
+    row uses), against q, k, v read once and the output written once over
+    the memory rate."""
+    pairs = b * hq * sum(min(i + 1, lk) for i in range(lq))
+    t_ops = pairs * d * 4 / F32_FLOPS_PER_S
+    t_bytes = (2 * b * hq * lq * d * es + 2 * b * hkv * lk * d * es) \
+        / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def gemm_f32_bound(t, k, n, g):
+    """Least time (ms) of a grouped f32 GEMM launch: max(bytes / 3.35 TB/s,
+    2 T K N / 67 TFLOP/s); x, w and out moved once."""
+    t_bytes = 4 * (t * k + g * k * n + t * n) / HBM_BYTES_PER_S
+    t_ops = 2 * t * k * n / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def full_timing_phase(dev):
+    phase("4d. full-sequence attention, grouped GEMM and depthwise conv "
+          "timing (ms per launch, CUDA events)")
+    rows = {}
+    # B8: B 4, Hq 12, Hkv 2, D 128, L 2048, causal, f32 (67 MB a copy)
+    cases = [full_case(dev, 70 + i, b=FULL_B, hq=HQ, hkv=HKV, lq=FULL_L,
+                       lk=FULL_L, d=D) for i in range(2)]
+    group = HQ // HKV
+    wide = [(q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))
+            for q, k, v in cases]
+    ms = cuda_ms([functools.partial(flash_attention, *c) for c in cases], 10)
+    plain_ms = cuda_ms([functools.partial(flash_attention_plain, *c)
+                        for c in cases], 3)
+    lib_ms = cuda_ms([functools.partial(F.scaled_dot_product_attention, *c,
+                                        is_causal=True) for c in wide], 10)
+    bound_ms, bound_by = full_bound(FULL_B, HQ, HKV, FULL_L, FULL_L, D)
+    rows["flash_attention"] = dict(ms=ms, plain_ms=plain_ms,
+                                   library_ms=lib_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)
+    print(f"  flash_attention B={FULL_B} Hq={HQ} Hkv={HKV} D={D} L={FULL_L} "
+          f"causal f32: kernel {ms:.4f}  plain {plain_ms:.4f}  SDPA (K/V "
+          f"expanded to Hq beforehand) {lib_ms:.4f}  bound {bound_ms:.4f} "
+          f"({bound_by}, f32 67 TFLOP/s; {100 * bound_ms / ms:.1f}% of it)",
+          flush=True)
+    del cases, wide
+
+    for name, shapes in MIXES.items():
+        mix_bytes = 4 * sum(m * k + k * n for m, k, n in shapes)
+        copies = [tenant_data(dev, shapes, 80 + i)
+                  for i in range(max(2, -(-100_000_000 // mix_bytes)))]
+        launches = [packed(t) for t in copies]
+        gids, x, w = launches[0]
+        t, kmax, nmax = x.shape[0], x.shape[1], w.shape[2]
+        ms = cuda_ms([functools.partial(grouped_matmul, *a)
+                      for a in launches], 20)
+        plain_ms = cuda_ms([functools.partial(grouped_matmul_plain, *a)
+                            for a in launches], 5)
+
+        def per_tenant(tenants):
+            for xi, wi in tenants:
+                torch.matmul(xi, wi)
+        lib_ms = cuda_ms([functools.partial(per_tenant, c) for c in copies],
+                         20)
+        bound_ms, bound_by = gemm_f32_bound(t, kmax, nmax, len(shapes))
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        rows[("grouped_matmul", name)] = row
+        print(f"  grouped_matmul {name}: {shapes} -> T={t} K={kmax} "
+              f"N={nmax}: kernel {ms:.4f}  plain {plain_ms:.4f}  "
+              f"torch.matmul per tenant (f32, TF32 off) {lib_ms:.4f}  bound "
+              f"{bound_ms:.5f} ({bound_by}; {100 * bound_ms / ms:.1f}% of "
+              "it)", flush=True)
+        del copies, launches
+
+    for n, h, w_, c, kk in DW_SHAPES:
+        nbytes = 4 * (2 * n * h * w_ * c + kk * kk * c)
+        g = torch.Generator(device=dev).manual_seed(kk * c)
+        copies = [(torch.randn(n, h, w_, c, generator=g, device=dev),
+                   torch.randn(kk, kk, c, generator=g, device=dev))
+                  for _ in range(max(2, -(-100_000_000 // nbytes)))]
+        # the library call: cuDNN's grouped conv2d on the same NHWC memory
+        # (a channels-last NCHW view), padding (k-1)/2 = SAME for odd k
+        lib = [functools.partial(
+            F.conv2d, x.permute(0, 3, 1, 2),
+            f.permute(2, 0, 1).unsqueeze(1).contiguous(), padding=kk // 2,
+            groups=c) for x, f in copies]
+        ms = cuda_ms([functools.partial(depthwise_conv, *a) for a in copies],
+                     50)
+        plain_ms = cuda_ms([functools.partial(depthwise_plain, *a)
+                            for a in copies], 10)
+        lib_ms = cuda_ms(lib, 50)
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        rows[("depthwise_conv", (n, h, w_, c, kk))] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by="bytes")
+        print(f"  depthwise_conv x {(n, h, w_, c)} {kk}x{kk} f32: kernel "
+              f"{ms:.4f}  plain {plain_ms:.4f}  conv2d(groups=C) "
+              f"{lib_ms:.4f}  bound {bound_ms:.5f} (bytes; "
+              f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+        del copies, lib
+    torch.cuda.empty_cache()
+    return {"flash_attention": rows["flash_attention"],
+            "grouped_matmul": rows[("grouped_matmul", SUMMARY_MIX)],
+            "depthwise_conv": rows[("depthwise_conv", DW_SHAPES[0])]}
+
+
+def fullseq_phase(dev, card):
+    phase(f"6. full-sequence path: qwen2_1p5b CONFIG, {SEQ_B} prompts of "
+          f"{SEQ_L} tokens: forward, make_prefill_step and loss_fn on the "
+          "kernel route and the ref route; the serving engine's first tokens")
+    cfg = get_config("qwen2_1p5b")
+    model = init_params(cfg, seed=0, device=dev)     # phase 5's weights
+    rng = np.random.RandomState(6)
+    toks_np = rng.randint(1, cfg.vocab, (SEQ_B, SEQ_L)).astype(np.int64)
+    toks = torch.from_numpy(toks_np).to(dev)
+    labels = torch.cat([toks[:, 1:], torch.full((SEQ_B, 1), -100,
+                                                device=dev)], 1)
+    batch = {"tokens": toks, "labels": labels}
+    step = make_prefill_step(cfg)
+    route = api.ops.attention_route(lq=SEQ_L, lk=SEQ_L)
+    check(route == "cuda", f"the forward's attention routes to {route}")
+    others = [k for k in ALL_KERNELS if k is not flash_attention]
+
+    forward(model, toks[:1, :128])                   # first-launch setup
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ALL_KERNELS:
+        k.launches = 0
+    ts = time.perf_counter()
+    logits, _ = forward(model, toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    peak = torch.cuda.max_memory_allocated()
+    n_full = flash_attention.launches
+    check(n_full == cfg.n_layers, f"{n_full} full-sequence launches in one "
+          f"forward, want {cfg.n_layers}")
+    check(not any(k.launches for k in others),
+          f"another kernel launched in the forward: "
+          f"{ {k.__name__: k.launches for k in others} }")
+    nxt = step(model, batch)
+    loss, _ = loss_fn(model, batch)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    check(launches == 3 * cfg.n_layers and not any(
+        k.launches for k in others), f"{launches} full-sequence launches in "
+        f"forward + prefill step + loss, want {3 * cfg.n_layers}")
+    print(f"  kernel route: forward {1e3 * wall:.1f} ms wall = "
+          f"{SEQ_B * SEQ_L / wall:.0f} prompt tokens/s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB (weights, "
+          f"activations, {SEQ_B}x{SEQ_L}x{cfg.vocab} f32 logits); "
+          f"flash_attention {n_full} launches per forward, {launches} in "
+          f"forward + prefill step + loss, no other kernel; {card}",
+          flush=True)
+    top2 = logits[:, -1].topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    last = logits[:, -1].clone()
+    print(f"  profile of one forward: "
+          f"{profiled(functools.partial(forward, model, toks))}", flush=True)
+    launched = flash_attention.launches
+
+    with api.policy(backend="ref"):
+        ref_logits, _ = forward(model, toks)
+        diff = (logits - ref_logits).abs().max().item()
+        scale = ref_logits.abs().max().item()
+        del logits, ref_logits
+        torch.cuda.empty_cache()
+        ref_next = step(model, batch)
+        ref_loss, _ = loss_fn(model, batch)
+    torch.cuda.synchronize()
+    check(flash_attention.launches == launched, "the ref route launched the "
+          "full-sequence kernel")
+    rel_loss = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    print(f"  vs the ref route: max|dlogit| {diff:.3e} ({diff / scale:.2e} "
+          f"of max|logit| {scale:.2f}); greedy tokens {nxt.tolist()} vs "
+          f"{ref_next.tolist()} (top-1/top-2 margins "
+          f"{[round(m, 4) for m in margins]}); loss {loss.item():.6f} vs "
+          f"{ref_loss.item():.6f} (relative {rel_loss:.2e})", flush=True)
+    check(diff <= LOGIT_TOL * scale, f"max |dlogit| {diff} above "
+          f"{LOGIT_TOL} x {scale}")
+    check(torch.equal(nxt, ref_next), "greedy tokens differ from the ref "
+          "route's")
+    check(torch.equal(nxt, last.argmax(-1)), "the prefill step's tokens are "
+          "not the forward's argmax")
+    check(rel_loss <= LOSS_TOL, f"loss differs by {rel_loss} (relative)")
+
+    # the same prompts through the serving engine's chunked prefill (B3)
+    # with float32 caches, so it computes the forward's function
+    eng = ServingEngine(cfg, model, slots=SEQ_B, max_len=LK,
+                        prefill_chunk=W)
+    eng.caches = init_caches(cfg, SEQ_B, LK, device=dev,
+                             dtype=torch.float32)
+    for k in ALL_KERNELS:
+        k.launches = 0
+    submit_all(eng, list(toks_np.astype(np.int32)), 1)
+    ts = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    eng_s = time.perf_counter() - ts
+    first = [r.out_tokens[0] for r in sorted(done, key=lambda r: r.rid)]
+    print(f"  serving engine (f32 caches, chunk {W}): first tokens {first} "
+          f"in {eng_s:.2f} s ({eng.stats.prefill_chunk_calls} chunk steps; "
+          f"flash_prefill {flash_prefill.launches} launches, "
+          f"flash_attention {flash_attention.launches})", flush=True)
+    check(flash_prefill.launches > 0 and flash_attention.launches == 0,
+          "the engine's prefill did not run on the varlen prefill kernel")
+    check(first == nxt.tolist(), f"the engine's first tokens {first} differ "
+          f"from make_prefill_step's {nxt.tolist()}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches}
+
+
+def morphable_phase(dev):
+    phase("7. morphable ops: api.ops.morphable_multi_gemm on each mix (one "
+          "grouped launch), api.ops.depthwise_conv on a MobileNetV2 block")
+    for k in FULL_KERNELS:
+        k.launches = 0
+    pol = api.default_policy
+    for i, (name, shapes) in enumerate(MIXES.items()):
+        tenants = tenant_data(dev, shapes, 90 + i)
+        before = grouped_matmul.launches
+        results, util = api.ops.morphable_multi_gemm(tenants)
+        torch.cuda.synchronize()
+        check(grouped_matmul.launches == before + 1,
+              f"{name}: {grouped_matmul.launches - before} grouped launches")
+        x, w, _, _ = pack_tenants(tenants, pol.bm, pol.bk, pol.bn)
+        useful = sum(m * k * n for m, k, n in shapes)
+        plain_util = useful / (x.shape[0] * x.shape[1] * w.shape[2])
+        check(util == plain_util, f"{name}: utilization {util} vs the plain "
+              f"packing's {plain_util}")
+        worst = 0.0
+        for (xi, wi), r in zip(tenants, results):
+            want = xi @ wi
+            rel = (r - want).abs().max().item() / want.abs().max().item()
+            worst = max(worst, rel)
+        check(worst <= 1e-5, f"{name}: a tenant's result is {worst} (of its "
+              "max) from the plain product")
+        print(f"  {name}: one grouped launch, MAC utilization {util:.4f} "
+              f"(= the packing's), every tenant within {worst:.2e} of its "
+              "plain product", flush=True)
+    n, h, w_, c, kk = DW_SHAPES[0]
+    g = torch.Generator(device=dev).manual_seed(99)
+    x = torch.randn(n, h, w_, c, generator=g, device=dev)
+    f = torch.randn(kk, kk, c, generator=g, device=dev)
+    out = api.ops.depthwise_conv(x, f)
+    torch.cuda.synchronize()
+    check(depthwise_conv.launches == 1, "api.ops.depthwise_conv did not "
+          "launch the depthwise kernel once")
+    check(torch.equal(out, depthwise_plain(x, f)), "depthwise_conv: the op "
+          "is not bitwise equal to the plain version")
+    print(f"  depthwise_conv MobileNetV2 {(n, h, w_, c)} {kk}x{kk}: one "
+          "launch, bitwise equal to the plain version", flush=True)
+    return {"grouped_matmul": grouped_matmul.launches,
+            "depthwise_conv": depthwise_conv.launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     dev_info = device_phase()
@@ -1268,12 +1711,16 @@ def main() -> int:
     errs = kernel_phase(dev)
     errs.update(paged_kernel_phase(dev))
     errs.update(aio_kernel_phase(dev))
+    errs.update(new_kernel_phase(dev))
     times = timing_phase(dev)
     times.update(paged_timing_phase(dev))
     times.update(aio_timing_phase(dev))
+    times.update(full_timing_phase(dev))
     launches = engine_phase(dev, smi)
     launches.update(paged_engine_phase(dev, smi))
-    phase("6. summary")
+    launches.update(fullseq_phase(dev, smi))
+    launches.update(morphable_phase(dev))
+    phase("8. summary")
     kernels = []
     for kname in (k.__name__ for k in ALL_KERNELS):
         source, replaces = KERNEL_META[kname]

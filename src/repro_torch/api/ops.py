@@ -9,10 +9,11 @@ dispatches.
     with api.policy(backend="ref"):
         out = api.ops.attention(q, k, v, offset=pos)      # plain reference
     y = api.ops.matmul_codes(x, qweight)                  # resident weight
+    outs, util = api.ops.morphable_multi_gemm([(x1, w1), (x2, w2)])
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -20,7 +21,8 @@ from .policy import ExecutionPolicy, current_policy
 from .registry import registry
 
 __all__ = ["attention", "attention_route", "matmul", "matmul_codes",
-           "quantize", "DECODE_MAX_LQ"]
+           "quantize", "grouped_matmul", "morphable_multi_gemm",
+           "depthwise_conv", "DECODE_MAX_LQ"]
 
 # Longest query the flash-decode kernel takes on the scalar-offset
 # cache-shaped route; per-row-offset multi-token chunks go to the varlen
@@ -89,12 +91,13 @@ def attention_route(*, lq: int, lk: Optional[int] = None, causal: bool = True,
     attention over a cache routes to the serving kernels: multi-token
     (Lq > 1) per-row-offset chunks (the engine's chunked admission prefill)
     to "cuda-prefill", short queries (Lq <= DECODE_MAX_LQ, the decode step)
-    to "cuda-decode". Cache-shaped means lk > lq or a per-row offset vector;
-    plain short self-attention (lk == lq, scalar offset) stays on "ref".
-    Everything else goes to "ref" as well — including the 128-aligned
-    full-sequence shapes the reference sends to its full-sequence flash
-    kernel, which is not ported yet (ROADMAP B8). `quantized` is accepted
-    for that route's rule and changes nothing until it exists.
+    to "cuda-decode". Cache-shaped means lk > lq or a per-row offset vector.
+    Unquantized 128-aligned scalar-offset calls that are not those (the
+    full-sequence forward's attention, causal or not, and cache-shaped
+    calls too long for decode) go to the full-sequence flash kernel,
+    "cuda". Everything else goes to "ref" (the reference's rule, name for
+    name: "pallas" -> "cuda", "pallas-decode" -> "cuda-decode",
+    "pallas-prefill" -> "cuda-prefill").
     """
     pol = _resolve(policy, backend=backend)
     if pol.use_kernels():
@@ -104,6 +107,8 @@ def attention_route(*, lq: int, lk: Optional[int] = None, causal: bool = True,
                 return "cuda-prefill"
             if lq <= DECODE_MAX_LQ:
                 return "cuda-decode"
+        if not quantized and lq % 128 == 0 and offset_ndim == 0:
+            return "cuda"
     return "ref"
 
 
@@ -138,7 +143,46 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     impl = attention_route(lq=q.shape[2], lk=lk, causal=causal,
                            offset_ndim=offset_ndim,
                            quantized=k_scale is not None, policy=pol)
+    if block_tables is not None and impl == "cuda":
+        impl = "ref"    # no paged route on the full-sequence kernel
     fn = registry.lookup("attention", impl)
     return fn(q, k, v, causal=causal, window=window, softcap=softcap,
               scale=scale, offset=offset, lengths=lengths, k_scale=k_scale,
               v_scale=v_scale, block_tables=block_tables, policy=pol)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   group_sizes: Sequence[int], *, bm: Optional[int] = None,
+                   bn: Optional[int] = None, bk: Optional[int] = None,
+                   out_dtype: Optional[torch.dtype] = None,
+                   backend: Optional[str] = None,
+                   policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """x (T, K) rows sorted by group; w (G, K, N); group_sizes (each a
+    multiple of bm) sums to T. out[t] = x[t] @ w[group of t], f32
+    accumulation, out_dtype output (K and N are padded to bk and bn)."""
+    pol = _resolve(policy, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
+                   backend=backend)
+    return _dispatch("grouped_matmul", pol, x, w, tuple(group_sizes))
+
+
+def morphable_multi_gemm(tenants, *, bm: Optional[int] = None,
+                         bn: Optional[int] = None, bk: Optional[int] = None,
+                         out_dtype: Optional[torch.dtype] = None,
+                         backend: Optional[str] = None,
+                         policy: Optional[ExecutionPolicy] = None):
+    """Run unrelated tenant GEMMs [(x_i (M_i, K_i), w_i (K_i, N_i)), ...]
+    in ONE grouped launch; returns (results, mac_utilization): each
+    tenant's (M_i, N_i) product, and useful MACs over the MACs of the
+    packed launch (the paper's Fig 14 metric)."""
+    pol = _resolve(policy, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
+                   backend=backend)
+    from ..kernels.grouped_matmul.ops import multi_gemm_with_policy
+    return multi_gemm_with_policy(tenants, pol)
+
+
+def depthwise_conv(x: torch.Tensor, filt: torch.Tensor, *,
+                   backend: Optional[str] = None,
+                   policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """x: (N, H, W, C); filt: (kh, kw, C); stride-1 SAME depthwise conv."""
+    pol = _resolve(policy, backend=backend)
+    return _dispatch("depthwise_conv", pol, x, filt)

@@ -3,8 +3,8 @@
 The backend plane picks between the hand-written CUDA kernels and the plain
 PyTorch reference; the format plane names the AIO number format of the
 quantized matmul and quantize ops; the tiling plane carries the attention
-kernels' block lengths. Policies are frozen, so one engine pins one policy
-for its whole life.
+kernels' block lengths and the grouped GEMM's tile sizes. Policies are
+frozen, so one engine pins one policy for its whole life.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import contextlib
 import dataclasses
 import threading
 from typing import Iterator, Optional
+
+import torch
 
 __all__ = ["ExecutionPolicy", "policy", "current_policy", "default_policy"]
 
@@ -34,20 +36,34 @@ class ExecutionPolicy:
     bkv:     length of the KV blocks the flash-decode kernel deals to its
              warps in turn (a multiple of 32).
     bq:      q-block length of the varlen flash-prefill kernel.
+    bm/bn/bk: tile sizes of the grouped GEMM: every group's row count must
+             be a multiple of bm (`make_group_ids`), and K and N are padded
+             to bk and bn (`pack_tenants`, so the MAC utilization that
+             `morphable_multi_gemm` reports depends on them).
+    out_dtype: output dtype of the grouped GEMM (f32 accumulation).
     """
     format: str = "bf16"
     backend: str = "auto"
+    bm: int = 128
+    bn: int = 128
+    bk: int = 128
     bkv: int = 128
     bq: int = 32
+    out_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
         if self.backend not in _BACKENDS:
             raise ValueError(f"backend {self.backend!r} not in {_BACKENDS}")
         if self.format not in _FORMATS:
             raise ValueError(f"format {self.format!r} not in {_FORMATS}")
-        tiles = dict(bkv=self.bkv, bq=self.bq)
+        tiles = dict(bm=self.bm, bn=self.bn, bk=self.bk, bkv=self.bkv,
+                     bq=self.bq)
         if min(tiles.values()) < 1:
             raise ValueError(f"tile lengths must be >= 1 ({tiles})")
+        if not (isinstance(self.out_dtype, torch.dtype)
+                and self.out_dtype.is_floating_point):
+            raise ValueError(f"out_dtype {self.out_dtype!r} is not a float "
+                             "dtype")
 
     def use_kernels(self) -> bool:
         """True when shape-eligible calls route to the kernel impls."""

@@ -17,7 +17,9 @@ IMPLS = ("cuda", "cuda-decode", "cuda-prefill", "ref")
 # packages whose import populates the registry
 _KERNEL_PACKAGES = ("repro_torch.kernels.flash_attention",
                     "repro_torch.kernels.aio_matmul",
-                    "repro_torch.kernels.aio_quant")
+                    "repro_torch.kernels.aio_quant",
+                    "repro_torch.kernels.grouped_matmul",
+                    "repro_torch.kernels.depthwise")
 
 
 class KernelRegistry:

@@ -1,6 +1,6 @@
 """Shared helpers for the kernel layer: the CUDA kernel build, the launch
-of a kernel's C entry point, and the fp code helpers the kernels' plain
-versions share.
+of a kernel's C entry point, the tiling helpers of the ops (`ceil_div`,
+`pad_to`), and the fp code helpers the kernels' plain versions share.
 
 Each `csrc/<name>.cu` source is compiled by nvcc, at first use, into its own
 shared library with a plain C interface (no PyTorch headers, so a build
@@ -37,15 +37,17 @@ import torch
 from ..core.formats import _ldexp
 
 __all__ = ["build_kernels", "load_kernel", "check_launch", "call_kernel",
-           "check_cuda", "decode_fp_code", "encode_fp_code", "CSRC",
-           "BUILD_ROOT", "BUILD_REPORTS", "NVCC_FLAGS"]
+           "check_cuda", "ceil_div", "pad_to", "decode_fp_code",
+           "encode_fp_code", "CSRC", "BUILD_ROOT", "BUILD_REPORTS",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # one library per kernel source; headers are shared by all of them
-SOURCES = ("flash_decode", "flash_prefill", "aio_matmul", "aio_quant")
+SOURCES = ("flash_decode", "flash_prefill", "flash_full", "aio_matmul",
+           "aio_quant", "grouped_matmul", "depthwise")
 
 BUILD_REPORTS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -148,6 +150,22 @@ def check_cuda(name: str, t: torch.Tensor, *, contiguous: bool = True):
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pad_to(x: torch.Tensor, multiple: int, axis: int) -> torch.Tensor:
+    """Zero-pad `axis` of x up to a multiple of `multiple` (x itself when it
+    is one already)."""
+    size = x.shape[axis]
+    pad = ceil_div(size, multiple) * multiple - size
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """Attention: registry implementations.
 
+"cuda" is the full-sequence flash kernel (128-aligned, scalar-offset,
+unquantized calls: the cacheless attention of the full-sequence forward);
 "cuda-prefill" is the varlen flash-prefill kernel (multi-token right-padded
 chunks over a cache at per-row positions); "cuda-decode" is the
 flash-decode kernel (short Lq over a long per-row cache); "ref" is the
@@ -24,6 +26,7 @@ import torch
 
 from ...api.policy import ExecutionPolicy
 from ...api.registry import register
+from .full import flash_attention
 from .decode import (flash_decode, flash_decode_paged,
                      flash_decode_paged_quant, flash_decode_quant)
 from .prefill import (flash_prefill, flash_prefill_paged,
@@ -38,6 +41,24 @@ def _maybe_dequant(q, k, v, k_scale, v_scale):
     if k_scale is None:
         return k, v
     return dequant(k, k_scale, q.dtype), dequant(v, v_scale, q.dtype)
+
+
+@register("attention", "cuda")
+def _attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None, offset=0,
+                    lengths: Optional[torch.Tensor] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None,
+                    block_tables: Optional[torch.Tensor] = None,
+                    policy: ExecutionPolicy) -> torch.Tensor:
+    assert block_tables is None, \
+        "the full-sequence kernel has no paged route (dispatch sends paged " \
+        "cache-shaped calls to cuda-prefill/cuda-decode/ref)"
+    k, v = _maybe_dequant(q, k, v, k_scale, v_scale)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap, scale=scale, offset=offset)
 
 
 @register("attention", "cuda-prefill")

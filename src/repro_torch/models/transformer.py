@@ -11,6 +11,9 @@ other families raise NotImplementedError (ROADMAP A7).
 place (the dense weights are freed, as the reference's donating launcher
 frees them); `resident_format` reports it.
 
+`loss_fn` is the causal-LM cross entropy of the full-sequence forward, as
+a value (no gradient: the training stack is not ported).
+
 `init_caches(..., paged=(pool_blocks, block_size))` gives block-pool caches
 instead (every layer a pool, all layers sharing one (B, nblk) block table);
 `set_block_tables` and `copy_pool_blocks` are the device halves of the
@@ -19,7 +22,7 @@ serving engine's block allocator.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -32,7 +35,8 @@ from .attention import (PAGED_TYPES, Attention, KVCache, PagedKVCache,
 from .layers import MLP, Embedding, Linear, QuantPolicy, RMSNorm, linear
 
 __all__ = ["ModelConfig", "Transformer", "DenseBlock", "init_params",
-           "forward", "decode_step", "init_caches", "reset_slots",
+           "forward", "loss_fn", "decode_step", "init_caches",
+           "reset_slots",
            "set_block_tables", "copy_pool_blocks", "quantize_params",
            "resident_format"]
 
@@ -224,6 +228,25 @@ def forward(model: Transformer, tokens: torch.Tensor):
         x = layer(x)
     logits = model.unembed(model.final_norm(x))
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+@torch.no_grad()
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01):
+    """Causal-LM cross entropy (+ aux_weight x the MoE aux loss), the
+    reference's `loss_fn` as a value. batch: "tokens" (B, L) and "labels"
+    (B, L); labels < 0 (-100) mask a position out. Returns (loss + aux_weight
+    * aux, {"loss": loss, "aux": aux})."""
+    logits, aux = forward(model, batch["tokens"])
+    labels = batch["labels"]
+    mask = labels >= 0
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    del logits
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    del logp
+    loss = (nll * mask).sum() / mask.sum().clamp_min(1)
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
 @torch.no_grad()

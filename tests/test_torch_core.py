@@ -116,12 +116,16 @@ ROUTE_CASES = [
     dict(lq=128, lk=512, offset_ndim=0),
     dict(lq=1, lk=256, offset_ndim=1, causal=False),
     dict(lq=4, lk=256, offset_ndim=1, causal=False),
+    dict(lq=128, lk=384, offset_ndim=0),
+    dict(lq=256, lk=300, offset_ndim=0),
+    dict(lq=128, lk=128, offset_ndim=0, causal=False),
+    dict(lq=128, lk=128, offset_ndim=0, quantized=True),
+    dict(lq=128, lk=2048, offset_ndim=1),
+    dict(lq=120, lk=120, offset_ndim=0),
 ]
-# the JAX route names under its kernel backend, in the port's terms; the
-# full-sequence flash kernel ("pallas", ROADMAP B8) is not ported, so those
-# shapes go to the port's reference until it is
+# the JAX route names under its kernel backend, in the port's terms
 _PORT_NAME = {"pallas-decode": "cuda-decode", "pallas-prefill": "cuda-prefill",
-              "pallas": "ref", "ref": "ref"}
+              "pallas": "cuda", "ref": "ref"}
 
 
 @pytest.mark.parametrize("case", ROUTE_CASES, ids=str)
@@ -145,16 +149,24 @@ def test_policy_nesting_and_validation():
         api.ExecutionPolicy(backend="pallas")
     with pytest.raises(ValueError, match="tile"):
         api.ExecutionPolicy(bq=0)
+    with pytest.raises(ValueError, match="tile"):
+        api.ExecutionPolicy(bm=0)
+    with pytest.raises(ValueError, match="out_dtype"):
+        api.ExecutionPolicy(out_dtype=torch.int32)
+    pol = api.ExecutionPolicy()
+    assert (pol.bm, pol.bn, pol.bk, pol.out_dtype) == (128, 128, 128,
+                                                       torch.float32)
 
 
 def test_registry_lookup():
     assert api.registry.implementations("attention") == [
-        "cuda-decode", "cuda-prefill", "ref"]
-    with pytest.raises(KeyError, match="no 'cuda' implementation"):
-        api.registry.lookup("attention", "cuda")
-    assert api.registry.implementations("matmul_codes") == ["cuda", "ref"]
+        "cuda", "cuda-decode", "cuda-prefill", "ref"]
+    with pytest.raises(KeyError, match="no 'cuda-decode' implementation"):
+        api.registry.lookup("matmul", "cuda-decode")
+    for op in ("matmul_codes", "grouped_matmul", "depthwise_conv"):
+        assert api.registry.implementations(op) == ["cuda", "ref"]
     with pytest.raises(KeyError, match="unknown op"):
-        api.registry.lookup("depthwise_conv", "ref")
+        api.registry.lookup("conv3d", "ref")
     with pytest.raises(ValueError, match="not in"):
         api.register("attention", "pallas")
 

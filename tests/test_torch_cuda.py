@@ -26,14 +26,18 @@ from repro_torch.kernels.aio_matmul import (MODES, aio_matmul,
                                             quantize_operands_ref)
 from repro_torch.kernels.aio_quant import (KERNEL_FLOOR, aio_quant,
                                            aio_quant_plain, quant_edge_rows)
+from repro_torch.kernels.depthwise import depthwise_conv, depthwise_plain
 from repro_torch.kernels.flash_attention import (
-    KERNELS, PAGED_KERNELS, flash_decode, flash_decode_paged,
+    KERNELS, PAGED_KERNELS, flash_attention, flash_attention_plain,
+    flash_decode, flash_decode_paged,
     flash_decode_paged_plain, flash_decode_paged_quant, flash_decode_plain,
     flash_decode_quant, flash_prefill, flash_prefill_paged,
     flash_prefill_paged_plain, flash_prefill_paged_quant,
     flash_prefill_plain, flash_prefill_quant)
 from repro_torch.kernels.flash_attention.shared import dequant
-from repro_torch.models import init_params
+from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                grouped_matmul_plain)
+from repro_torch.models import forward, init_params, loss_fn
 from repro_torch.models.attention import _q8
 from repro_torch.serving import Request, ServingEngine
 
@@ -426,3 +430,196 @@ def _plain_resident_gemms():
         yield
     finally:
         api.registry._impls[key] = saved
+
+
+# ========================================= full-sequence flash attention
+FULL_CASES = [
+    # the reference's six cases (tests/test_kernels.py)
+    dict(b=2, hq=4, hkv=2, lq=128, lk=128, d=64),
+    dict(b=1, hq=8, hkv=2, lq=256, lk=300, d=64),
+    dict(b=1, hq=4, hkv=4, lq=128, lk=256, d=64, window=100),
+    dict(b=1, hq=4, hkv=2, lq=128, lk=256, d=64, softcap=30.0),
+    dict(b=1, hq=4, hkv=2, lq=128, lk=384, d=64, offset=256),
+    dict(b=1, hq=2, hkv=1, lq=128, lk=128, d=128, window=64, softcap=50.0),
+    # non-causal, GQA group 6 at qwen2-1.5B's head width, ragged Lq and D
+    dict(b=2, hq=6, hkv=2, lq=128, lk=200, d=32, causal=False),
+    dict(b=1, hq=4, hkv=2, lq=128, lk=256, d=64, causal=False, window=90),
+    dict(b=2, hq=12, hkv=2, lq=384, lk=384, d=128),
+    dict(b=1, hq=2, hkv=1, lq=77, lk=77, d=96),
+]
+
+
+def _full_kw(case):
+    return {k: case[k] for k in ("causal", "window", "softcap", "offset")
+            if k in case}
+
+
+@pytest.mark.parametrize("case", FULL_CASES, ids=str)
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_full_attention_kernel_matches_plain(dev, case, kv_dtype):
+    """max |diff| <= 1e-4 (atol and rtol): f32 attention summed in another
+    order. q f32 (a head-split strided view, as the model hands it over),
+    K/V f32 or bf16."""
+    q, k, v = _data(dev, 11, case["b"], case["hq"], case["hkv"], case["lq"],
+                    case["lk"], case["d"])
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **_full_kw(case))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.float32 and not got.isnan().any()
+    _close(got, flash_attention_plain(q, k, v, **_full_kw(case)))
+
+
+def test_full_attention_kernel_all_bf16(dev):
+    """q, K and V bf16, a bf16 output: the kernel's f32 result and the
+    plain version's differ by at most 1e-4 before the final rounding, so
+    after it by one bf16 ulp of the value (at most 2^-7 of it) plus
+    1e-4."""
+    q, k, v = _data(dev, 12, 2, 12, 2, 256, 256)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=TOL)
+
+
+def test_full_attention_rows_without_keys_are_finite(dev):
+    """A window that ends before the queries' positions leaves rows with no
+    valid key: their output is finite; every other row matches."""
+    q, k, v = _data(dev, 13, 1, 4, 2, 128, 100, 64)
+    got = flash_attention(q, k, v, window=8, offset=50)
+    want = flash_attention_plain(q, k, v, window=8, offset=50)
+    assert torch.isfinite(got).all()
+    _close(got[:, :, :57], want[:, :, :57])  # 50 + i < 100 + 8 - 1
+
+
+def test_full_attention_wrapper_rejects_bad_operands(dev):
+    q, k, v = _data(dev, 14, 1, 4, 2, 128, 128, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros(1, 2, 128, 130, device=dev)
+        flash_attention(z, z, z)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q, k.half(), v.half())
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, window=0)
+
+
+def test_forward_on_card_runs_the_full_kernel_per_layer(dev):
+    """The smoke config's full-sequence forward at L = 256: one
+    full-sequence kernel launch per layer and no serving kernel; logits
+    within 1e-4 of the ref route's and the loss within 1e-5."""
+    cfg = get_smoke("qwen2_1p5b")
+    model = init_params(cfg, seed=0)
+    toks = torch.randint(1, cfg.vocab, (2, 256), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    for kern in (flash_attention, *KERNELS, *PAGED_KERNELS):
+        kern.launches = 0
+    logits, _ = forward(model, toks)
+    loss, _ = loss_fn(model, batch)
+    assert flash_attention.launches == 2 * cfg.n_layers
+    assert not any(k.launches for k in (*KERNELS, *PAGED_KERNELS))
+    with api.policy(backend="ref"):
+        want, _ = forward(model, toks)
+        want_loss, _ = loss_fn(model, batch)
+    assert flash_attention.launches == 2 * cfg.n_layers
+    _close(logits, want)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+
+
+# ====================================================== grouped GEMM (B9)
+@pytest.mark.parametrize("sizes,k,n,bm", [
+    ((128, 384, 128), 192, 160, 128), ((64, 192), 131, 70, 64),
+    ((32, 96), 40, 200, 32), ((16, 48, 16), 1536, 33, 16),
+    ((256, 128), 4096, 4096, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_kernel_matches_plain(dev, sizes, k, n, bm, dtype):
+    """max |kernel - plain| <= 1e-5 * max |plain| (f32 sums in another
+    order; bf16 operands are widened exactly); ragged K and N."""
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    x = torch.randn(sum(sizes), k, generator=g, device=dev).to(dtype)
+    w = (torch.randn(len(sizes), k, n, generator=g, device=dev)
+         * k ** -0.5).to(dtype)
+    gids = torch.tensor([i for i, s in enumerate(sizes)
+                         for _ in range(s // bm)], dtype=torch.int32,
+                        device=dev)
+    before = grouped_matmul.launches
+    got = grouped_matmul(gids, x, w, bm=bm)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    want = grouped_matmul_plain(gids, x, w, bm=bm)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    half = grouped_matmul(gids, x, w, bm=bm, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(half.float(), want, rtol=2 ** -8,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_morphable_multi_gemm_on_card_is_one_launch(dev):
+    """Three unrelated tenants in ONE grouped launch: each result as the
+    plain product, the utilization as the CPU packing's."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes = [(100, 64, 96), (300, 120, 50), (60, 256, 256)]
+    tenants = [(torch.randn(m, k, generator=g, device=dev),
+                torch.randn(k, n, generator=g, device=dev))
+               for m, k, n in shapes]
+    before = grouped_matmul.launches
+    got, util = api.ops.morphable_multi_gemm(tenants)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    _, want_util = api.ops.morphable_multi_gemm(
+        [(x.cpu(), w.cpu()) for x, w in tenants])
+    assert util == want_util
+    for (x, w), r in zip(tenants, got):
+        want = x @ w
+        assert (r - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_grouped_wrapper_rejects_bad_operands(dev):
+    x = torch.zeros(128, 32, device=dev)
+    w = torch.zeros(2, 32, 16, device=dev)
+    gids = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        grouped_matmul(torch.zeros(16, dtype=torch.int32, device=dev), x, w,
+                       bm=8)
+    with pytest.raises(TypeError, match="int32"):
+        grouped_matmul(gids.long(), x, w)
+    with pytest.raises(TypeError, match="both float32"):
+        grouped_matmul(gids, x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="group ids"):
+        grouped_matmul(gids, x[:64], w)
+
+
+# ===================================================== depthwise conv (B11)
+@pytest.mark.parametrize("n,h,w,c,kk", [
+    (2, 9, 7, 3, 3), (1, 13, 11, 130, 5), (2, 15, 9, 576, 7),
+    (8, 56, 56, 144, 3), (1, 6, 5, 64, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_kernel_bitwise_equals_plain(dev, n, h, w, c, kk, dtype):
+    g = torch.Generator(device=dev).manual_seed(kk * c)
+    x = torch.randn(n, h, w, c, generator=g, device=dev).to(dtype)
+    f = torch.randn(kk, kk, c, generator=g, device=dev).to(dtype)
+    before = depthwise_conv.launches
+    got = depthwise_conv(x, f)
+    torch.cuda.synchronize()
+    assert depthwise_conv.launches == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, depthwise_plain(x, f))
+    assert torch.equal(api.ops.depthwise_conv(x, f), got)
+    assert depthwise_conv.launches == before + 2
+
+
+def test_depthwise_wrapper_rejects_bad_operands(dev):
+    x = torch.zeros(1, 4, 4, 8, device=dev)
+    with pytest.raises(ValueError, match="kh, kw, C"):
+        depthwise_conv(x, torch.zeros(3, 3, 4, device=dev))
+    with pytest.raises(TypeError, match="both float32"):
+        depthwise_conv(x, torch.zeros(3, 3, 8, device=dev,
+                                      dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        depthwise_conv(x.transpose(1, 2), torch.zeros(3, 3, 8, device=dev))
