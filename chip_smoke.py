@@ -42,9 +42,10 @@ of JAX or of the JAX package `repro`. Phases:
    (tests/test_kernels.py), a non-causal case, bf16 K/V and GQA group 6
    (Hq 12, Hkv 2, D 128): max |diff| <= 1e-4 and no NaN; all-bf16 within
    one bf16 ulp + 1e-4. The grouped GEMM (B9) on ragged tenants packed at
-   bm = bk = bn in {128, 64, 16}, f32 and bf16: max |kernel - plain| <=
-   1e-5 * max |plain|. The depthwise conv (B11) at 3x3, 5x5, 7x7, odd H and
-   W, C = 3, 130, 576, f32 and bf16: bitwise.
+   bm = bk = bn in {128, 64, 16}, f32 and bf16, with and without each
+   tenant's (K, N): max |kernel - plain| <= 1e-5 * max |plain|, and with
+   them the padded output columns exactly 0. The depthwise conv (B11) at
+   3x3, 5x5, 7x7, odd H and W, C = 3, 130, 576, f32 and bf16: bitwise.
 4. Timing: CUDA-event time per launch of each kernel, its plain version and
    one PyTorch library call computing the same function (timed only here),
    beside the least time the card could take: the larger of the bytes the
@@ -53,8 +54,9 @@ of JAX or of the JAX package `repro`. Phases:
    TFLOP/s, which the fp8 GEMM modes run at, decoded to bf16; int8 1,979
    TOPS, which int4 runs at, unpacked to int8). Attention: the serving
    shapes, against scaled_dot_product_attention with an explicit boolean
-   mask. AIO GEMM: each mode at M = 8 and 256 of (1536, 8960) (gate/up)
-   and (8960, 1536) (down), against torch.matmul on operands decoded to
+   mask. AIO GEMM: each mode at M = 8 and 256 of every Linear shape of
+   qwen2-1.5B ((K, N) = (1536, 1536) q/o, (1536, 256) k/v, (1536, 8960)
+   gate/up, (8960, 1536) down), against torch.matmul on operands decoded to
    bf16 beforehand and, where its shape rules allow (M = 256), torch._int_mm
    on int8 operands. AIO quantizer: each format at M = 8 and 256 of
    N = 1536 and 8960; no single library call computes it. Paged attention
@@ -67,8 +69,11 @@ of JAX or of the JAX package `repro`. Phases:
    (K/V expanded to Hq beforehand), bound by its f32 flops at 67 TFLOP/s.
    B9 on the tenant mixes of examples/morphable_inference.py and
    qwen2-1.5B's q projection (256, 1536, 1536) beside llama2-7B's (128,
-   4096, 4096), against one torch.matmul per tenant (TF32 off), bound by
-   max(bytes / 3.35 TB/s, 2 T K N / 67 TFLOP/s) of the packed launch. B11
+   4096, 4096), launched as morphable_multi_gemm launches it (the packed
+   operands with each tenant's (K, N), so the padding is skipped), against
+   one torch.matmul per tenant (TF32 off); bound by max(bytes / 3.35 TB/s,
+   2 M K N / 67 TFLOP/s) of the tenants' useful work (the summary's
+   bound), printed beside the same bound of the packed launch. B11
    at MobileNetV2 (8,56,56,144) and (8,14,14,576) 3x3 and ConvNeXt-S
    (8,56,56,96) and (8,14,14,384) 7x7, against conv2d(groups=C), bound by
    bytes.
@@ -773,7 +778,7 @@ def decoded_bf16(mode, x, w):
 def aio_timing_phase(dev):
     phase("4b. AIO GEMM and quantizer timing (ms per launch, CUDA events)")
     rows = {}
-    for k, n in ((1536, 8960), (8960, 1536)):
+    for k, n in GEMM_SHAPES:
         for m in GEMM_M:
             for mode in MODES:
                 copies = gemm_timing_copies(dev, mode, m, k, n)
@@ -900,9 +905,18 @@ def profiled(fn) -> str:
     busy_txt = (f"device busy {busy:.2f} ms, idle "
                 f"{100 * (1 - busy / wall):.0f}%" if busy > 0
                 else "device time not measured (no CUDA events)")
+    # the port's GEMM kernels summed over their template instances
+    ours = {}
+    for e in on_card:
+        for name in ("aio_mm_kernel", "aio_quant", "grouped_matmul_kernel"):
+            if name in e.key:
+                ms, n = ours.get(name, (0.0, 0))
+                ours[name] = (ms + dev_us(e) / 1e3, n + e.count)
+    ours_txt = "".join(f"; {k} in all {ms:.2f} ms x{n}"
+                       for k, (ms, n) in ours.items())
     return (f"wall {wall:.2f} ms, {busy_txt}, {launches} host launches; top: "
             + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
-                        for e in top))
+                        for e in top) + ours_txt)
 
 
 def serve_timed(eng, prompts, max_new):
@@ -1371,6 +1385,13 @@ def tenant_data(dev, shapes, seed, dtype=torch.float32):
               ).to(dtype)) for m, k, n in shapes]
 
 
+def extents(shapes):
+    """Each tenant's (K, N), as morphable_multi_gemm hands them to the
+    grouped GEMM."""
+    return dict(group_k=[k for _, k, _ in shapes],
+                group_n=[n for _, _, n in shapes])
+
+
 def packed(tenants, pol=api.default_policy):
     """The grouped launch of a tenant mix as `morphable_multi_gemm` makes
     it: group ids, packed x (T, K), stacked w (G, K, N)."""
@@ -1413,17 +1434,26 @@ def new_kernel_phase(dev):
         for bm in (128, 64, 16):
             pol = api.ExecutionPolicy(bm=bm, bk=bm, bn=bm)
             gids, x, w = packed(tenant_data(dev, ragged, bm, dtype), pol)
-            got = grouped_matmul(gids, x, w, bm=bm)
             want = grouped_matmul_plain(gids, x, w, bm=bm)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            rel = err / want.abs().max().item()
-            print(f"  grouped_matmul {str(dtype)[6:]:8s} bm=bk=bn={bm:3d} "
-                  f"tenants {ragged} -> x {tuple(x.shape)} w "
-                  f"{tuple(w.shape)}: max|diff| {err:.3e} ({rel:.2e} of "
-                  "max|plain|)", flush=True)
-            check(rel <= 1e-5, f"grouped_matmul {dtype} bm={bm}: {rel}")
-            errs["grouped_matmul"] = max(errs["grouped_matmul"], err)
+            for label, kw in (("packed", {}), ("extents", extents(ragged))):
+                got = grouped_matmul(gids, x, w, bm=bm, **kw)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                rel = err / want.abs().max().item()
+                print(f"  grouped_matmul {str(dtype)[6:]:8s} bm=bk=bn="
+                      f"{bm:3d} {label:7s} tenants {ragged} -> x "
+                      f"{tuple(x.shape)} w {tuple(w.shape)}: max|diff| "
+                      f"{err:.3e} ({rel:.2e} of max|plain|)", flush=True)
+                check(rel <= 1e-5, f"grouped_matmul {dtype} bm={bm} "
+                      f"{label}: {rel}")
+                errs["grouped_matmul"] = max(errs["grouped_matmul"], err)
+            row = 0
+            for m, _, n in ragged:
+                size = -(-m // bm) * bm
+                check(not got[row:row + size, n:].any().item(),
+                      f"grouped_matmul bm={bm}: a padded output column of "
+                      "a tenant is not 0")
+                row += size
     # odd H and W, C = 3, 130, 576 (also not multiples of 4), 3/5/7 taps
     for n, h, w_, c, kk in [(2, 9, 7, 3, 3), (1, 13, 11, 130, 5),
                             (2, 15, 9, 576, 7), (1, 7, 13, 130, 3),
@@ -1453,6 +1483,16 @@ def full_bound(b, hq, hkv, lq, lk, d, es=4):
         / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def tenants_f32_bound(shapes):
+    """Least time (ms) of a tenant mix's useful work: each tenant's x, w
+    and output moved once, max(bytes / 3.35 TB/s, 2 M K N / 67 TFLOP/s)."""
+    t_bytes = 4 * sum(m * k + k * n + m * n for m, k, n in shapes) \
+        / HBM_BYTES_PER_S
+    t_ops = 2 * sum(m * k * n for m, k, n in shapes) / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def gemm_f32_bound(t, k, n, g):
@@ -1497,8 +1537,12 @@ def full_timing_phase(dev):
         launches = [packed(t) for t in copies]
         gids, x, w = launches[0]
         t, kmax, nmax = x.shape[0], x.shape[1], w.shape[2]
-        ms = cuda_ms([functools.partial(grouped_matmul, *a)
+        # as morphable_multi_gemm launches it: with each tenant's (K, N)
+        ext = extents(shapes)
+        ms = cuda_ms([functools.partial(grouped_matmul, *a, **ext)
                       for a in launches], 20)
+        packed_ms = cuda_ms([functools.partial(grouped_matmul, *a)
+                             for a in launches], 20)
         plain_ms = cuda_ms([functools.partial(grouped_matmul_plain, *a)
                             for a in launches], 5)
 
@@ -1507,15 +1551,18 @@ def full_timing_phase(dev):
                 torch.matmul(xi, wi)
         lib_ms = cuda_ms([functools.partial(per_tenant, c) for c in copies],
                          20)
-        bound_ms, bound_by = gemm_f32_bound(t, kmax, nmax, len(shapes))
+        bound_ms, bound_by = tenants_f32_bound(shapes)
+        launch_ms, launch_by = gemm_f32_bound(t, kmax, nmax, len(shapes))
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
         rows[("grouped_matmul", name)] = row
         print(f"  grouped_matmul {name}: {shapes} -> T={t} K={kmax} "
-              f"N={nmax}: kernel {ms:.4f}  plain {plain_ms:.4f}  "
+              f"N={nmax}: kernel {ms:.4f} (each tenant's K, N; the packed "
+              f"launch without them {packed_ms:.4f})  plain {plain_ms:.4f}  "
               f"torch.matmul per tenant (f32, TF32 off) {lib_ms:.4f}  bound "
-              f"{bound_ms:.5f} ({bound_by}; {100 * bound_ms / ms:.1f}% of "
-              "it)", flush=True)
+              f"of the useful work {bound_ms:.5f} ({bound_by}; "
+              f"{100 * bound_ms / ms:.1f}% of it), of the packed launch "
+              f"{launch_ms:.5f} ({launch_by})", flush=True)
         del copies, launches
 
     for n, h, w_, c, kk in DW_SHAPES:

@@ -36,9 +36,13 @@ def _resolve(policy: Optional[ExecutionPolicy],
     return base.override(**overrides)
 
 
-def _dispatch(op_name: str, pol: ExecutionPolicy, x: torch.Tensor, *args):
+def _check_device(pol: ExecutionPolicy, x: torch.Tensor) -> None:
     if pol.backend == "cuda" and x.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {x.device}")
+
+
+def _dispatch(op_name: str, pol: ExecutionPolicy, x: torch.Tensor, *args):
+    _check_device(pol, x)
     return registry.lookup(op_name, pol.impl())(x, *args, policy=pol)
 
 
@@ -176,6 +180,8 @@ def morphable_multi_gemm(tenants, *, bm: Optional[int] = None,
     packed launch (the paper's Fig 14 metric)."""
     pol = _resolve(policy, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
                    backend=backend)
+    for x, _ in tenants:
+        _check_device(pol, x)
     from ..kernels.grouped_matmul.ops import multi_gemm_with_policy
     return multi_gemm_with_policy(tenants, pol)
 

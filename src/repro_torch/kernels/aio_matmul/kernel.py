@@ -15,23 +15,32 @@ Operands, per mode:
                 = even k), as `formats.quantize_weight` packs it.
 Scales: x_scale (M, 1) and w_scale (1, N) float32, both or neither
 (neither only in bf16 mode).
+
+The launch plan (`gemm_plan`: the block tile's width and the number of K
+slices) is a function of (K, N, mode) alone, so a row's result does not
+depend on M (the kernel's source note gives the reduction order).
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
 
 from ...core import formats as F
-from ..common import call_kernel, check_cuda, decode_fp_code
+from ..common import (call_kernel, ceil_div, check_cuda, decode_fp_code,
+                      tile_counters)
 
-__all__ = ["MODES", "aio_matmul", "aio_matmul_plain", "decode_table"]
+__all__ = ["MODES", "aio_matmul", "aio_matmul_plain", "gemm_plan"]
 
 MODES = ("bf16", "fp8a", "fp8b", "int8", "int4")
 _MODE_IDS = {"bf16": 0, "fp8a": 1, "fp8b": 1, "int8": 2, "int4": 3}
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+# mode; x, w, x_scale, w_scale, out, workspace, counters; M, N, K, bn,
+# slices, x_vec, w_vec, fp8 shift; fp8 scale
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+             + [ctypes.c_float])
+SMS = 132              # streaming multiprocessors of an H100 SXM
+SLICE_K = 384          # K values a slice of a narrow grid holds at least
 
 
 def _check_shapes(x, w, x_scale, w_scale, mode) -> tuple:
@@ -84,15 +93,32 @@ def aio_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return acc
 
 
-@functools.lru_cache(maxsize=None)
-def decode_table(mode: str, device: str) -> torch.Tensor:
-    """The 256 values of an fp8 format's codes as bfloat16 bit patterns
-    (int16), on `device`. Every fp8a/fp8b value is exactly a bfloat16."""
-    vals = F.decode(torch.arange(256, dtype=torch.int32), F.REGISTRY[mode])
-    bf = vals.to(torch.bfloat16)
-    if not torch.equal(bf.to(torch.float32), vals):
-        raise AssertionError(f"{mode} values are not all bfloat16 values")
-    return bf.view(torch.int16).to(device)
+def gemm_plan(k: int, n: int, mode: str) -> tuple:
+    """(bn, slices): the block tile's width (64 or 128 columns) and the
+    number of K slices of a launch, from (K, N, mode) alone, never M.
+    128 columns where N or K is long, else 64. A grid with a block for
+    every other SM does not split K; a narrower one splits it into slices
+    of at least SLICE_K values (each slice costs the chunk width a partial
+    tile), but no more than put a block on every SM at the decode width.
+    Slices are whole K tiles (a stage of the kernel: 64 values, 128 in the
+    integer modes)."""
+    bk = 128 if mode in ("int8", "int4") else 64
+    kt = ceil_div(k, bk)
+    bn = 128 if max(k, n) >= 4096 else 64
+    nb = ceil_div(n, bn)
+    want = 1 if 2 * nb >= SMS else min(ceil_div(k, SLICE_K),
+                                        ceil_div(SMS, nb))
+    per = ceil_div(kt, min(want, kt))
+    return bn, ceil_div(kt, per)
+
+
+def _fp8_params(mode: str) -> tuple:
+    """The kernel's exact fp8 decode: a code's 7 magnitude bits shifted
+    under the bf16 exponent field, times 2^(127 - bias)."""
+    fmt = F.REGISTRY[mode]
+    if fmt.ebits + fmt.mbits != 7:
+        raise AssertionError(f"{mode}: the kernel decodes 1-byte codes")
+    return 7 - fmt.mbits, 2.0 ** (127 - fmt.bias)
 
 
 def aio_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -119,15 +145,23 @@ def aio_matmul(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    table = decode_table(mode, str(x.device)) if mode in ("fp8a", "fp8b") \
-        else None
+    if k == 0:
+        return out.zero_()
+    bn, slices = gemm_plan(k, n, mode)
+    work = counters = None
+    if slices > 1:
+        acc = torch.int32 if mode in ("int8", "int4") else torch.float32
+        work = torch.empty((slices, m, n), dtype=acc, device=x.device)
+        counters = tile_counters(x.device, ceil_div(m, 16) * ceil_div(n, bn))
+    shift, scale = _fp8_params(mode) if mode in ("fp8a", "fp8b") else (0, 1.0)
     es = x.element_size()
     call_kernel("aio_matmul", _ARGTYPES, _MODE_IDS[mode], x.data_ptr(),
                 w.data_ptr(), *(s.data_ptr() if s is not None else None
                                 for s in scales),
-                table.data_ptr() if table is not None else None,
-                out.data_ptr(), m, n, k, int(k * es % 16 == 0),
-                int(n * w.element_size() % 16 == 0))
+                out.data_ptr(), *(t.data_ptr() if t is not None else None
+                                  for t in (work, counters)),
+                m, n, k, bn, slices, int(k * es % 16 == 0),
+                int(n * w.element_size() % 16 == 0), shift, scale)
     aio_matmul.launches += 1
     return out
 

@@ -37,9 +37,9 @@ import torch
 from ..core.formats import _ldexp
 
 __all__ = ["build_kernels", "load_kernel", "check_launch", "call_kernel",
-           "check_cuda", "ceil_div", "pad_to", "decode_fp_code",
-           "encode_fp_code", "CSRC", "BUILD_ROOT", "BUILD_REPORTS",
-           "NVCC_FLAGS"]
+           "check_cuda", "tile_counters", "ceil_div", "pad_to",
+           "decode_fp_code", "encode_fp_code", "CSRC", "BUILD_ROOT",
+           "BUILD_REPORTS", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -51,6 +51,7 @@ SOURCES = ("flash_decode", "flash_prefill", "flash_full", "aio_matmul",
 
 BUILD_REPORTS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
 _LOCK = threading.Lock()
 
 
@@ -150,6 +151,20 @@ def check_cuda(name: str, t: torch.Tensor, *, contiguous: bool = True):
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def tile_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least n zeroed int32 tile counters for a split-K launch
+    (`csrc/splitk.cuh`) on `device`'s current stream, where `call_kernel`
+    launches it. A launch leaves its counters zeroed, so one buffer per
+    (device, stream) serves every launch on that stream in turn, and
+    launches on two streams never share counters."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def ceil_div(a: int, b: int) -> int:

@@ -9,12 +9,12 @@ models at once.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ...api.policy import ExecutionPolicy
-from ...api.registry import register
+from ...api.registry import register, registry
 from ..common import ceil_div, pad_to
 from .kernel import grouped_matmul
 from .ref import grouped_matmul_ref
@@ -44,18 +44,25 @@ def _prepare(x, w, group_sizes, policy: ExecutionPolicy):
 
 @register("grouped_matmul", "cuda")
 def _grouped_cuda(x: torch.Tensor, w: torch.Tensor,
-                  group_sizes: Sequence[int], *,
-                  policy: ExecutionPolicy) -> torch.Tensor:
+                  group_sizes: Sequence[int], *, policy: ExecutionPolicy,
+                  extents: Optional[Tuple[Sequence[int],
+                                          Sequence[int]]] = None
+                  ) -> torch.Tensor:
+    """`extents` = (group_k, group_n): each group's own K and N inside the
+    zero-padded operands, so the kernel skips the padding."""
     gids, xk, wk, n = _prepare(x, w, group_sizes, policy)
+    group_k, group_n = extents if extents is not None else (None, None)
     out = grouped_matmul(gids, xk.contiguous(), wk.contiguous(),
-                         bm=policy.bm, out_dtype=policy.out_dtype)
+                         bm=policy.bm, out_dtype=policy.out_dtype,
+                         group_k=group_k, group_n=group_n)
     return out[:, :n]
 
 
 @register("grouped_matmul", "ref")
 def _grouped_ref(x: torch.Tensor, w: torch.Tensor,
-                 group_sizes: Sequence[int], *,
-                 policy: ExecutionPolicy) -> torch.Tensor:
+                 group_sizes: Sequence[int], *, policy: ExecutionPolicy,
+                 extents=None) -> torch.Tensor:
+    """The oracle multiplies the padding, which `extents` marks."""
     gids, xk, wk, n = _prepare(x, w, group_sizes, policy)
     out = grouped_matmul_ref(gids, xk, wk, bm=policy.bm,
                              out_dtype=policy.out_dtype)
@@ -95,11 +102,15 @@ def multi_gemm_with_policy(tenants: Sequence[Tuple[torch.Tensor,
                            policy: ExecutionPolicy):
     """Resolved-policy body of `api.ops.morphable_multi_gemm`: returns
     (results, mac_utilization), the utilization being useful MACs over
-    launched MACs (the paper's Fig 14 metric)."""
-    from ... import api
+    the MACs of the packed launch (the paper's Fig 14 metric). The grouped
+    launch is handed each tenant's own (K, N), so the kernel skips the
+    zero padding it would otherwise multiply."""
     x, w, sizes, metas = pack_tenants(tenants, policy.bm, policy.bk,
                                       policy.bn)
-    out = api.ops.grouped_matmul(x, w, sizes, policy=policy)
+    extents = ([xi.shape[1] for xi, _ in tenants],
+               [wi.shape[1] for _, wi in tenants])
+    out = registry.lookup("grouped_matmul", policy.impl())(
+        x, w, tuple(sizes), policy=policy, extents=extents)
     results = [out[sl, :n] for sl, n in metas]
     useful = sum(xi.shape[0] * xi.shape[1] * wi.shape[1]
                  for xi, wi in tenants)

@@ -13,6 +13,8 @@ the port does neither (see `test_torch_formats.py`). So an all-zero row
 under the FLT_MIN floor is held to the exact scale, and the reference
 quantizer kernel's fp codes are compared where they agree with the
 reference's exact encoder."""
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +31,7 @@ from repro_torch import api
 from repro_torch.core import formats as F
 from repro_torch.kernels.aio_matmul import (aio_matmul, aio_matmul_codes,
                                             aio_matmul_plain, aio_matmul_ref,
-                                            quantize_operands_ref)
+                                            gemm_plan, quantize_operands_ref)
 from repro_torch.kernels.aio_quant import (KERNEL_FLOOR, aio_quant,
                                            aio_quant_plain, quant_edge_rows)
 
@@ -135,6 +137,36 @@ def test_gemm_wrapper_counts_no_launch_on_cpu_and_checks_operands():
         aio_matmul(x, w, None, None, mode="int4")
     with pytest.raises(ValueError, match="not in"):
         aio_matmul(x, w, xs, ws, mode="fp16")
+
+
+def test_gemm_plan_reads_only_k_n_and_mode():
+    """The kernel's launch plan (block tile width, K slices) is a function
+    of (K, N, mode) alone, so a row's result cannot depend on M; every
+    slice holds whole K tiles and none is empty."""
+    assert list(inspect.signature(gemm_plan).parameters) == ["k", "n",
+                                                             "mode"]
+    for k, n in ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536),
+                 (131, 40), (1001, 130), (64, 16)):
+        for mode in MODES:
+            bn, slices = gemm_plan(k, n, mode)
+            kt = -(-k // (128 if mode in INT_MODES else 64))
+            per = -(-kt // slices)
+            assert bn in (64, 128) and slices >= 1
+            assert (slices - 1) * per < kt <= slices * per
+
+
+def test_m_independence_shapes_take_every_kind_of_plan():
+    """The shapes of `tests/test_torch_cuda.py::
+    test_gemm_rows_do_not_depend_on_m` take each kind of plan (64 or 128
+    columns, K split or not) in every mode, so the card test holds every
+    plan's rows bitwise from M = 1 to 256."""
+    shapes = [(1536, 8960), (8960, 1536), (1536, 1536), (1536, 256),
+              (200, 1536)]
+    for mode in MODES:
+        kinds = {(bn, slices > 1) for bn, slices in
+                 (gemm_plan(k, n, mode) for k, n in shapes)}
+        assert kinds == {(64, False), (64, True), (128, False),
+                         (128, True)}, mode
 
 
 # ================================================================ B10

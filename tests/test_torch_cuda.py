@@ -13,6 +13,7 @@ cache bitwise at every block size. AIO GEMM: integer modes bitwise, float modes 
 max|plain|; the quantizer bitwise."""
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -22,7 +23,7 @@ from repro_torch import api
 from repro_torch.configs import get_smoke
 from repro_torch.core import formats as F
 from repro_torch.kernels.aio_matmul import (MODES, aio_matmul,
-                                            aio_matmul_plain,
+                                            aio_matmul_plain, gemm_plan,
                                             quantize_operands_ref)
 from repro_torch.kernels.aio_quant import (KERNEL_FLOOR, aio_quant,
                                            aio_quant_plain, quant_edge_rows)
@@ -36,7 +37,9 @@ from repro_torch.kernels.flash_attention import (
     flash_prefill_plain, flash_prefill_quant)
 from repro_torch.kernels.flash_attention.shared import dequant
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
-                                                grouped_matmul_plain)
+                                                grouped_matmul_plain,
+                                                grouped_plan, make_group_ids,
+                                                pack_tenants)
 from repro_torch.models import forward, init_params, loss_fn
 from repro_torch.models.attention import _q8
 from repro_torch.serving import Request, ServingEngine
@@ -335,10 +338,15 @@ def _gemm_operands(dev, mode, m, k, n, seed):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("m,k,n", [(8, 1536, 256), (256, 1536, 1536),
                                    (7, 131, 40), (33, 200, 130),
-                                   (16, 64, 16)])
+                                   (16, 64, 16), (8, 8960, 256),
+                                   (256, 8960, 1536), (40, 1536, 256),
+                                   (37, 1001, 130)])
 def test_gemm_kernel_matches_plain(dev, mode, m, k, n):
     """Integer modes bitwise; float modes within rtol 2e-5, atol 2e-5 *
-    max|plain| (float32 sums in another order)."""
+    max|plain| (float32 sums in another order). The shapes take every
+    row tile (M up to 16, 32, above), split K over slices with a narrow and
+    a wide N, and ragged K with rows that are not 16-byte aligned (K 1001:
+    odd int4 K; N 130)."""
     x, w, xs, ws = _gemm_operands(dev, mode, m, k, n, seed=m + k + n)
     before = aio_matmul.launches
     got = aio_matmul(x, w, xs, ws, mode=mode)
@@ -352,15 +360,76 @@ def test_gemm_kernel_matches_plain(dev, mode, m, k, n):
                                    atol=2e-5 * want.abs().max().item())
 
 
-@pytest.mark.parametrize("mode", ["fp8a", "int4"])
-def test_gemm_rows_do_not_depend_on_m(dev, mode):
-    """A row's result is the same at the decode width and the chunk width
-    (the K reduction order does not depend on M), bitwise."""
-    x, w, xs, ws = _gemm_operands(dev, mode, 256, 1536, 1536, seed=9)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("k,n", [(1536, 8960), (8960, 1536), (1536, 1536),
+                                 (1536, 256), (200, 1536)])
+def test_gemm_rows_do_not_depend_on_m(dev, mode, k, n):
+    """A row's result is the same at every width the engine launches, from
+    one row to the chunk width (the launch plan, and so the K reduction
+    order, does not depend on M), bitwise in every mode. The shapes take
+    every plan `gemm_plan` gives: 128 columns unsplit (gate/up) and split
+    (down), 64 columns split (q/o, k/v) and unsplit (a short K)."""
+    x, w, xs, ws = _gemm_operands(dev, mode, 256, k, n, seed=9)
     full = aio_matmul(x, w, xs, ws, mode=mode)
-    part = aio_matmul(x[:8].contiguous(), w, xs[:8].contiguous(), ws,
-                      mode=mode)
-    assert torch.equal(full[:8], part)
+    for m in (1, 8, 17, 64, 100, 256):
+        part = aio_matmul(x[:m].contiguous(), w,
+                          None if xs is None else xs[:m].contiguous(), ws,
+                          mode=mode)
+        assert torch.equal(full[:m], part), m
+
+
+@pytest.mark.parametrize("kernel", ["aio_matmul", "grouped_matmul"])
+def test_split_k_launches_on_two_streams_do_not_race(dev, kernel):
+    """Split-K launches queued on two streams at once (B5's down projection
+    at M = 8, 11 slices; B9 on a two-model mix, 6 slices) each take the
+    tile counters of their own stream: every result equals the one
+    computed alone, bitwise (the slices are summed in index order)."""
+    if kernel == "aio_matmul":
+        x, w, xs, ws = _gemm_operands(dev, "fp8a", 8, 8960, 1536, seed=5)
+        assert gemm_plan(8960, 1536, "fp8a")[1] > 1
+        run = functools.partial(aio_matmul, x, w, xs, ws, mode="fp8a")
+    else:
+        g = torch.Generator(device=dev).manual_seed(5)
+        shapes = [(128, 4096, 4096), (256, 1536, 1536)]
+        tenants = [(torch.randn(m, k, generator=g, device=dev),
+                    torch.randn(k, n, generator=g, device=dev))
+                   for m, k, n in shapes]
+        x, w, sizes, _ = pack_tenants(tenants, 128, 128, 128)
+        gids = make_group_ids(sizes, 128, device=dev)
+        assert grouped_plan(x.shape[0], x.shape[1], w.shape[2], 128)[2] > 1
+        run = functools.partial(grouped_matmul, gids, x, w)
+    want = run()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(40):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(run())
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.parametrize("mode", ["fp8a", "fp8b"])
+def test_gemm_fp8_decode_is_exact(dev, mode):
+    """Each of the 256 codes, subnormal ones included, goes through the
+    kernel's decode exactly, as x and as w: a one-hot GEMM returns the
+    decoded values bitwise."""
+    fmt = F.REGISTRY[mode]
+    codes = torch.arange(256, dtype=torch.int32)
+    want = F.decode(codes, fmt).to(dev)
+    bits = codes.to(torch.uint8).view(torch.int8).to(dev)
+    one = F.encode(torch.ones(1), fmt).to(torch.uint8).view(torch.int8)
+    eye = torch.diag(one.to(dev).expand(256)).contiguous()
+    ones = functools.partial(torch.ones, dtype=torch.float32, device=dev)
+    as_w = aio_matmul(eye, bits.view(256, 1).expand(256, 16).contiguous(),
+                      ones(256, 1), ones(1, 16), mode=mode)
+    as_x = aio_matmul(bits.view(256, 1).contiguous(),
+                      one.to(dev).expand(1, 16).contiguous(), ones(256, 1),
+                      ones(1, 16), mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(as_w, want.view(256, 1).expand(256, 16))
+    assert torch.equal(as_x, want.view(256, 1).expand(256, 16))
 
 
 @pytest.mark.parametrize("fmt", ["fp8a", "fp8b", "int8", "int4"])
@@ -560,6 +629,45 @@ def test_grouped_kernel_matches_plain(dev, sizes, k, n, bm, dtype):
                                atol=1e-5 * want.abs().max().item())
 
 
+@pytest.mark.parametrize("shapes,bm,tm,slices", [
+    ([(128, 4096, 4096), (256, 1536, 1536)], 128, 128, 6),
+    ([(512, 1024, 1024), (500, 700, 1000)], 128, 128, 2),
+    ([(512, 1024, 1024), (448, 1000, 900)], 64, 64, 1),
+    ([(256, 1024, 1024), (250, 333, 777)], 32, 32, 1),
+    ([(64, 512, 160), (170, 300, 33)], 16, 16, 1),
+    ([(128, 512, 160), (100, 300, 33)], 128, 16, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_kernel_skips_padding(dev, shapes, bm, tm, slices, dtype):
+    """Tenants packed as `morphable_multi_gemm` packs them, on shapes that
+    pick each block tile (bm 16, 32, 64, 128; a 16-row tile at bm 128) and
+    split K into 6 and 2 slices: with and without each
+    tenant's (K, N) the kernel is within 1e-5 * max|plain| of the plain
+    version on the padded operands, and with them the padded output
+    columns are exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(bm)
+    tenants = [(torch.randn(m, k, generator=g, device=dev).to(dtype),
+                (torch.randn(k, n, generator=g, device=dev)
+                 * k ** -0.5).to(dtype)) for m, k, n in shapes]
+    x, w, sizes, metas = pack_tenants(tenants, bm, bm, bm)
+    gids = make_group_ids(sizes, bm, device=dev)
+    plan = grouped_plan(x.shape[0], x.shape[1], w.shape[2], bm)
+    assert (plan[0], plan[2]) == (tm, slices)
+    want = grouped_matmul_plain(gids, x, w, bm=bm)
+    ext = dict(group_k=[k for _, k, _ in shapes],
+               group_n=[n for _, _, n in shapes])
+    before = grouped_matmul.launches
+    for kw in ({}, ext):
+        got = grouped_matmul(gids, x, w, bm=bm, **kw)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert grouped_matmul.launches == before + 2
+    row = 0
+    for size, (m, k, n) in zip(sizes, shapes):
+        assert torch.equal(got[row:row + size, n:],
+                           torch.zeros_like(got[row:row + size, n:]))
+        row += size
+
+
 def test_morphable_multi_gemm_on_card_is_one_launch(dev):
     """Three unrelated tenants in ONE grouped launch: each result as the
     plain product, the utilization as the CPU packing's."""
@@ -593,6 +701,10 @@ def test_grouped_wrapper_rejects_bad_operands(dev):
         grouped_matmul(gids, x, w.to(torch.bfloat16))
     with pytest.raises(ValueError, match="group ids"):
         grouped_matmul(gids, x[:64], w)
+    with pytest.raises(ValueError, match="group_k"):
+        grouped_matmul(gids, x, w, group_k=[32, 33])
+    with pytest.raises(ValueError, match="group_n"):
+        grouped_matmul(gids, x, w, group_n=torch.zeros(2, device=dev))
 
 
 # ===================================================== depthwise conv (B11)

@@ -16,8 +16,11 @@ from repro_torch.kernels.depthwise import (depthwise_conv, depthwise_plain,
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_plain,
                                                 grouped_matmul_ref,
+                                                grouped_plan,
                                                 make_group_ids,
                                                 pack_tenants)
+from repro_torch.kernels.grouped_matmul import ops as grouped_ops
+from repro_torch.kernels.grouped_matmul.kernel import ROW_TILES
 
 GEMM_TOL = 1e-5       # f32 sums in another order
 DW_TOL = 1e-6         # the same taps; the lax conv sums in its own order
@@ -140,6 +143,79 @@ def test_pack_tenants_pads_with_zeros():
     _, util = api.ops.morphable_multi_gemm([(x1, w1), (x2[:16], w2)],
                                            bm=16, bk=8, bn=4)
     assert util == (3 * 5 * 7 + 16 * 2 * 3) / (32 * 8 * 8)
+
+
+def test_multi_gemm_hands_the_kernel_each_tenants_extents(monkeypatch):
+    """`morphable_multi_gemm` passes the grouped GEMM wrapper each tenant's
+    own (K, N), so the kernel skips the padding; the results and the MAC
+    utilization stay those of the ref route, which multiplies the
+    padding."""
+    seen = []
+    real = grouped_ops.grouped_matmul
+
+    def spy(*args, **kw):
+        seen.append((kw.get("group_k"), kw.get("group_n")))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(grouped_ops, "grouped_matmul", spy)
+    shapes = MIXES["kernel test"]
+    rng = np.random.RandomState(3)
+    tenants = [(torch.from_numpy(rng.randn(m, k).astype(np.float32)),
+                torch.from_numpy(rng.randn(k, n).astype(np.float32)))
+               for m, k, n in shapes]
+    got, util = api.ops.morphable_multi_gemm(tenants)
+    assert seen == [([k for _, k, _ in shapes], [n for _, _, n in shapes])]
+    want, want_util = api.ops.morphable_multi_gemm(tenants, backend="ref")
+    assert util == want_util
+    for g, wnt in zip(got, want):
+        _close(g, wnt.numpy(), GEMM_TOL)
+
+
+def _product_within_extents(gids, x, w, bm, ks, ns):
+    """The extent contract of the grouped GEMM: row tile i of group g
+    multiplies only k < ks[g] and is zero at n >= ns[g]."""
+    out = torch.zeros(x.shape[0], w.shape[2])
+    for i, g in enumerate(gids.tolist()):
+        rows = slice(i * bm, (i + 1) * bm)
+        out[rows, :ns[g]] = x[rows, :ks[g]] @ w[g, :ks[g], :ns[g]]
+    return out
+
+
+def test_grouped_plain_honours_extents():
+    """On operands zero past each group's extents (as `pack_tenants` pads
+    them) the CPU route, which checks the extents and multiplies the
+    padding, gives the product within the extents, with the padded columns
+    exactly 0; bad extents raise, a tensor among them."""
+    rng = np.random.RandomState(4)
+    gids = torch.tensor([0, 0, 1], dtype=torch.int32)
+    ks, ns = [40, 17], [24, 9]
+    x = torch.from_numpy(rng.randn(48, 40).astype(np.float32))
+    w = torch.from_numpy(rng.randn(2, 40, 24).astype(np.float32))
+    x[32:, ks[1]:] = 0
+    w[1, ks[1]:] = 0
+    w[1, :, ns[1]:] = 0
+    got = grouped_matmul(gids, x, w, bm=16, group_k=ks, group_n=ns)
+    assert torch.equal(got, grouped_matmul_plain(gids, x, w, bm=16))
+    torch.testing.assert_close(
+        got, _product_within_extents(gids, x, w, 16, ks, ns),
+        rtol=GEMM_TOL, atol=GEMM_TOL)
+    assert torch.equal(got[32:, 9:], torch.zeros(16, 15))
+    with pytest.raises(ValueError, match="group_k"):
+        grouped_matmul(gids, x, w, bm=16, group_k=[41, 1])
+    with pytest.raises(ValueError, match="group_n"):
+        grouped_matmul(gids, x, w, bm=16, group_n=[24])
+    with pytest.raises(ValueError, match="group_n"):
+        grouped_matmul(gids, x, w, bm=16, group_n=torch.tensor(ns))
+
+
+@pytest.mark.parametrize("t,k,n,bm", [(1024, 1024, 1024, 128),
+                                      (384, 4096, 4096, 128),
+                                      (640, 256, 128, 128),
+                                      (80, 1536, 33, 16), (96, 40, 200, 32)])
+def test_grouped_plan_tiles_divide_bm_and_slices_cover_k(t, k, n, bm):
+    tm, kc, slices = grouped_plan(t, k, n, bm)
+    assert tm in ROW_TILES and bm % tm == 0
+    assert kc % 16 == 0 and (slices - 1) * kc < k <= slices * kc
 
 
 # ============================================================ depthwise
