@@ -15,9 +15,14 @@ of JAX or of the JAX package `repro`. Phases:
    Lk=2048) and on a small windowed, softcapped GQA case: max |diff| <=
    1e-4 (atol and rtol; f32 summed in another order), prefill pad rows
    exactly 0, fused int8 bitwise equal to the kernel on the dequantized
-   K/V. The AIO GEMM in all five modes at every Linear shape of
-   qwen2-1.5B, (K, N) in {(1536, 1536), (1536, 256), (1536, 8960),
-   (8960, 1536)}, at M = 8 (decode) and 256 (chunk), plus a ragged case
+   K/V. The varlen prefill also on rows near the end of a 4096-key cache
+   (16 key splits), with and without a window of 300 and softcap 30, bf16,
+   f32 and int8 K/V (1e-4, pad rows 0, fused int8 bitwise), and one query
+   sent alone, in a 5-token and in a 32-token chunk at two indices beside
+   other rows: bitwise the same output each time. The AIO GEMM in all
+   five modes at every Linear shape of qwen2-1.5B, (K, N) in {(1536,
+   1536), (1536, 256), (1536, 8960), (8960, 1536)}, at M = 8 (decode) and
+   256 (chunk), plus a ragged case
    (M=7, K=131, N=40; odd-K int4): int8/int4 bitwise, bf16/fp8a/fp8b
    within rtol 2e-5, atol 2e-5 * max|plain|. The AIO quantizer in
    fp8a/fp8b/int8/int4 at M in {8, 256}, N in {1536, 8960}, with both
@@ -45,7 +50,8 @@ of JAX or of the JAX package `repro`. Phases:
    bm = bk = bn in {128, 64, 16}, f32 and bf16, with and without each
    tenant's (K, N): max |kernel - plain| <= 1e-5 * max |plain|, and with
    them the padded output columns exactly 0. The depthwise conv (B11) at
-   3x3, 5x5, 7x7, odd H and W, C = 3, 130, 576, f32 and bf16: bitwise.
+   1x1, 3x3, 5x5, 7x7 and 9x9 and at 3x5 and 7x1, odd H and W, C = 3, 24,
+   40, 130, 576, f32 and bf16: bitwise.
 4. Timing: CUDA-event time per launch of each kernel, its plain version and
    one PyTorch library call computing the same function (timed only here),
    beside the least time the card could take: the larger of the bytes the
@@ -75,16 +81,19 @@ of JAX or of the JAX package `repro`. Phases:
    2 M K N / 67 TFLOP/s) of the tenants' useful work (the summary's
    bound), printed beside the same bound of the packed launch. B11
    at MobileNetV2 (8,56,56,144) and (8,14,14,576) 3x3 and ConvNeXt-S
-   (8,56,56,96) and (8,14,14,384) 7x7, against conv2d(groups=C), bound by
-   bytes.
+   (8,56,56,96) and (8,14,14,384) 7x7, against conv2d(groups=C); bound by
+   the larger of its bytes over 3.35 TB/s and its unfused f32
+   instructions (a multiply and an add a tap: the bitwise order forbids
+   FMA) over 33.5 T a second, the rate 67 TFLOP/s counts as FMAs.
 5. Engine: ServingEngine on the full-width qwen2_1p5b CONFIG (random f32
    weights, seed 0), 8 slots, max_len 2048, prefill chunk 32, 8 requests
    with prompts of 16..1000 tokens and 32 new tokens each — dense bf16-KV,
    int8-KV, and bf16-KV with the Linear weights resident in int4 and in
-   fp8a (`weight_format=`: the quantizer and the AIO GEMM run on every
-   Linear). A free-running pass of the kernel engine alone gives the
-   launch counts (every kernel of the path must have launched), tokens/s,
-   step times and peak memory; routes must be cuda-decode / cuda-prefill
+   fp8a (converted in place by `quantize_params`, as the serve launcher
+   does: the quantizer and the AIO GEMM run on every Linear). A
+   free-running pass of the kernel engine alone gives the launch counts
+   (every kernel of the path must have launched), tokens/s, step times
+   and peak memory; routes must be cuda-decode / cuda-prefill
    (and resident-<fmt>). A second pass serves the same requests beside two
    comparison engines on the card. For dense and int8-KV they run the
    backend="ref" route; for the resident variants they compute the same
@@ -176,12 +185,13 @@ from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul, grouped_matmul_plain, make_group_ids, pack_tenants)
 from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import (forward, init_caches,  # noqa: E402
-                                init_params, loss_fn)
+                                init_params, loss_fn, quantize_params)
 from repro_torch.models.attention import _q8  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
+F32_INSTR_PER_S = F32_FLOPS_PER_S / 2  # f32 instructions; an FMA is 2 flops
 BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12           # H100 SXM int8 tensor cores, dense
 SPIN_CYCLES = 100_000_000        # ~50 ms at the H100's ~2 GHz SM clock
@@ -363,12 +373,11 @@ def library_call(name, c):
                                                   enable_gqa=True)
 
 
-def bound(name, c, bs=None):
-    """Least time (ms) for this run's inputs, and what sets it: the bytes
-    that must move (the K/V positions the rows need, once; valid q rows in,
-    the output out; paged, with block size bs, also the table entries that
-    map those positions) over the memory rate, or the f32 flops of the kept
-    (query, key) pairs over the f32 rate."""
+def attention_work(name, c, bs=None):
+    """(bytes, f32 flops) of one attention launch on this run's inputs: the
+    K/V positions the rows need, read once; valid q rows in, the output
+    out; paged, with block size bs, also the table entries that map those
+    positions; and 4 D flops a kept (query, key) pair and head."""
     b, hq, lq, d = c["q"].shape
     hkv = c["k"].shape[1]
     pos = c["pos"].tolist()
@@ -382,10 +391,30 @@ def bound(name, c, bs=None):
     if bs is not None:
         nbytes += 4 * sum(-(-(p + n) // bs) for p, n in zip(pos, lens)
                           if n > 0)
-    flops = pairs * hq * d * 4
+    return nbytes, pairs * hq * d * 4
+
+
+def bound(name, c, bs=None):
+    """Least time (ms) for this run's inputs, and what sets it: the bytes
+    that must move over the memory rate, or the f32 flops of the kept
+    (query, key) pairs over the f32 rate."""
+    nbytes, flops = attention_work(name, c, bs)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def mma_bound(name, c, bs=None):
+    """Least time (ms) of the same work at the prefill kernel's own
+    instruction mix: each f32 product as bf16 tensor-core MMAs on operands
+    split into three bf16 terms, 3 MMAs for bf16 K/V and 6 for f32 or int8
+    (dequantized to f32) K/V, over the bf16 tensor rate; or the bytes, if
+    they take longer."""
+    nbytes, flops = attention_work(name, c, bs)
+    kv = c["k"] if bs is None else c["pk"]
+    mmas = 3 if kv.dtype == torch.bfloat16 and "_quant" not in name else 6
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                     flops * mmas / BF16_FLOPS_PER_S)
 
 
 # ------------------------------------------------------------------ phases
@@ -455,7 +484,69 @@ def kernel_phase(dev):
             check(ok, f"{name} {label}: max |diff| {err} above {TOL}")
             if label == "main":
                 errs[name] = err
+    prefill_split_checks(dev)
     return errs
+
+
+def prefill_split_checks(dev):
+    """The varlen prefill over many key splits, and a query's output
+    independent of the chunk it arrives in."""
+    lk, w = 4096, W
+    c = make_case(dev, 7, b=4, hq=HQ, hkv=HKV, lq=w, lk=lk,
+                  pos=[lk - w, 4000, 2500, 0], lens=[w, 7, w, 0])
+    f32 = (c["k"].float(), c["v"].float())
+    quant = (c["kc"], c["ks"], c["vc"], c["vs"])
+    deq = (dequant(c["kc"], c["ks"], torch.float32),
+           dequant(c["vc"], c["vs"], torch.float32))
+    pad = torch.arange(w, device=dev)[None, :] >= c["lens"][:, None]
+    for kw in ({}, dict(window=300, softcap=30.0)):
+        kw = dict(kw, pos=c["pos"], lengths=c["lens"])
+        for label, got, want in (
+                ("bf16", flash_prefill(c["q"], c["k"], c["v"], **kw),
+                 flash_prefill_plain(c["q"], c["k"], c["v"], **kw)),
+                ("f32", flash_prefill(c["q"], *f32, **kw),
+                 flash_prefill_plain(c["q"], *f32, **kw)),
+                ("int8", flash_prefill_quant(c["q"], *quant, **kw),
+                 flash_prefill_quant_plain(c["q"], *quant, **kw))):
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            zero = not got.transpose(1, 2)[pad].any().item()
+            how = "window 300 softcap 30" if "window" in kw else "no window"
+            line = (f"  flash_prefill {label:5s} Lk 4096, rows at 4064 / "
+                    f"4000 / 2500, {how:21s} max|diff| {err:.3e}  pad rows "
+                    f"zero: {zero}")
+            check(err <= TOL, f"prefill {label} Lk 4096 {kw}: max |diff| "
+                  f"{err} above {TOL}")
+            check(zero, f"prefill {label} Lk 4096: pad rows not exactly 0")
+            if label == "int8":
+                same = torch.equal(got, flash_prefill(c["q"], *deq, **kw))
+                line += f"  fused == dequantized: {same}"
+                check(same, "prefill int8 Lk 4096: fused int8 differs from "
+                      "the kernel on dequantized K/V")
+            print(line, flush=True)
+    # one query (row 1, position 3000) sent alone, in a 5-token chunk and in
+    # a 32-token chunk at two indices, beside other rows
+    g = torch.Generator(device=dev).manual_seed(8)
+    target = torch.randn(HQ, D, generator=g, device=dev) * 0.5
+    outs = []
+    for wq, idx, other in ((1, 0, (0, 1)), (5, 2, (100, 5)),
+                           (32, 31, (4000, 32)), (32, 0, (10, 3))):
+        q = torch.randn(4, wq, HQ, D, generator=g, device=dev) * 0.5
+        q[1, idx] = target
+        pos = torch.tensor([other[0], 3000 - idx, 2000, 7], dtype=torch.int32,
+                           device=dev)
+        lens = torch.tensor([min(other[1], wq), wq, min(3, wq), 0],
+                            dtype=torch.int32, device=dev)
+        for fn, kv in ((flash_prefill, (c["k"], c["v"])),
+                       (flash_prefill_quant, quant)):
+            out = fn(q.transpose(1, 2), *kv, pos=pos, lengths=lens)
+            outs.append((fn.__name__, out[1, :, idx]))
+    same = all(torch.equal(o, outs[i % 2][1])
+               for i, (_, o) in enumerate(outs))
+    print(f"  flash_prefill / _quant: one query alone, in 5- and 32-token "
+          f"chunks beside other rows: bitwise equal {same}", flush=True)
+    check(same, "prefill: a query's output depends on the chunk it "
+          "arrived in")
 
 
 def paged_case(dev, c, bs, seed):
@@ -591,8 +682,17 @@ def timing_phase(dev):
                           bound_ms=bound_ms, bound_by=bound_by)
         print(f"  {name:20s} kernel {ms:.4f}  plain {plain_ms:.4f}  "
               f"library {library_ms:.4f}  bound {bound_ms:.4f} ({bound_by}; "
-              f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+              f"{100 * bound_ms / ms:.1f}% of it)"
+              f"{mix_text(name, cases[0], ms)}", flush=True)
     return rows
+
+
+def mix_text(name, c, ms, bs=None):
+    """The prefill kernels' bound at their own MMA mix, for a timing line."""
+    if "prefill" not in name:
+        return ""
+    t = mma_bound(name, c, bs)
+    return f"  MMA-mix bound {t:.5f} ({100 * t / ms:.1f}% of it)"
 
 
 def paged_timing_phase(dev):
@@ -621,7 +721,8 @@ def paged_timing_phase(dev):
         print(f"  {name:26s} kernel {ms:.4f}  flat kernel {flat_ms:.4f} "
               f"({100 * (ms / flat_ms - 1):+.1f}%)  plain {plain_ms:.4f}  "
               f"library none  bound {bound_ms:.5f} ({bound_by}; "
-              f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+              f"{100 * bound_ms / ms:.1f}% of it)"
+              f"{mix_text(name, cases[0], ms, PAGED_TIMED_BS)}", flush=True)
     return rows
 
 
@@ -905,10 +1006,12 @@ def profiled(fn) -> str:
     busy_txt = (f"device busy {busy:.2f} ms, idle "
                 f"{100 * (1 - busy / wall):.0f}%" if busy > 0
                 else "device time not measured (no CUDA events)")
-    # the port's GEMM kernels summed over their template instances
+    # the port's GEMM and attention kernels summed over their template
+    # instances
     ours = {}
     for e in on_card:
-        for name in ("aio_mm_kernel", "aio_quant", "grouped_matmul_kernel"):
+        for name in ("aio_mm_kernel", "aio_quant", "grouped_matmul_kernel",
+                     "flash_prefill_kernel", "flash_decode_kernel"):
             if name in e.key:
                 ms, n = ours.get(name, (0.0, 0))
                 ours[name] = (ms + dev_us(e) / 1e3, n + e.count)
@@ -1122,8 +1225,12 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
     # every prompt is in, decode only
     profile_at = (6, 45)
 
-    # the main path, free-running and alone on the card
-    eng = ServingEngine(cfg, model, weight_format=resident, **geo)
+    # the main path, free-running and alone on the card; resident weights
+    # converted in place (as the serve launcher does), so no dense copy of
+    # the weights stays alive beside the codes
+    if resident:
+        quantize_params(model, resident)
+    eng = ServingEngine(cfg, model, **geo)
     routes = (eng.decode_route(), eng.prefill_route(), eng.weight_route())
     want = ("cuda-decode", "cuda-prefill",
             f"resident-{resident}" if resident else "dense")
@@ -1454,21 +1561,25 @@ def new_kernel_phase(dev):
                       f"grouped_matmul bm={bm}: a padded output column of "
                       "a tenant is not 0")
                 row += size
-    # odd H and W, C = 3, 130, 576 (also not multiples of 4), 3/5/7 taps
-    for n, h, w_, c, kk in [(2, 9, 7, 3, 3), (1, 13, 11, 130, 5),
-                            (2, 15, 9, 576, 7), (1, 7, 13, 130, 3),
-                            (2, 11, 11, 3, 7), (1, 9, 15, 576, 5)]:
+    # odd H and W, C = 3, 130, 576 (also not multiples of 4 or 8), 1x1 to
+    # 9x9 taps (9x9 and the even sizes take the kernel's runtime-kw path),
+    # non-square filters
+    for n, h, w_, c, kh, kw in [
+            (2, 9, 7, 3, 3, 3), (1, 13, 11, 130, 5, 5), (2, 15, 9, 576, 7, 7),
+            (1, 7, 13, 130, 3, 3), (2, 11, 11, 3, 7, 7), (1, 9, 15, 576, 5, 5),
+            (1, 5, 6, 24, 1, 1), (1, 10, 13, 40, 9, 9), (2, 11, 9, 130, 3, 5),
+            (2, 8, 10, 64, 7, 1)]:
         for dtype in (torch.float32, torch.bfloat16):
-            g = torch.Generator(device=dev).manual_seed(kk * c)
+            g = torch.Generator(device=dev).manual_seed(kh * kw * c)
             x = torch.randn(n, h, w_, c, generator=g, device=dev).to(dtype)
-            f = torch.randn(kk, kk, c, generator=g, device=dev).to(dtype)
+            f = torch.randn(kh, kw, c, generator=g, device=dev).to(dtype)
             got, want = depthwise_conv(x, f), depthwise_plain(x, f)
             torch.cuda.synchronize()
             same = torch.equal(got, want)
             print(f"  depthwise_conv {str(dtype)[6:]:8s} x {(n, h, w_, c)} "
-                  f"{kk}x{kk}: bitwise equal {same}", flush=True)
-            check(same, f"depthwise_conv {dtype} {(n, h, w_, c, kk)}: not "
-                  "bitwise equal to the plain version")
+                  f"{kh}x{kw}: bitwise equal {same}", flush=True)
+            check(same, f"depthwise_conv {dtype} {(n, h, w_, c, kh, kw)}: "
+                  "not bitwise equal to the plain version")
     return errs
 
 
@@ -1483,6 +1594,24 @@ def full_bound(b, hq, hkv, lq, lk, d, es=4):
         / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def depthwise_bound(n, h, w, c, k, es=4):
+    """Least time (ms) of a k x k depthwise conv: x and the taps read once
+    and the output written once over the memory rate, or its unfused f32
+    instructions, a multiply and an add per tap and output (the bitwise
+    order of the reference forbids fusing them), over the f32 instruction
+    rate; and which of the two sets it."""
+    t_bytes = es * (2 * n * h * w * c + k * k * c) / HBM_BYTES_PER_S
+    t_ops = 2 * k * k * n * h * w * c / F32_INSTR_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def dw_bound_text(bound_by, k):
+    return ("x, taps and output over 3.35 TB/s" if bound_by == "bytes"
+            else f"2 x {k * k} unfused f32 instructions an output over "
+            "33.5 T/s")
 
 
 def tenants_f32_bound(shapes):
@@ -1582,13 +1711,14 @@ def full_timing_phase(dev):
         plain_ms = cuda_ms([functools.partial(depthwise_plain, *a)
                             for a in copies], 10)
         lib_ms = cuda_ms(lib, 50)
-        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        bound_ms, bound_by = depthwise_bound(n, h, w_, c, kk)
         rows[("depthwise_conv", (n, h, w_, c, kk))] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by="bytes")
+            bound_by=bound_by)
         print(f"  depthwise_conv x {(n, h, w_, c)} {kk}x{kk} f32: kernel "
               f"{ms:.4f}  plain {plain_ms:.4f}  conv2d(groups=C) "
-              f"{lib_ms:.4f}  bound {bound_ms:.5f} (bytes; "
+              f"{lib_ms:.4f} ({ms / lib_ms:.2f}x)  bound {bound_ms:.5f} "
+              f"({bound_by}: {dw_bound_text(bound_by, kk)}; "
               f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
         del copies, lib
     torch.cuda.empty_cache()

@@ -4,12 +4,17 @@ a cache-shaped K/V.
 Admission feeds each admitted slot a fixed-width chunk of prompt tokens
 (right-padded) whose queries sit at that row's own cache position.
 `flash_prefill` / `flash_prefill_quant` launch the CUDA kernel in
-`csrc/flash_prefill.cu` on CUDA tensors: blocks over (row x kv-head,
-q-block of bq queries, 32 of the q-block's packed GQA rows); q-blocks past
-a row's valid length write zeros and exit, live q-blocks walk keys only up
-to their causal frontier (and from their window's lower bound). Invalid
-(pad) query rows return EXACT zeros. The int8-KV variant dequantizes inside
-the kernel, bit-identical to dequantize-then-dense-kernel.
+`csrc/flash_prefill.cu` on CUDA tensors: blocks over (row x kv-head, 64
+packed rows of a q-block of bq queries x the GQA group, a split of
+`SPLIT_KEYS` keys at absolute positions), the grid, the workspace for the
+splits' partial softmax states and the row blocks' arrival counters sized
+by `prefill_plan` from the shapes alone (pos and lengths stay on the
+device). Blocks past their rows' causal frontier, or before their window,
+exit at once; row blocks with no valid query write zeros. A query's output
+depends only on its own position and keys, not on the chunk width or the
+other rows. Invalid (pad) query rows return EXACT zeros. The int8-KV
+variant dequantizes inside the kernel, bit-identical to
+dequantize-then-dense-kernel.
 
 `flash_prefill_paged` / `flash_prefill_paged_quant` are the same kernel
 over a (P, Hkv, bs, D) block pool read through a per-row block table (the
@@ -23,18 +28,53 @@ the pages, then run those). Each wrapper counts its kernel launches in
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from .ref import mha_ref
-from ..common import call_kernel
+from ..common import call_kernel, ceil_div, tile_counters
 from .shared import ARGTYPES, as_row_vector, dequant, gather_pages, launch_args
 
 __all__ = ["flash_prefill", "flash_prefill_quant", "flash_prefill_plain",
            "flash_prefill_quant_plain", "flash_prefill_paged",
            "flash_prefill_paged_quant", "flash_prefill_paged_plain",
-           "flash_prefill_paged_quant_plain"]
+           "flash_prefill_paged_quant_plain", "prefill_plan", "PrefillPlan",
+           "SPLIT_KEYS", "ROWS_PER_BLOCK", "TILE_KEYS"]
+
+ROWS_PER_BLOCK = 64      # packed query rows a block (csrc/flash_prefill.cu RB)
+TILE_KEYS = 32           # keys a tile (PK); splits are whole tiles
+SPLIT_KEYS = 256         # keys a split, cut at absolute positions
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillPlan:
+    """The launch of the prefill kernel for a set of shapes: its grid (row
+    x kv-head, q-block x row block, split), the keys of a split, and the
+    f32 workspace (one partial (acc, m, l) of 64 rows per block) and int32
+    counters (one per row block) it needs."""
+    grid: Tuple[int, int, int]
+    span: int          # split s holds the cache positions [s span, (s+1) span)
+    workspace: int
+    counters: int
+
+
+def prefill_plan(b: int, hkv: int, group: int, w: int, bq: int, lk: int,
+                 d: int) -> PrefillPlan:
+    """The prefill launch for B rows, Hkv kv-heads of `group` query heads,
+    a W-token chunk in q-blocks of bq, Lk cache positions and head dim D:
+    from these shapes alone, never from the rows' positions or lengths.
+    Every launch cuts the keys into splits of `SPLIT_KEYS`: the split is the
+    order of a query's sums, so one span for all launches keeps a query's
+    output independent of its chunk and the same paged as flat."""
+    bq = max(1, min(bq, w))
+    rblocks = ceil_div(w, bq) * ceil_div(group * bq, ROWS_PER_BLOCK)
+    splits = ceil_div(lk, SPLIT_KEYS)
+    blocks = b * hkv * rblocks * splits
+    return PrefillPlan(grid=(b * hkv, rblocks, splits), span=SPLIT_KEYS,
+                       workspace=blocks * ROWS_PER_BLOCK * (d + 2),
+                       counters=b * hkv * rblocks)
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -100,16 +140,24 @@ def _launch(wrapper, q, k, v, k_scale, v_scale, pos, lengths, window,
     b, hq, lq, d = q.shape
     hkv = k.shape[1]
     args = launch_args(q, k, v, k_scale, v_scale, window, softcap, table)
+    if any(st % 4 for st in q.stride()[:3]):
+        raise ValueError(f"q's strides {q.stride()} must be multiples of 4 "
+                         "elements (the kernel copies 16-byte query rows)")
     bq = max(1, min(bq, lq))
     pos = as_row_vector(pos, b, q.device).contiguous()
     lens = as_row_vector(lengths, b, q.device, fill=lq).contiguous()
     out = torch.empty((b, hq, lq, d), dtype=torch.float32, device=q.device)
     # flat: the cache length; paged: the table width and the block size
     keys = [k.shape[2]] if table is None else [table.shape[1], k.shape[2]]
+    lk = keys[0] if table is None else keys[0] * keys[1]
+    plan = prefill_plan(b, hkv, hq // hkv, lq, bq, lk, d)
+    work = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
+    counters = tile_counters(q.device, plan.counters)
     entry = "flash_prefill" if table is None else "flash_prefill_paged"
     call_kernel(entry, ARGTYPES[entry], *args, pos.data_ptr(),
-                lens.data_ptr(), out.data_ptr(), b, hkv, hq // hkv, lq, bq,
-                d, *keys, window or 0, d ** -0.5 if scale is None else scale,
+                lens.data_ptr(), out.data_ptr(), work.data_ptr(),
+                counters.data_ptr(), b, hkv, hq // hkv, lq, bq, d, *keys,
+                plan.span, window or 0, d ** -0.5 if scale is None else scale,
                 softcap or 0.0, source="flash_prefill")
     wrapper.launches += 1
     return out

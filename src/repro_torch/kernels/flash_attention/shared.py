@@ -132,8 +132,10 @@ ARGTYPES = {
     "flash_decode": _LEAD + [_P] * 2 + [_I] * 8 + [_F] * 2,
     # table, pos, out; B, Hkv, group, Lq, D, nblk, bs, bkv, window; ...
     "flash_decode_paged": _LEAD + [_P] * 3 + [_I] * 9 + [_F] * 2,
-    # pos, lengths, out; B, Hkv, group, W, bq, D, Lk, window; ...
-    "flash_prefill": _LEAD + [_P] * 3 + [_I] * 8 + [_F] * 2,
-    # table, pos, lengths, out; B, Hkv, group, W, bq, D, nblk, bs, window
-    "flash_prefill_paged": _LEAD + [_P] * 4 + [_I] * 9 + [_F] * 2,
+    # pos, lengths, out, workspace, counters; B, Hkv, group, W, bq, D, Lk,
+    # span, window; ...
+    "flash_prefill": _LEAD + [_P] * 5 + [_I] * 9 + [_F] * 2,
+    # table, pos, lengths, out, workspace, counters; B, Hkv, group, W, bq,
+    # D, nblk, bs, span, window; ...
+    "flash_prefill_paged": _LEAD + [_P] * 6 + [_I] * 10 + [_F] * 2,
 }

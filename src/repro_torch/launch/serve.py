@@ -29,7 +29,7 @@ from ..kernels.aio_matmul import aio_matmul
 from ..kernels.aio_quant import aio_quant
 from ..kernels.flash_attention import KERNELS as ATTENTION_KERNELS
 from ..kernels.flash_attention import PAGED_KERNELS
-from ..models import init_params
+from ..models import init_params, quantize_params
 from ..serving import Request, ServingEngine
 
 
@@ -64,8 +64,11 @@ def main(argv=None):
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, kv_quant=args.kv_quant)
     model = init_params(cfg, seed=0, device=args.device)
+    if args.weight_format:
+        # in place, so the dense weights are freed before the engine's
+        # caches exist (the reference's launcher quantizes with donation)
+        quantize_params(model, args.weight_format)
     eng = ServingEngine(cfg, model, slots=4, max_len=128,
-                        weight_format=args.weight_format,
                         prefill_chunk=args.prefill_chunk, paged=args.paged,
                         block_size=args.block_size,
                         pool_blocks=args.pool_blocks)

@@ -9,7 +9,9 @@ other families raise NotImplementedError (ROADMAP A7).
 
 `quantize_params` makes the Linear weights resident in an AIO format, in
 place (the dense weights are freed, as the reference's donating launcher
-frees them); `resident_format` reports it.
+frees them); `resident_view` does it on a shallow copy and leaves the
+caller's model dense (what the serving engine does, as the reference's
+engine leaves the caller's params dense); `resident_format` reports it.
 
 `loss_fn` is the causal-LM cross entropy of the full-sequence forward, as
 a value (no gradient: the training stack is not ported).
@@ -21,6 +23,7 @@ serving engine's block allocator.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -38,7 +41,7 @@ __all__ = ["ModelConfig", "Transformer", "DenseBlock", "init_params",
            "forward", "loss_fn", "decode_step", "init_caches",
            "reset_slots",
            "set_block_tables", "copy_pool_blocks", "quantize_params",
-           "resident_format"]
+           "resident_view", "resident_format"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +203,28 @@ def quantize_params(model: Transformer, fmt: str, *,
                 and not set(name.split(".")) & set(skip)):
             mod.quantize_(fmt)
     return model
+
+
+def _shallow_copy(mod: nn.Module) -> nn.Module:
+    """A copy of the module tree that shares every parameter and buffer
+    tensor: each module is copied with its own parameter, buffer and child
+    tables, so replacing an entry in the copy leaves the original alone."""
+    new = copy.copy(mod)
+    new._parameters = dict(mod._parameters)
+    new._buffers = dict(mod._buffers)
+    new._non_persistent_buffers_set = set(mod._non_persistent_buffers_set)
+    new._modules = {name: None if child is None else _shallow_copy(child)
+                    for name, child in mod._modules.items()}
+    return new
+
+
+def resident_view(model: Transformer, fmt: str, *,
+                  skip=_RESIDENT_SKIP) -> Transformer:
+    """`quantize_params` on a shallow copy of `model`: the copy shares
+    every tensor of `model` but the covered Linears' weights, whose codes
+    and scales are new tensors, and `model` keeps its dense weights. Linears
+    already resident are shared as they are."""
+    return quantize_params(_shallow_copy(model), fmt, skip=skip)
 
 
 def resident_format(model: Transformer) -> Optional[str]:

@@ -106,12 +106,16 @@ class ServingEngine:
         under; one engine = one policy.
 
         weight_format: make the Linear weights RESIDENT in this AIO format
-        (int4/int8/fp8a/fp8b): `quantize_params` converts `model` IN PLACE
-        (its dense Linear weights are freed; other engines sharing the
-        model see the codes too) and every covered Linear dispatches
-        through `api.ops.matmul_codes`. Other format names (incl. "bf16")
-        raise: they are not residency formats. A model that is already
-        resident is served in its own format.
+        (int4/int8/fp8a/fp8b): the engine serves its own view of `model`
+        (`resident_view`: the module tree copied, every tensor shared but
+        the covered Linears' weights, whose codes are new) and every
+        covered Linear dispatches through `api.ops.matmul_codes`. The
+        caller's `model` keeps its dense weights, as the reference's engine
+        leaves the caller's params dense; to free them, convert the model
+        in place with `quantize_params` first, as the serve launcher does.
+        Other format names (incl. "bf16") raise: they are not residency
+        formats. A model that is already resident is served in its own
+        format.
 
         prefill_chunk: tokens a new prompt advances per admission launch
         (clamped to max_len). Greedy outputs are identical for any chunk.
@@ -127,7 +131,7 @@ class ServingEngine:
         divide max_len; any size works for the kernels (they resolve each
         key's block, so it need not match their tiles)."""
         if weight_format not in (None, "none"):
-            T.quantize_params(model, weight_format)
+            model = T.resident_view(model, weight_format)
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk ({prefill_chunk}) must be >= 1")
         self._paged = bool(paged)

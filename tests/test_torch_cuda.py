@@ -34,7 +34,7 @@ from repro_torch.kernels.flash_attention import (
     flash_decode_paged_plain, flash_decode_paged_quant, flash_decode_plain,
     flash_decode_quant, flash_prefill, flash_prefill_paged,
     flash_prefill_paged_plain, flash_prefill_paged_quant,
-    flash_prefill_plain, flash_prefill_quant)
+    flash_prefill_plain, flash_prefill_quant, flash_prefill_quant_plain)
 from repro_torch.kernels.flash_attention.shared import dequant
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_plain,
@@ -133,6 +133,79 @@ def test_fused_int8_equals_kernel_on_dequantized_kv(dev, window, softcap):
     assert torch.equal(
         flash_prefill_quant(qw, kc, ks, vc, vs, pos=pos, lengths=lens, **kw),
         flash_prefill(qw, kd, vd, pos=pos, lengths=lens, **kw))
+
+
+def _kv_forms(k, v, kv):
+    """K/V as the kernels take them: bf16 or f32 caches, or int8 codes and
+    scales (flat arguments of the prefill wrappers, and their kernel)."""
+    if kv == "int8":
+        kc, ks = _q8(k)
+        vc, vs = _q8(v)
+        return (kc, ks, vc, vs), flash_prefill_quant
+    dtype = torch.bfloat16 if kv == "bf16" else torch.float32
+    return (k.to(dtype), v.to(dtype)), flash_prefill
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (300, 30.0)])
+def test_prefill_long_rows_span_many_splits(dev, kv, window, softcap):
+    """Rows near the end of a 4096-key cache (16 key splits) against the
+    plain version, pad rows exactly 0; the int8 kernel equals the kernel on
+    the dequantized K/V bitwise, and the paged kernel at block sizes 16,
+    32 and 128 equals the flat one bitwise."""
+    b, hkv, group, lk, w = 4, 2, 6, 4096, 32
+    qw, k, v = _data(dev, 21, b, hkv * group, hkv, w, lk)
+    pos = torch.tensor([lk - w, 4000, 2500, 0], dtype=torch.int32,
+                       device=dev)
+    lens = torch.tensor([w, 7, w, 0], dtype=torch.int32, device=dev)
+    flat, kern = _kv_forms(k, v, kv)
+    kw = dict(pos=pos, lengths=lens, window=window, softcap=softcap)
+    got = kern(qw, *flat, **kw)
+    if kv == "int8":
+        deq = (dequant(flat[0], flat[1], torch.float32),
+               dequant(flat[2], flat[3], torch.float32))
+        assert torch.equal(got, flash_prefill(qw, *deq, **kw))
+        _close(got, flash_prefill_quant_plain(qw, *flat, **kw))
+    else:
+        _close(got, flash_prefill_plain(qw, *flat, **kw))
+    pad = torch.arange(w, device=dev)[None, :] >= lens[:, None]
+    assert not got.transpose(1, 2)[pad].any()
+    paged = flash_prefill_paged_quant if kv == "int8" else flash_prefill_paged
+    for bs in (16, 32, 128):
+        pools, table = _paged(dev, flat, bs, seed=bs)
+        assert torch.equal(paged(qw, *pools, table=table, **kw), got), bs
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (48, 30.0)])
+def test_prefill_query_does_not_depend_on_chunk_width(dev, kv, window,
+                                                      softcap):
+    """A query's output is bitwise the same whether it arrives alone (W =
+    1), in a 5-token chunk or in a 32-token one, at any index of the chunk,
+    beside any other rows: its sums depend on its position and keys only
+    (splits and tiles at absolute key positions)."""
+    b, hkv, group, lk = 3, 2, 6, 1024
+    _, k, v = _data(dev, 22, b, hkv * group, hkv, 1, lk)
+    flat, kern = _kv_forms(k, v, kv)
+    g = torch.Generator(device=dev).manual_seed(23)
+    target = torch.randn(hkv * group, 128, generator=g, device=dev) * 0.5
+    row, at = 1, 700                    # the query: row 1, position 700
+    outs = []
+    for w, idx, others in ((1, 0, (0, 1)), (5, 2, (600, 3)),
+                           (32, 30, (0, 32)), (32, 0, (1000, 24))):
+        q = torch.randn(b, w, hkv * group, 128, generator=g,
+                        device=dev) * 0.5
+        q[row, idx] = target
+        q = q.transpose(1, 2)           # the engine's head-split view
+        pos = torch.tensor([others[0], at - idx, 900], dtype=torch.int32,
+                           device=dev)
+        lens = torch.tensor([others[1], w, min(w, 3)], dtype=torch.int32,
+                            device=dev)
+        out = kern(q, *flat, pos=pos, lengths=lens, window=window,
+                   softcap=softcap)
+        outs.append(out[row, :, idx])
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
 
 
 def test_wrapper_rejects_bad_operands(dev):
@@ -378,13 +451,22 @@ def test_gemm_rows_do_not_depend_on_m(dev, mode, k, n):
         assert torch.equal(full[:m], part), m
 
 
-@pytest.mark.parametrize("kernel", ["aio_matmul", "grouped_matmul"])
+@pytest.mark.parametrize("kernel", ["aio_matmul", "grouped_matmul",
+                                    "flash_prefill"])
 def test_split_k_launches_on_two_streams_do_not_race(dev, kernel):
     """Split-K launches queued on two streams at once (B5's down projection
-    at M = 8, 11 slices; B9 on a two-model mix, 6 slices) each take the
-    tile counters of their own stream: every result equals the one
-    computed alone, bitwise (the slices are summed in index order)."""
-    if kernel == "aio_matmul":
+    at M = 8, 11 slices; B9 on a two-model mix, 6 slices; the prefill
+    kernel over rows of up to 16 key splits) each take the tile counters
+    of their own stream: every result equals the one computed alone,
+    bitwise (the slices are summed in index order)."""
+    if kernel == "flash_prefill":
+        qw, k, v = _data(dev, 31, 4, 12, 2, 32, 4096)
+        pos = torch.tensor([4064, 3000, 100, 2047], dtype=torch.int32,
+                           device=dev)
+        lens = torch.tensor([32, 9, 32, 1], dtype=torch.int32, device=dev)
+        run = functools.partial(flash_prefill, qw, k.to(torch.bfloat16),
+                                v.to(torch.bfloat16), pos=pos, lengths=lens)
+    elif kernel == "aio_matmul":
         x, w, xs, ws = _gemm_operands(dev, "fp8a", 8, 8960, 1536, seed=5)
         assert gemm_plan(8960, 1536, "fp8a")[1] > 1
         run = functools.partial(aio_matmul, x, w, xs, ws, mode="fp8a")
@@ -710,7 +792,9 @@ def test_grouped_wrapper_rejects_bad_operands(dev):
 # ===================================================== depthwise conv (B11)
 @pytest.mark.parametrize("n,h,w,c,kk", [
     (2, 9, 7, 3, 3), (1, 13, 11, 130, 5), (2, 15, 9, 576, 7),
-    (8, 56, 56, 144, 3), (1, 6, 5, 64, 4)])
+    (8, 56, 56, 144, 3), (1, 6, 5, 64, 4), (2, 14, 14, 576, 3),
+    (1, 5, 6, 24, 1), (2, 8, 10, 130, 7), (1, 10, 13, 40, 9),
+    (1, 1, 1, 9, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_depthwise_kernel_bitwise_equals_plain(dev, n, h, w, c, kk, dtype):
     g = torch.Generator(device=dev).manual_seed(kk * c)
@@ -724,6 +808,18 @@ def test_depthwise_kernel_bitwise_equals_plain(dev, n, h, w, c, kk, dtype):
     assert torch.equal(got, depthwise_plain(x, f))
     assert torch.equal(api.ops.depthwise_conv(x, f), got)
     assert depthwise_conv.launches == before + 2
+
+
+@pytest.mark.parametrize("kh,kw", [(3, 1), (1, 7), (5, 3), (2, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_kernel_rectangular_filters(dev, kh, kw, dtype):
+    """Filters of kh != kw (SAME padding per axis, the extra row or column
+    after) over C = 130 (not a multiple of either vector width) and 64."""
+    g = torch.Generator(device=dev).manual_seed(kh * 10 + kw)
+    for c in (130, 64):
+        x = torch.randn(2, 11, 9, c, generator=g, device=dev).to(dtype)
+        f = torch.randn(kh, kw, c, generator=g, device=dev).to(dtype)
+        assert torch.equal(depthwise_conv(x, f), depthwise_plain(x, f))
 
 
 def test_depthwise_wrapper_rejects_bad_operands(dev):

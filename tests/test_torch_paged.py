@@ -377,7 +377,7 @@ def test_paged_engine_with_resident_weights_equals_flat():
     over the block pool give the flat engine's tokens."""
     cfg, model = _model(5)
     spec = _prefix_spec(cfg.vocab, n=4, seed=5)
-    flat = _engine(cfg, model, weight_format="int4")   # converts in place
+    flat = _engine(cfg, model, weight_format="int4")   # model stays dense
     want = _drain(flat, spec)
     eng = _engine(cfg, model, weight_format="int4", paged=True, block_size=8)
     assert eng.weight_route() == "resident-int4"

@@ -204,7 +204,39 @@ def test_weight_routes_and_format_validation():
     assert resident_format(model) is None
     eng = ServingEngine(cfg, model, slots=1, max_len=16, weight_format="fp8b")
     assert eng.weight_route() == "resident-fp8b"
+    assert resident_format(model) is None        # the engine's own view
     # an already-resident model keeps its format
+    quantize_params(model, "fp8b")
     again = ServingEngine(cfg, model, slots=1, max_len=16,
                           weight_format="int4")
     assert again.weight_route() == "resident-fp8b"
+
+
+def test_weight_format_leaves_the_callers_model_dense(jparams):
+    """An int4-resident engine built on a model leaves it dense: a dense
+    engine built on the same model afterwards emits the JAX dense engine's
+    tokens for the same params (the reference's engine does not convert
+    the caller's params either)."""
+    jcfg = jax_smoke("qwen2_1p5b")
+    cfg = get_smoke("qwen2_1p5b")
+    prompts = _prompts(cfg.vocab)
+    want = _serve(JServingEngine(jcfg, jparams, **GEO), JRequest, prompts)
+    model = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                            device="cpu")
+    dense_w = {n: m.w for n, m in model.named_modules()
+               if isinstance(m, Linear)}
+    resident = ServingEngine(cfg, model, weight_format="int4", **GEO)
+    assert resident.weight_route() == "resident-int4"
+    _serve(resident, Request, prompts)
+    # the resident view shares every tensor but the Linears' weights
+    shared = {id(t) for t in model.state_dict(keep_vars=True).values()}
+    view = resident.model.state_dict(keep_vars=True)
+    assert view["embed.table"] is model.embed.table
+    assert all(id(t) in shared for n, t in view.items()
+               if not n.endswith(("w_codes", "w_scale")))
+    eng = ServingEngine(cfg, model, **GEO)
+    assert eng.weight_route() == "dense"
+    assert _serve(eng, Request, prompts) == want
+    for name, mod in model.named_modules():
+        if isinstance(mod, Linear):
+            assert mod.fmt is None and mod.w is dense_w[name], name
