@@ -60,9 +60,14 @@ of JAX or of the JAX package `repro`. Phases:
    TFLOP/s, which the fp8 GEMM modes run at, decoded to bf16; int8 1,979
    TOPS, which int4 runs at, unpacked to int8). Attention: the serving
    shapes, against scaled_dot_product_attention with an explicit boolean
-   mask. AIO GEMM: each mode at M = 8 and 256 of every Linear shape of
-   qwen2-1.5B ((K, N) = (1536, 1536) q/o, (1536, 256) k/v, (1536, 8960)
-   gate/up, (8960, 1536) down), against torch.matmul on operands decoded to
+   mask. Each kernel's bound counts the instructions it runs: the decode
+   kernels' f32 FMA, the prefill kernels' bf16 MMAs (3 a product for bf16
+   K/V, 6 for f32 or int8 on three-term operands), their f32 bound
+   printed beside; the decode lines also give the launch's key splits and
+   how many of its blocks are live at the rows' positions. AIO GEMM: each
+   mode at M = 8 and 256 of every Linear shape of qwen2-1.5B ((K, N) =
+   (1536, 1536) q/o, (1536, 256) k/v, (1536, 8960) gate/up, (8960, 1536)
+   down), against torch.matmul on operands decoded to
    bf16 beforehand and, where its shape rules allow (M = 256), torch._int_mm
    on int8 operands. AIO quantizer: each format at M = 8 and 256 of
    N = 1536 and 8960; no single library call computes it. Paged attention
@@ -71,8 +76,11 @@ of JAX or of the JAX package `repro`. Phases:
    read; no single library call reads through a block table. Inputs
    rotate over enough copies to exceed the 50 MB L2, as 28 layers' caches
    and weights do on the serving path.
-4d. B8 at B 4, Hq 12, Hkv 2, D 128, L 2048, causal, f32, against SDPA
-   (K/V expanded to Hq beforehand), bound by its f32 flops at 67 TFLOP/s.
+4d. B8 at B 4, Hq 12, Hkv 2, D 128, L 2048, causal, f32: held against
+   its plain version there (max |diff| <= 1e-4, no NaN), then timed
+   against SDPA (K/V expanded to Hq beforehand), bound by its own
+   instruction mix (6 bf16 MMAs a product on three-term operands at 989
+   TFLOP/s), its f32 bound (67 TFLOP/s) printed beside.
    B9 on the tenant mixes of examples/morphable_inference.py and
    qwen2-1.5B's q projection (256, 1536, 1536) beside llama2-7B's (128,
    4096, 4096), launched as morphable_multi_gemm launches it (the packed
@@ -180,6 +188,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_prefill_paged_plain, flash_prefill_paged_quant,
     flash_prefill_paged_quant_plain, flash_prefill_plain,
     flash_prefill_quant, flash_prefill_quant_plain)
+from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
+    decode_plan)
 from repro_torch.kernels.flash_attention.shared import dequant  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul, grouped_matmul_plain, make_group_ids, pack_tenants)
@@ -409,12 +419,21 @@ def mma_bound(name, c, bs=None):
     instruction mix: each f32 product as bf16 tensor-core MMAs on operands
     split into three bf16 terms, 3 MMAs for bf16 K/V and 6 for f32 or int8
     (dequantized to f32) K/V, over the bf16 tensor rate; or the bytes, if
-    they take longer."""
+    they take longer. And what sets it."""
     nbytes, flops = attention_work(name, c, bs)
     kv = c["k"] if bs is None else c["pk"]
     mmas = 3 if kv.dtype == torch.bfloat16 and "_quant" not in name else 6
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                     flops * mmas / BF16_FLOPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops * mmas / BF16_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def row_bound(name, c, bs=None):
+    """The bound of an attention kernel's row in the kernels line: at the
+    instructions it runs, the prefill kernels' bf16 MMAs (`mma_bound`),
+    the decode kernels' f32 FMA (`bound`)."""
+    return (bound if "decode" in name else mma_bound)(name, c, bs)
 
 
 # ------------------------------------------------------------------ phases
@@ -677,7 +696,7 @@ def timing_phase(dev):
         ms = cuda_ms(kern, 60)
         plain_ms = cuda_ms(plain, 12)
         library_ms = cuda_ms(lib, 12)
-        bound_ms, bound_by = bound(name, cases[0])
+        bound_ms, bound_by = row_bound(name, cases[0])
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
         print(f"  {name:20s} kernel {ms:.4f}  plain {plain_ms:.4f}  "
@@ -688,11 +707,25 @@ def timing_phase(dev):
 
 
 def mix_text(name, c, ms, bs=None):
-    """The prefill kernels' bound at their own MMA mix, for a timing line."""
-    if "prefill" not in name:
-        return ""
-    t = mma_bound(name, c, bs)
-    return f"  MMA-mix bound {t:.5f} ({100 * t / ms:.1f}% of it)"
+    """For a timing line, after its bound: the prefill kernels' bound at
+    the f32 CUDA-core rate (the bound of their rows before the tensor-core
+    design), the decode kernels' key splits and live blocks."""
+    if "decode" in name:
+        return decode_split_text(c)
+    t, _ = bound(name, c, bs)
+    return f"  f32 bound {t:.5f} ({100 * t / ms:.1f}% of it)"
+
+
+def decode_split_text(c):
+    """The decode launch's key splits on case c and how many of its blocks
+    are live (hold keys a row needs; the rest exit at once)."""
+    b, hq, lq, d = c["q"].shape
+    hkv, lk = c["k"].shape[1], c["k"].shape[2]
+    plan = decode_plan(b, hkv, hq // hkv, lq, lk, d)
+    live = hkv * plan.grid[1] * sum(min(p + lq - 1, lk - 1) // plan.span + 1
+                                    for p in c["pos"].tolist())
+    return (f"  {plan.grid[2]} splits of {plan.span} keys, {live} of "
+            f"{int(np.prod(plan.grid))} blocks live")
 
 
 def paged_timing_phase(dev):
@@ -715,7 +748,7 @@ def paged_timing_phase(dev):
         ms = cuda_ms([f[0] for f in fns], 60)
         flat_ms = cuda_ms([f[2] for f in fns], 60)
         plain_ms = cuda_ms([f[1] for f in fns], 12)
-        bound_ms, bound_by = bound(name, cases[0], bs=PAGED_TIMED_BS)
+        bound_ms, bound_by = row_bound(name, cases[0], bs=PAGED_TIMED_BS)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                           bound_ms=bound_ms, bound_by=bound_by)
         print(f"  {name:26s} kernel {ms:.4f}  flat kernel {flat_ms:.4f} "
@@ -1583,13 +1616,18 @@ def new_kernel_phase(dev):
     return errs
 
 
-def full_bound(b, hq, hkv, lq, lk, d, es=4):
+def full_bound(b, hq, hkv, lq, lk, d, es=4, mmas=None):
     """Least time (ms) of causal full-sequence attention: the f32 flops of
     the kept (query, key) pairs over the f32 CUDA-core rate (the rate B3's
     row uses), against q, k, v read once and the output written once over
-    the memory rate."""
+    the memory rate. With `mmas`, the same work at the kernel's own
+    instruction mix instead: each f32 product as that many bf16
+    tensor-core MMAs on three-term operands (6 for f32 K/V, 3 for bf16)
+    over the bf16 tensor rate."""
     pairs = b * hq * sum(min(i + 1, lk) for i in range(lq))
     t_ops = pairs * d * 4 / F32_FLOPS_PER_S
+    if mmas is not None:
+        t_ops = pairs * d * 4 * mmas / BF16_FLOPS_PER_S
     t_bytes = (2 * b * hq * lq * d * es + 2 * b * hkv * lk * d * es) \
         / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -1633,13 +1671,27 @@ def gemm_f32_bound(t, k, n, g):
                                        else "operations")
 
 
-def full_timing_phase(dev):
+def full_timing_phase(dev, errs):
     phase("4d. full-sequence attention, grouped GEMM and depthwise conv "
           "timing (ms per launch, CUDA events)")
     rows = {}
-    # B8: B 4, Hq 12, Hkv 2, D 128, L 2048, causal, f32 (67 MB a copy)
+    # B8: B 4, Hq 12, Hkv 2, D 128, L 2048, causal, f32 (67 MB a copy),
+    # first held against its plain version at this shape (max |diff| <=
+    # 1e-4, no NaN), the full-sequence forward's
     cases = [full_case(dev, 70 + i, b=FULL_B, hq=HQ, hkv=HKV, lq=FULL_L,
                        lk=FULL_L, d=D) for i in range(2)]
+    got = flash_attention(*cases[0])
+    want = flash_attention_plain(*cases[0])
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    nan = got.isnan().any().item()
+    del got, want
+    print(f"  flash_attention at the timed shape {tuple(cases[0][0].shape)}"
+          f" K/V {tuple(cases[0][1].shape)} f32: max|diff| {err:.3e}, NaN "
+          f"{nan}", flush=True)
+    check(err <= TOL and not nan, f"flash_attention at the timed shape: max "
+          f"|diff| {err} above {TOL} or NaN")
+    errs["flash_attention"] = max(errs["flash_attention"], err)
     group = HQ // HKV
     wide = [(q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))
             for q, k, v in cases]
@@ -1648,15 +1700,19 @@ def full_timing_phase(dev):
                         for c in cases], 3)
     lib_ms = cuda_ms([functools.partial(F.scaled_dot_product_attention, *c,
                                         is_causal=True) for c in wide], 10)
-    bound_ms, bound_by = full_bound(FULL_B, HQ, HKV, FULL_L, FULL_L, D)
+    f32_ms, f32_by = full_bound(FULL_B, HQ, HKV, FULL_L, FULL_L, D)
+    bound_ms, bound_by = full_bound(FULL_B, HQ, HKV, FULL_L, FULL_L, D,
+                                    mmas=6)
     rows["flash_attention"] = dict(ms=ms, plain_ms=plain_ms,
                                    library_ms=lib_ms, bound_ms=bound_ms,
                                    bound_by=bound_by)
     print(f"  flash_attention B={FULL_B} Hq={HQ} Hkv={HKV} D={D} L={FULL_L} "
           f"causal f32: kernel {ms:.4f}  plain {plain_ms:.4f}  SDPA (K/V "
-          f"expanded to Hq beforehand) {lib_ms:.4f}  bound {bound_ms:.4f} "
-          f"({bound_by}, f32 67 TFLOP/s; {100 * bound_ms / ms:.1f}% of it)",
-          flush=True)
+          f"expanded to Hq beforehand) {lib_ms:.4f} ({ms / lib_ms:.2f}x)  "
+          f"bound {bound_ms:.4f} ({bound_by}, MMA mix: 6 bf16 MMAs a "
+          f"product at 989 TFLOP/s; {100 * bound_ms / ms:.1f}% of it)  f32 "
+          f"bound {f32_ms:.4f} ({f32_by}, 67 TFLOP/s; "
+          f"{100 * f32_ms / ms:.1f}% of it)", flush=True)
     del cases, wide
 
     for name, shapes in MIXES.items():
@@ -1892,7 +1948,7 @@ def main() -> int:
     times = timing_phase(dev)
     times.update(paged_timing_phase(dev))
     times.update(aio_timing_phase(dev))
-    times.update(full_timing_phase(dev))
+    times.update(full_timing_phase(dev, errs))
     launches = engine_phase(dev, smi)
     launches.update(paged_engine_phase(dev, smi))
     launches.update(fullseq_phase(dev, smi))

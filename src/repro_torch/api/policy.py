@@ -33,8 +33,10 @@ class ExecutionPolicy:
              whatever device the tensors are on.
     format:  AIO number format of the `matmul` and `quantize` ops
              (`matmul_codes` takes its weight's).
-    bkv:     length of the KV blocks the flash-decode kernel deals to its
-             warps in turn (a multiple of 32).
+    bkv:     the reference's KV block length of flash-decode, checked by
+             the decode wrappers (a multiple of 32); the kernel's key walk
+             is fixed by its split plan (`decode.decode_plan`), so it no
+             longer changes the launch.
     bq:      q-block length of the varlen flash-prefill kernel.
     bm/bn/bk: tile sizes of the grouped GEMM: every group's row count must
              be a multiple of bm (`make_group_ids`), and K and N are padded

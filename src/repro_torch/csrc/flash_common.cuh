@@ -1,15 +1,19 @@
-// Shared parts of the flash-decode and varlen flash-prefill kernels:
-// the K/V sources (bf16, f32, or int8 codes times an f32 scale), which
-// stage a tile of 32 keys into shared memory as stored, with cp.async (all
-// of a tile's copies in flight at once, no registers spent) from a flat
-// per-row cache or through a block table from a paged pool, and the
-// per-warp online-softmax step over one tile.
+// Shared parts of the flash-decode, varlen flash-prefill and full-sequence
+// kernels: the masked-score sentinel, the cp.async copies, and the K/V
+// sources (bf16, f32, or int8 codes times an f32 scale); and the decode
+// kernel's pieces: its staging of a tile of 32 keys into shared memory as
+// stored, with cp.async (a tile's copies closed into one group, all in
+// flight at once, no registers spent) from a flat per-row cache or through
+// a block table from a paged pool, and its per-warp online-softmax step
+// over one tile. (The tensor-core step of the prefill and full-sequence
+// kernels is in flash_mma.cuh.)
 //
-// A warp owns up to RW = 8 packed query rows (the GQA group of one
-// kv-head, times the queries of the launch) and their running softmax
-// state in registers: max m, sum l, and a float4 of the accumulator per
-// row — a lane owns 4 of the head dims (so D <= 128). For each tile of
-// TK = 32 keys, widened to f32 as they are read from shared memory:
+// In the decode step a warp owns up to RW = 8 packed query rows (the GQA
+// group of one kv-head, times the queries of the launch) and their running
+// softmax state in registers: max m, sum l, and a float4 of the
+// accumulator per row — a lane owns 4 of the head dims (so D <= 128). For
+// each tile of TK = 32 keys, widened to f32 as they are read from shared
+// memory:
 //   1. scores, one key per lane: s = (q . k) * scale, optional softcap,
 //      masked to NEG_INF;
 //   2. per row: m' = max(m, max s) across the warp, alpha = exp(m - m'),
@@ -82,10 +86,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(src_bytes));
 }
 
-// Wait for this thread's copies; a barrier then publishes them to others.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
+// Close this thread's issued copies into a group; wait until at most N of
+// its groups are in flight (a barrier then publishes them to others).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
@@ -107,9 +116,10 @@ __device__ __forceinline__ float4 widen4(const int8_t* p) {
 // The K/V sources: a cache or pool of element type E, contiguous, plus one
 // f32 pow2 scale per position (same layout, last dim 1) when E is int8
 // codes. Both copies stage keys [base, base + TK) into a Tile with `n`
-// threads of which this is `i0`; keys past hi are zero-filled, never read
-// and never looked up. key4 / val4 read 4 head dims of tile key t back,
-// widened to f32.
+// threads of which this is `i0`, and close this thread's copies into one
+// cp.async group (the caller waits for it); keys past hi are zero-filled,
+// never read and never looked up. key4 / val4 read 4 head dims of tile key
+// t back, widened to f32.
 //
 // `copy` reads a flat cache (B, Hkv, Lk, D) at rows kv_row0 + kpos.
 // `copy_paged` reads a block pool (P, Hkv, bs, D) through row b's block
@@ -155,7 +165,7 @@ struct KVSource {
         cp_async4(tl.vs + t, vs + row, bytes);
       }
     }
-    cp_async_wait_all();
+    cp_async_commit();
   }
 
   // n is a multiple of 32 (whole warps) and TK * cpr too, so a warp's
@@ -186,7 +196,7 @@ struct KVSource {
         cp_async4(tl.vs + t, vs + my_row, bytes);
       }
     }
-    cp_async_wait_all();
+    cp_async_commit();
   }
 
   // int8 dequant: codes * scale rounded to f32 (the q dtype, so the
@@ -213,19 +223,6 @@ using KVBf16 = KVSource<__nv_bfloat16, false>;
 using KVF32 = KVSource<float, false>;
 using KVInt8 = KVSource<int8_t, true>;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // The running softmax state of a warp's rows (every lane holds m and l of
 // each row; acc holds the lane's 4 head dims).
 struct Rows {
@@ -248,12 +245,13 @@ __device__ __forceinline__ void fma4(float4& a, float s, const float4& b) {
   a.w = fmaf(s, b.w, a.w);
 }
 
-// One warp, its nr (<= RW, warp-uniform) rows against the tile of keys
-// [base, base + TK) in `tl`, read through the K/V source `kv`. Qs: the
-// rows' queries [nr][D]; qpos: their absolute positions; valid: whether
-// each is a real query. Ps: the warp's own [RW][TK] scratch. A key is kept
-// for row r when valid[r], kpos < lk, kpos <= qpos[r] and, with a window,
-// kpos > qpos[r] - window: the reference's mask.
+// One warp, its RW rows (the first nr real, warp-uniform) against the tile
+// of keys [base, base + TK) in `tl`, read through the K/V source `kv`. Qs:
+// the rows' queries [RW][D] (finite past nr); qpos: their absolute
+// positions; valid: whether each is a real query. Ps: the warp's own
+// [RW][TK] scratch. A key is kept for row r when r < nr, valid[r], kpos <
+// lk, kpos <= qpos[r] and, with a window, kpos > qpos[r] - window: the
+// reference's mask.
 template <class KV>
 __device__ __forceinline__ void warp_tile(Rows& st, const KV& kv,
                                           const Tile& tl, const float* Qs,
@@ -261,62 +259,76 @@ __device__ __forceinline__ void warp_tile(Rows& st, const KV& kv,
                                           int nr, float* Ps, int base, int lk,
                                           int D, int window, float scale,
                                           float softcap, int lane) {
+  // every one of the RW rows is computed, with no branch on nr: a branch a
+  // row made each row's loads wait alone (~9 us a tile on an H100). Rows
+  // past nr are zero queries, masked, and never read back by the caller.
   float s[RW];
 #pragma unroll
   for (int r = 0; r < RW; ++r) s[r] = 0.f;
+#pragma unroll 2
   for (int d = 0; d < D; d += 4) {
     const float4 k4 = kv.key4(tl, lane, d, D);
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
-      if (r < nr) {
-        const float4 q4 = *reinterpret_cast<const float4*>(Qs + r * D + d);
-        s[r] = fmaf(q4.x, k4.x, s[r]);
-        s[r] = fmaf(q4.y, k4.y, s[r]);
-        s[r] = fmaf(q4.z, k4.z, s[r]);
-        s[r] = fmaf(q4.w, k4.w, s[r]);
-      }
+      const float4 q4 = *reinterpret_cast<const float4*>(Qs + r * D + d);
+      s[r] = fmaf(q4.x, k4.x, s[r]);
+      s[r] = fmaf(q4.y, k4.y, s[r]);
+      s[r] = fmaf(q4.z, k4.z, s[r]);
+      s[r] = fmaf(q4.w, k4.w, s[r]);
     }
   }
+  // the rows' max and sum reductions run side by side, 8 shuffles a stage
   const int kpos = base + lane;
-  float alpha[RW];
+  float x[RW], red[RW], alpha[RW];
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
-    alpha[r] = 1.f;
-    if (r < nr) {
-      float x = s[r] * scale;
-      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-      const int qp = qpos[r];
-      bool keep = valid[r] && kpos < lk && kpos <= qp;
-      if (window > 0) keep = keep && kpos > qp - window;
-      x = keep ? x : NEG_INF;
-      const float m_new = fmaxf(st.m[r], warp_max(x));
-      const float p = expf(x - m_new);
-      alpha[r] = expf(st.m[r] - m_new);
-      st.l[r] = fmaf(st.l[r], alpha[r], warp_sum(p));
-      st.m[r] = m_new;
-      Ps[r * TK + lane] = p;
-    }
+    float y = s[r] * scale;
+    if (softcap > 0.f) y = softcap * tanhf(y / softcap);
+    const int qp = qpos[r];
+    bool keep = r < nr && valid[r] && kpos < lk && kpos <= qp;
+    if (window > 0) keep = keep && kpos > qp - window;
+    x[r] = keep ? y : NEG_INF;
+    red[r] = x[r];
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+      red[r] = fmaxf(red[r], __shfl_xor_sync(0xffffffffu, red[r], o));
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const float m_new = fmaxf(st.m[r], red[r]);
+    x[r] = expf(x[r] - m_new);  // p
+    alpha[r] = expf(st.m[r] - m_new);
+    st.m[r] = m_new;
+    red[r] = x[r];
+    Ps[r * TK + lane] = x[r];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+      red[r] += __shfl_xor_sync(0xffffffffu, red[r], o);
+#pragma unroll
+  for (int r = 0; r < RW; ++r) st.l[r] = fmaf(st.l[r], alpha[r], red[r]);
   __syncwarp();
   if (lane * 4 < D) {
     float4 pv[RW];
 #pragma unroll
     for (int r = 0; r < RW; ++r) pv[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
     for (int t = 0; t < TK; ++t) {
       const float4 v4 = kv.val4(tl, t, lane * 4, D);
 #pragma unroll
-      for (int r = 0; r < RW; ++r)
-        if (r < nr) fma4(pv[r], Ps[r * TK + t], v4);
+      for (int r = 0; r < RW; ++r) fma4(pv[r], Ps[r * TK + t], v4);
     }
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
-      if (r < nr) {
-        float4& a = st.acc[r];
-        a.x = fmaf(a.x, alpha[r], pv[r].x);
-        a.y = fmaf(a.y, alpha[r], pv[r].y);
-        a.z = fmaf(a.z, alpha[r], pv[r].z);
-        a.w = fmaf(a.w, alpha[r], pv[r].w);
-      }
+      float4& a = st.acc[r];
+      a.x = fmaf(a.x, alpha[r], pv[r].x);
+      a.y = fmaf(a.y, alpha[r], pv[r].y);
+      a.z = fmaf(a.z, alpha[r], pv[r].z);
+      a.w = fmaf(a.w, alpha[r], pv[r].w);
     }
   }
   __syncwarp();  // Ps (and the caller's tile) may be rewritten after this

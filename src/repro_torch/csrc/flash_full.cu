@@ -13,47 +13,66 @@
 // finite value that depends on the key tiles walked; the Pallas kernel's
 // depends on its 128-key blocks. No path of the system makes such rows.
 //
-// What bounds it on an H100: f32 arithmetic. A 64-query block reuses every
-// key it stages 64 times, ~2 x 64 x 2 flops per K/V element read, far above
-// the ~20 flops per byte where 67 TFLOP/s of f32 FMA overtakes 3.35 TB/s;
-// the bound is the flops of the kept (query, key) pairs. The products stay
-// on the f32 CUDA cores: TF32 tensor cores would miss the 1e-4 agreement
-// with the f32 reference.
+// What bounds it on an H100: arithmetic. A block of 128 packed rows reuses
+// every key it stages 128 times, far above the ~20 flops per byte where
+// 67 TFLOP/s of f32 FMA overtakes 3.35 TB/s, and above the ~295 where the
+// bf16 tensor cores do. The first design ran every product on the f32 CUDA
+// cores (33% of their bound, 1.8x SDPA at the forward's shape).
 //
-// Design: one block per (64-query block, batch row x q-head), 256 threads
-// as a 16 x 16 grid. The block stages its queries once, then walks the keys
-// from its window's lower bound to its causal frontier (the whole of Lk
-// when not causal), 32 keys per tile: K and V staged in shared memory as
-// f32 (widened from bf16 on the way), K rows padded by 4 floats so the
-// lanes' row reads fall on distinct banks. Thread (ty, tx) computes the
-// scores of queries ty + 16 i (i < 4) against keys tx + 16 j (j < 2), a
-// register tile fed by float4 reads; a row's max and sum are reduced over
-// the 16 lanes that share it by shuffles; the probabilities go through
-// shared memory to the P @ V product, where the thread owns the same 4
-// queries and head dims 4 tx .. 4 tx + 3 and 64 + 4 tx .. 64 + 4 tx + 3,
-// with its softmax state (m, l) in registers. The q-blocks run last to
-// first, so the long causal rows start first. No tensor cores, no
-// double-buffered staging yet.
+// Design (the prefill kernel's, csrc/flash_prefill.cu, on the tensor-core
+// step both share in flash_mma.cuh):
+// - Products: mma.sync m16n8k16 bf16 with f32 accumulation on operands
+//   split into three bf16 terms. f32 K/V take the 6 term products with
+//   i + j <= 2 (the model's case), bf16 K/V 3. mma.sync and cp.async, not
+//   wgmma and TMA: the operands are split terms that the warps build and
+//   read with ldmatrix, and the prefill's step, measured on the card, is
+//   reused as it is.
+// - Terms once: a first kernel splits K and V, read through their strides
+//   (rows need only 8-byte alignment), into a workspace of bf16 terms (B x
+//   Hkv, K/V x term, Lk, D padded to 16; bf16 K/V: one term, a copy), so
+//   the row blocks of a kv-head that read a key tile (up to 96 at the
+//   forward's shape) do not each split it again. Splitting each raw f32
+//   tile in the block instead, as the prefill does (a second barrier a
+//   tile), took 1.2x as long at the forward's shape on an H100.
+// - Rows: a block is 8 warps of one m16 tile each, 128 packed rows of one
+//   kv-head: its `group` query heads packed query-major (packed row
+//   i * group + g is query i of head hk * group + g), so the 6 q-heads of
+//   a qwen2 kv-head share every K/V tile the block stages. The grid is (B
+//   x Hkv, ceil(Lq * group / 128)) with no key splits (768 blocks at the
+//   forward's 4 x 2048 tokens); its second axis runs last to first, so the
+//   blocks with the longest causal rows start first.
+// - Pipeline: the K/V term tiles of 32 keys are double-buffered with
+//   cp.async, one barrier a tile: after the barrier of tile t the copies
+//   of tile t + 1 go out into the buffer tile t - 1 held, and fly while
+//   tile t is computed. A block walks the keys from its window's lower
+//   bound to its causal frontier (all of Lk when not causal), in tiles at
+//   absolute multiples of 32; a warp skips the tiles past its own rows'
+//   frontier (all masked for them: their state would not change).
+// - q of either type is read through its strides and split into terms
+//   once; the output is written in q's type.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "cuda_error.cuh"
+#include <algorithm>
+#include <type_traits>
 
-namespace {
+#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
-constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;          // queries per block
-constexpr int BK = 32;          // keys per tile
-constexpr int NT = 256;         // threads: 16 x 16
-constexpr int RQ = BQ / 16;     // query rows per thread
-constexpr int RK = BK / 16;     // keys per thread in the score tile
-constexpr int MAX_D = 128;      // a thread owns 8 head dims of the output
+namespace repro {
+namespace full {
+
+using namespace tc;
+
+constexpr int FW = 8;         // warps a block
+constexpr int FT = 32 * FW;   // threads a block
+constexpr int FR = 16 * FW;   // packed rows a block (an m16 tile a warp)
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+__device__ __forceinline__ float4 load4(const bf16* p) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
@@ -62,44 +81,24 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);  // bf16 -> f32 is exact
 }
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned*>(&a);
-  raw.y = *reinterpret_cast<unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// max / sum over the 16 lanes of a half warp (the lanes sharing a row)
-__device__ __forceinline__ float half_max(float x) {
+// 4 consecutive values x as T bf16 terms at dst, dst + stride, ...
+template <int T>
+__device__ __forceinline__ void store_terms(bf16* dst, long stride,
+                                            float4 x) {
+  const Split3 a = split3(x.x), b = split3(x.y), c = split3(x.z),
+               e = split3(x.w);
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ void fma4(float4& a, float s, const float4& b) {
-  a.x = fmaf(s, b.x, a.x);
-  a.y = fmaf(s, b.y, a.y);
-  a.z = fmaf(s, b.z, a.z);
-  a.w = fmaf(s, b.w, a.w);
-}
-
-__host__ __device__ inline size_t smem_bytes(int D) {
-  const int dp = D + 4;  // padded row of Q and K
-  return sizeof(float) *
-         ((size_t)BQ * dp + (size_t)BK * dp + (size_t)BK * D + BQ * (BK + 4));
+  for (int t = 0; t < T; ++t)
+    *reinterpret_cast<uint2*>(dst + t * stride) =
+        make_uint2(pack2(a.t[t], b.t[t]), pack2(c.t[t], e.t[t]));
 }
 
 struct Args {
@@ -107,193 +106,189 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  bf16* terms;                    // (B * Hkv, 2 * T, Lk, DP)
   long long qs[3], ks[3], vs[3];  // element strides of dims 0..2
-  int Hq, Hkv, Lq, Lk, D, offset, causal, window;
+  int B, Hq, Hkv, Lq, Lk, D, offset, causal, window;
   float scale, softcap;
 };
 
-template <class EQ, class EKV>
-__global__ void __launch_bounds__(NT) flash_full_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  const int D = a.D, dp = D + 4;
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][dp]
-  float* Ks = Qs + BQ * dp;                     // [BK][dp]
-  float* Vs = Ks + BK * dp;                     // [BK][D]
-  float* Ps = Vs + BK * D;                      // [BQ][BK + 4]
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int qb = gridDim.x - 1 - blockIdx.x;  // long causal rows first
-  const int bh = blockIdx.y, b = bh / a.Hq, h = bh % a.Hq;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int q0 = qb * BQ;
-  const EQ* q = static_cast<const EQ*>(a.q) + b * a.qs[0] + h * a.qs[1];
-  const EKV* k = static_cast<const EKV*>(a.k) + b * a.ks[0] + hk * a.ks[1];
-  const EKV* v = static_cast<const EKV*>(a.v) + b * a.vs[0] + hk * a.vs[1];
-
-  const int d4 = D / 4;
-  for (int i = tid; i < BQ * d4; i += NT) {
-    const int r = i / d4, d = (i % d4) * 4;
-    store4(Qs + r * dp + d,
-           q0 + r < a.Lq ? load4(q + (q0 + r) * a.qs[2] + d)
-                         : make_float4(0.f, 0.f, 0.f, 0.f));
+// K and V, as strided as they come, into their T bf16 terms: row `key` of
+// term t of K (c = 0) or V (c = 1) of kv-row bh at terms + ((bh * 2 * T +
+// c * T + t) * Lk + key) * DP, the columns past D zero.
+template <class EKV, int T>
+__global__ void __launch_bounds__(256) split_kv_kernel(Args a) {
+  const int DP = padded_d(a.D), c4 = DP / 4;
+  const long n = (long)a.B * a.Hkv * 2 * a.Lk * c4;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    const int col = (int)(i % c4) * 4;
+    long r = i / c4;
+    const int key = (int)(r % a.Lk);
+    r /= a.Lk;
+    const int c = (int)(r % 2), bh = (int)(r / 2);
+    const int b = bh / a.Hkv, h = bh % a.Hkv;
+    const long long* s = c ? a.vs : a.ks;
+    const EKV* src = static_cast<const EKV*>(c ? a.v : a.k) + b * s[0] +
+                     h * s[1] + key * s[2] + col;
+    const float4 x =
+        col < a.D ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+    store_terms<T>(
+        a.terms + (((long)bh * 2 * T + c * T) * a.Lk + key) * DP + col,
+        (long)a.Lk * DP, x);
   }
+}
+
+template <class EQ, int T>
+__global__ void __launch_bounds__(FT, 1) flash_full_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  const int D = a.D, DP = padded_d(D), ST = DP + PAD;
+  const int group = a.Hq / a.Hkv;
+  const int bh = blockIdx.x, b = bh / a.Hkv, hk = bh % a.Hkv;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * FR;  // long rows first
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  bf16* Qt = reinterpret_cast<bf16*>(smem4);  // [3][FR][ST]
+  bf16* kvs = Qt + 3 * FR * ST;               // [2][K, V][T][PK][ST]
+  const int buf_elems = 2 * T * PK * ST;
 
   // keys [lo, hi] can be kept by some query of the block
-  const int qlast = a.offset + min(q0 + BQ, a.Lq) - 1;
-  const int hi = a.causal ? min(a.Lk - 1, qlast) : a.Lk - 1;
-  const int lo = a.window > 0 ? max(0, a.offset + q0 - a.window + 1) : 0;
+  const int q_first = r0 / group;
+  const int q_last = min((r0 + FR - 1) / group, a.Lq - 1);
+  const int hi = a.causal ? min(a.Lk - 1, a.offset + q_last) : a.Lk - 1;
+  const int lo = a.window > 0 ? max(0, a.offset + q_first - a.window + 1)
+                              : 0;
+  const int k_begin = lo / PK * PK;
+  const int ntile = hi >= k_begin ? (hi - k_begin) / PK + 1 : 0;
 
-  float m[RQ], l[RQ];
-  float4 acc[RQ][2];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-    acc[i][0] = acc[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // staging: keys [t0, t0 + PK) of every term of K and V into buffer buf
+  // (rows kv * T + t of 32 keys, the workspace's order), keys past hi
+  // zero-filled and never read; one cp.async group
+  const int cpr = DP / 8;  // 16-byte chunks of a term row
+  const bf16* src = a.terms + (long)bh * 2 * T * a.Lk * DP;
+  auto issue = [&](int t0, int buf) {
+    bf16* dst = kvs + buf * buf_elems;
+    for (int i = tid; i < 2 * T * PK * cpr; i += FT) {
+      const int row = i / cpr, c = i % cpr, key = t0 + (row & (PK - 1));
+      const bool in = key <= hi;
+      cp_async16(dst + row * ST + c * 8,
+                 src + ((long)(row / PK) * a.Lk + (in ? key : 0)) * DP +
+                     c * 8,
+                 in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  if (ntile > 0) issue(k_begin, 0);
+
+  // the block's queries into Q's three bf16 terms (zeros past Lq and D)
+  const int group_q = hk * group;
+  for (int i = tid; i < FR * (DP / 4); i += FT) {
+    const int r = i / (DP / 4), col = (i % (DP / 4)) * 4;
+    const int pr = r0 + r, qi = pr / group;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (qi < a.Lq && col < D)
+      x = load4(static_cast<const EQ*>(a.q) + b * a.qs[0] +
+                (long)(group_q + pr % group) * a.qs[1] + qi * a.qs[2] + col);
+    store_terms<3>(Qt + r * ST + col, (long)FR * ST, x);
   }
-  const int c0 = tx * 4, c1 = 64 + tx * 4;  // the thread's output dims
 
-  for (int t0 = lo; t0 <= hi; t0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * d4; i += NT) {
-      const int t = i / d4, d = (i % d4) * 4, kpos = t0 + t;
-      const bool in = kpos <= hi;
-      store4(Ks + t * dp + d, in ? load4(k + kpos * a.ks[2] + d)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f));
-      store4(Vs + t * D + d, in ? load4(v + kpos * a.vs[2] + d)
-                                : make_float4(0.f, 0.f, 0.f, 0.f));
-    }
-    __syncthreads();
-
-    float s[RQ][RK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      float4 kv[RK];
-#pragma unroll
-      for (int j = 0; j < RK; ++j) kv[j] = load4(Ks + (tx + 16 * j) * dp + d);
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const float4 qv = load4(Qs + (ty + 16 * i) * dp + d);
-#pragma unroll
-        for (int j = 0; j < RK; ++j) {
-          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int r = ty + 16 * i, qpos = a.offset + q0 + r;
-      float x[RK];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int kpos = t0 + tx + 16 * j;
-        float y = s[i][j] * a.scale;
-        if (a.softcap > 0.f) y = a.softcap * tanhf(y / a.softcap);
-        bool keep = kpos < a.Lk;
-        if (a.causal) keep = keep && kpos <= qpos;
-        if (a.window > 0) keep = keep && kpos > qpos - a.window;
-        x[j] = keep ? y : NEG_INF;
-        mx = fmaxf(mx, x[j]);
-      }
-      const float m_new = fmaxf(m[i], half_max(mx));
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const float p = expf(x[j] - m_new);
-        Ps[r * (BK + 4) + tx + 16 * j] = p;
-        ps += p;
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = fmaf(l[i], alpha, half_sum(ps));
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        acc[i][c].x *= alpha;
-        acc[i][c].y *= alpha;
-        acc[i][c].z *= alpha;
-        acc[i][c].w *= alpha;
-      }
-    }
-    __syncthreads();  // Ps complete
-
-    for (int t = 0; t < BK; ++t) {
-      const float4 v0 =
-          c0 < D ? load4(Vs + t * D + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 v1 =
-          c1 < D ? load4(Vs + t * D + c1) : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const float p = Ps[(ty + 16 * i) * (BK + 4) + t];
-        fma4(acc[i][0], p, v0);
-        fma4(acc[i][1], p, v1);
-      }
+  // the warp's rows ra = 16 warp + lane / 4 and rb = ra + 8
+  const int wr = warp * 16, ra = wr + (lane >> 2), rb = ra + 8;
+  const int qia = (r0 + ra) / group, qib = (r0 + rb) / group;
+  const bool va = qia < a.Lq, vb = qib < a.Lq;
+  const int qpa = a.offset + qia, qpb = a.offset + qib;
+  const bool live = __any_sync(0xffffffffu, va || vb);
+  // past this key every key is masked for all the warp's rows (causal)
+  const int w_hi = a.causal
+                       ? a.offset + min((r0 + wr + 15) / group, a.Lq - 1)
+                       : a.Lk;
+  WarpState w;
+  w.init();
+  for (int it = 0; it < ntile; ++it) {
+    const int t0 = k_begin + it * PK, buf = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it (and Q) in place; tile it - 1 done with
+    if (it + 1 < ntile) issue(t0 + PK, buf ^ 1);
+    if (live && t0 <= w_hi) {
+      const bf16* kt = kvs + buf * buf_elems;
+      const TileOperands op{Qt + wr * ST, kt, kt + T * PK * ST, FR * ST,
+                            PK * ST, ST, DP};
+      tile_step<T>(w, op, t0, lane, qpa, qpb, va, vb, a.Lk, a.causal != 0,
+                   a.window, a.scale, a.softcap);
     }
   }
 
-  EQ* out = static_cast<EQ*>(a.out) + ((long)bh * a.Lq) * D;
+  // out = acc / max(l, 1e-30), in q's type
+  const int c0 = (lane & 3) * 2;
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= a.Lq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra, qi = half ? qib : qia;
+    if (qi >= a.Lq) continue;
+    EQ* o = static_cast<EQ*>(a.out) +
+            (((long)b * a.Hq + group_q + (r0 + r) % group) * a.Lq + qi) * D;
+    const float den = fmaxf(half ? w.l_b : w.l_a, 1e-30f);
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = c ? c1 : c0;
-      if (col < D)
-        store4(out + (long)r * D + col,
-               make_float4(acc[i][c].x / den, acc[i][c].y / den,
-                           acc[i][c].z / den, acc[i][c].w / den));
+    for (int n = 0; n < MAX_NT; ++n) {
+      const int d = n * 8 + c0;
+      if (d < D)
+        store2(o + d, w.acc[n][2 * half] / den, w.acc[n][2 * half + 1] / den);
     }
   }
 }
 
+__host__ inline size_t smem_bytes(int D, int T) {
+  const int st = padded_d(D) + PAD;
+  return sizeof(bf16) * ((size_t)3 * FR * st + (size_t)2 * 2 * T * PK * st);
+}
+
 template <class EQ, class EKV>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.D);
-  auto kernel = flash_full_kernel<EQ, EKV>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((a.Lq + BQ - 1) / BQ, B * a.Hq);
-  kernel<<<grid, NT, smem, stream>>>(a);
+int launch(const Args& a, cudaStream_t stream) {
+  constexpr int T = std::is_same<EKV, bf16>::value ? 1 : 3;
+  const long n = (long)a.B * a.Hkv * 2 * a.Lk * (padded_d(a.D) / 4);
+  const int blocks = (int)std::min<long>((n + 255) / 256, 132L * 16);
+  split_kv_kernel<EKV, T><<<blocks, 256, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = flash_full_kernel<EQ, T>;
+  const size_t smem = smem_bytes(a.D, T);
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long rblocks = ((long)a.Lq * (a.Hq / a.Hkv) + FR - 1) / FR;
+  if (rblocks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.Hkv, (unsigned)rblocks);
+  kernel<<<grid, FT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace full
+}  // namespace repro
 
 // q: (B, Hq, Lq, D) with element strides (qsb, qsh, qsl, 1); k, v: (B, Hkv,
 // Lk, D) with strides (ksb, ksh, ksl, 1) and (vsb, vsh, vsl, 1); out: (B,
 // Hq, Lq, D) contiguous, of q's type. q_bf16 / kv_bf16: 1 for bf16, 0 for
-// f32 (k and v share a type). D a multiple of 4, at most 128; every row
-// start 16-byte aligned (f32) or 8-byte aligned (bf16). Hq a multiple of
-// Hkv. window <= 0 means none; softcap <= 0 means none. Returns
-// cudaError_t.
+// f32 (k and v share a type). work: bf16 workspace of B * Hkv * 2 * T * Lk
+// * DP elements, T = 1 for bf16 K/V and 3 for f32, DP = D rounded up to 16
+// (kernels/flash_attention/full.py full_workspace). D a multiple of 4, at
+// most 128; every row start 16-byte aligned (f32) or 8-byte aligned
+// (bf16). Hq a multiple of Hkv. window <= 0 means none; softcap <= 0 means
+// none. Returns cudaError_t.
 extern "C" int flash_attention_full(
     int q_bf16, int kv_bf16, const void* q, long long qsb, long long qsh,
     long long qsl, const void* k, long long ksb, long long ksh, long long ksl,
     const void* v, long long vsb, long long vsh, long long vsl, void* out,
-    int B, int Hq, int Hkv, int Lq, int Lk, int D, int offset, int causal,
-    int window, float scale, float softcap, void* stream) {
+    void* work, int B, int Hq, int Hkv, int Lq, int Lk, int D, int offset,
+    int causal, int window, float scale, float softcap, void* stream) {
+  using namespace repro;
+  using bf16 = __nv_bfloat16;
   if (D % 4 || D < 4 || D > MAX_D || Hkv < 1 || Hq % Hkv || Lq < 1 ||
-      Lk < 1 || B < 1)
+      Lk < 1 || B < 1 || !work)
     return (int)cudaErrorInvalidValue;
-  Args a{q,   k,   v,   out, {qsb, qsh, qsl}, {ksb, ksh, ksl},
-         {vsb, vsh, vsl}, Hq, Hkv, Lq, Lk, D, offset, causal, window,
-         scale, softcap};
+  full::Args a{q, k, v, out, static_cast<bf16*>(work), {qsb, qsh, qsl},
+               {ksb, ksh, ksl}, {vsb, vsh, vsl}, B, Hq, Hkv, Lq, Lk, D,
+               offset, causal, window, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_bf16)
-    return kv_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(a, B, s)
-                   : launch<__nv_bfloat16, float>(a, B, s);
-  return kv_bf16 ? launch<float, __nv_bfloat16>(a, B, s)
-                 : launch<float, float>(a, B, s);
+    return kv_bf16 ? full::launch<bf16, bf16>(a, s)
+                   : full::launch<bf16, float>(a, s);
+  return kv_bf16 ? full::launch<float, bf16>(a, s)
+                 : full::launch<float, float>(a, s);
 }

@@ -41,23 +41,21 @@
 //   paged equals flat.
 // - Pipeline. The tiles are double-buffered: tile t + 1's cp.async copies
 //   are in flight while tile t is computed.
-// - Tensor cores. Products run as mma.sync m16n8k16 bf16 with f32
-//   accumulation on operands split into bf16 terms: each f32 value x =
-//   hi + mid + lo (hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
-//   mid)), which keeps ~24 bits. bf16 K/V are exact in bf16, so Q.K^T and
-//   P.V take 3 MMAs each (lo, mid, hi into one accumulator); f32 K/V are
-//   split too and keep the 6 term products with i + j <= 2. int8 K/V are
-//   dequantized (codes x pow2 scale, __fmul_rn, as KVSource::scale4 does)
-//   while the tile is split in shared memory and then run the f32
-//   instruction sequence unchanged: the fused int8 kernel is bitwise the
-//   kernel on the dequantized f32 K/V by construction. P.V of a tile is
-//   taken into a fresh accumulator and added with acc = fmaf(acc, alpha,
-//   pv), so a tile whose p are all 0 for a row leaves its acc unchanged.
+// - Tensor cores (flash_mma.cuh, shared with flash_full.cu): mma.sync
+//   m16n8k16 bf16 products with f32 accumulation on operands split into
+//   three bf16 terms; bf16 K/V take 3 MMAs a product, f32 K/V the 6 term
+//   products with i + j <= 2, a warp's MMAs interleaving 4 accumulators.
+//   int8 K/V are dequantized (codes x pow2 scale,
+//   __fmul_rn, as KVSource::scale4 does) while the tile is split in shared
+//   memory and then run the f32 instruction sequence unchanged: the fused
+//   int8 kernel is bitwise the kernel on the dequantized f32 K/V by
+//   construction.
 // - Invalid (pad) query rows return exact zeros. The masked-score sentinel
 //   and its arithmetic are those of flash_common.cuh (NEG_INF = -1e30).
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 #include "splitk.cuh"
 
 namespace repro {
@@ -66,87 +64,8 @@ namespace prefill {
 constexpr int PW = 4;          // warps per block
 constexpr int PT = 32 * PW;    // threads per block
 constexpr int RB = 16 * PW;    // packed rows per block (an m16 tile a warp)
-constexpr int PK = 32;         // keys per tile
-constexpr int PAD = 8;         // bf16 per shared row past DP: other banks
-constexpr int MAX_NT = MAX_D / 8;
+using namespace tc;
 static_assert(PT == 2 * RB, "the merge takes two threads a row");
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// x = hi + mid + lo in bf16 terms, each the nearest bf16 to what is left
-struct Split3 {
-  bf16 t[3];
-};
-__device__ __forceinline__ Split3 split3(float x) {
-  Split3 s;
-  s.t[0] = __float2bfloat16_rn(x);
-  const float r = __fsub_rn(x, __bfloat162float(s.t[0]));
-  s.t[1] = __float2bfloat16_rn(r);
-  s.t[2] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(s.t[1])));
-  return s;
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 a, bf16 b) {
-  return (uint32_t)__bfloat16_as_ushort(a) |
-         ((uint32_t)__bfloat16_as_ushort(b) << 16);
-}
-
-// product of a split A operand (terms a[0..2] = hi, mid, lo) and a B
-// operand into d, smallest terms first: one B (exact in bf16) takes 3
-// MMAs; three B terms take the 6 with i + j <= 2
-__device__ __forceinline__ void mma3(float* d, uint32_t (*a)[4],
-                                     const uint32_t* b) {
-  mma(d, a[2], b);
-  mma(d, a[1], b);
-  mma(d, a[0], b);
-}
-__device__ __forceinline__ void mma6(float* d, uint32_t (*a)[4],
-                                     const uint32_t* b0, const uint32_t* b1,
-                                     const uint32_t* b2) {
-  mma(d, a[2], b0);
-  mma(d, a[1], b1);
-  mma(d, a[0], b2);
-  mma(d, a[1], b0);
-  mma(d, a[0], b1);
-  mma(d, a[0], b0);
-}
 
 // The kinds of K/V storage: bf16 is read by the MMAs as staged; f32 and
 // int8 (codes x f32 scales) are staged raw and split into bf16 terms.
@@ -158,8 +77,6 @@ struct Kind {
   static constexpr bool SCALED = std::is_same<E, int8_t>::value;
   static constexpr int ES = sizeof(E);
 };
-
-__host__ __device__ inline int padded_d(int D) { return (D + 15) & ~15; }
 
 // Shared memory: Q's three terms [3][RB][ST] bf16, the rows' positions and
 // validity, then bf16 K/V [2 buffers][K, V][PK][ST], or raw K/V [2][K,
@@ -352,11 +269,8 @@ __global__ void __launch_bounds__(PT, 1)
   const int qpa = qpos[ra], qpb = qpos[rb];
   const bool va = qvalid[ra], vb = qvalid[rb];
   const bool live = __any_sync(0xffffffffu, va || vb);
-  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
-  float acc[MAX_NT][4];
-#pragma unroll
-  for (int n = 0; n < MAX_NT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  WarpState w;
+  w.init();
 
   issue(k_begin, 0);
   for (int it = 0; it < ntile; ++it) {
@@ -377,119 +291,9 @@ __global__ void __launch_bounds__(PT, 1)
       const bf16* kt = K::DIRECT ? reinterpret_cast<const bf16*>(dst_k(buf))
                                  : terms;
       const bf16* vt = K::DIRECT ? kt + PK * ST : terms + 3 * PK * ST;
-      // scores s = Q K^T of the tile: 4 tiles of 8 keys
-      float s[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        uint32_t qa[3][4];
-#pragma unroll
-        for (int t = 0; t < 3; ++t)
-          ldsm_x4(qa[t], Qt + (t * RB + wr + (lane & 15)) * ST + kk * 16 +
-                             (lane >> 4) * 8);
-        // lane's key row and column for a pair of 8-key tiles
-        const int koff = ((lane >> 4) * 8 + (lane & 7)) * ST + kk * 16 +
-                         ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int n = 0; n < 4; n += 2) {
-          if (K::DIRECT) {
-            uint32_t kb[4];
-            ldsm_x4(kb, kt + n * 8 * ST + koff);
-            mma3(s[n], qa, kb);
-            mma3(s[n + 1], qa, kb + 2);
-          } else {
-            uint32_t kb[3][4];
-#pragma unroll
-            for (int t = 0; t < 3; ++t)
-              ldsm_x4(kb[t], kt + (t * PK + n * 8) * ST + koff);
-            mma6(s[n], qa, kb[0], kb[1], kb[2]);
-            mma6(s[n + 1], qa, kb[0] + 2, kb[1] + 2, kb[2] + 2);
-          }
-        }
-      }
-      // scale, softcap, mask; the online softmax of rows ra and rb
-      float mx_a = NEG_INF, mx_b = NEG_INF;
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = t0 + n * 8 + (lane & 3) * 2 + (e & 1);
-          const int qp = e < 2 ? qpa : qpb;
-          float x = s[n][e] * scale;
-          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-          bool keep = (e < 2 ? va : vb) && key < Lk && key <= qp;
-          if (window > 0) keep = keep && key > qp - window;
-          x = keep ? x : NEG_INF;
-          s[n][e] = x;
-          if (e < 2)
-            mx_a = fmaxf(mx_a, x);
-          else
-            mx_b = fmaxf(mx_b, x);
-        }
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o));
-      }
-      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-      const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
-      float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(s[n][e] - (e < 2 ? mn_a : mn_b));
-          s[n][e] = p;
-          if (e < 2)
-            sum_a += p;
-          else
-            sum_b += p;
-        }
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o);
-        sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o);
-      }
-      l_a = fmaf(l_a, al_a, sum_a);
-      l_b = fmaf(l_b, al_b, sum_b);
-      m_a = mn_a;
-      m_b = mn_b;
-      // P as the A operand of two 16-key steps, in three bf16 terms
-      uint32_t pa[2][3][4];
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = 2 * kk + (j >> 1), e = (j & 1) * 2;
-          const Split3 x0 = split3(s[n][e]), x1 = split3(s[n][e + 1]);
-#pragma unroll
-          for (int t = 0; t < 3; ++t) pa[kk][t][j] = pack2(x0.t[t], x1.t[t]);
-        }
-      // acc = acc * alpha + P V, 8 head dims at a time
-#pragma unroll
-      for (int n = 0; n < MAX_NT; ++n) {
-        if (n < DP / 8) {
-          float pv[4] = {0.f, 0.f, 0.f, 0.f};
-          const int voff = lane * ST + n * 8;
-          if (K::DIRECT) {
-            uint32_t vb4[4];
-            ldsm_x4_t(vb4, vt + voff);
-            mma3(pv, pa[0], vb4);
-            mma3(pv, pa[1], vb4 + 2);
-          } else {
-            uint32_t vb4[3][4];
-#pragma unroll
-            for (int t = 0; t < 3; ++t)
-              ldsm_x4_t(vb4[t], vt + t * PK * ST + voff);
-            mma6(pv, pa[0], vb4[0], vb4[1], vb4[2]);
-            mma6(pv, pa[1], vb4[0] + 2, vb4[1] + 2, vb4[2] + 2);
-          }
-          acc[n][0] = fmaf(acc[n][0], al_a, pv[0]);
-          acc[n][1] = fmaf(acc[n][1], al_a, pv[1]);
-          acc[n][2] = fmaf(acc[n][2], al_b, pv[2]);
-          acc[n][3] = fmaf(acc[n][3], al_b, pv[3]);
-        }
-      }
+      const TileOperands op{Qt + wr * ST, kt, vt, RB * ST, PK * ST, ST, DP};
+      tile_step<K::DIRECT ? 1 : 3>(w, op, t0, lane, qpa, qpb, va, vb, Lk,
+                                   true, window, scale, softcap);
     }
     __syncthreads();  // the buffers may be rewritten after this
   }
@@ -504,14 +308,14 @@ __global__ void __launch_bounds__(PT, 1)
       float* o = out_at(r);
       if (!o) continue;
       const bool v = half ? vb : va;
-      const float den = fmaxf(half ? l_b : l_a, 1e-30f);
+      const float den = fmaxf(half ? w.l_b : w.l_a, 1e-30f);
 #pragma unroll
       for (int n = 0; n < MAX_NT; ++n) {
         const int d = n * 8 + c0;
         if (d < D)
           *reinterpret_cast<float2*>(o + d) =
-              v ? make_float2(acc[n][2 * half] / den,
-                              acc[n][2 * half + 1] / den)
+              v ? make_float2(w.acc[n][2 * half] / den,
+                              w.acc[n][2 * half + 1] / den)
                 : make_float2(0.f, 0.f);
       }
     }
@@ -530,11 +334,11 @@ __global__ void __launch_bounds__(PT, 1)
       const int d = n * 8 + c0;
       if (d < D)
         *reinterpret_cast<float2*>(wacc + r * D + d) =
-            make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+            make_float2(w.acc[n][2 * half], w.acc[n][2 * half + 1]);
     }
     if ((lane & 3) == 0) {
-      wml[r * 2] = half ? m_b : m_a;
-      wml[r * 2 + 1] = half ? l_b : l_a;
+      wml[r * 2] = half ? w.m_b : w.m_a;
+      wml[r * 2 + 1] = half ? w.l_b : w.l_a;
     }
   }
   if (!splitk_arrive(counters + rbi, nlive)) return;

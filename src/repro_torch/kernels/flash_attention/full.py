@@ -3,7 +3,9 @@
 calls, which the full-sequence forward makes in every layer.
 
 `flash_attention` launches the CUDA kernel of `csrc/flash_full.cu` on CUDA
-tensors and runs `flash_attention_plain` on CPU tensors; it counts its
+tensors (its K/V split into bf16 terms first, into a workspace sized by
+`full_workspace`, then the tensor-core kernel over them: one launch of the
+entry point) and runs `flash_attention_plain` on CPU tensors; it counts its
 kernel launches in `flash_attention.launches`. q is (B, Hq, Lq, D) and k, v
 are (B, Hkv, Lk, D), f32 or bf16 (q's type and K/V's may differ; the output
 has q's), any of them a strided view with a unit-stride last dimension (the
@@ -21,14 +23,23 @@ import torch
 from ..common import call_kernel, check_cuda
 from .shared import NEG_INF
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_plain", "full_workspace"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _LL, _P, _I, _F = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, \
     ctypes.c_float
-# q/kv types; q, k, v pointers with 3 strides each; out; B, Hq, Hkv, Lq,
-# Lk, D, offset, causal, window; scale, softcap
-_ARGTYPES = [_I, _I] + ([_P] + [_LL] * 3) * 3 + [_P] + [_I] * 9 + [_F] * 2
+# q/kv types; q, k, v pointers with 3 strides each; out, workspace; B, Hq,
+# Hkv, Lq, Lk, D, offset, causal, window; scale, softcap
+_ARGTYPES = [_I, _I] + ([_P] + [_LL] * 3) * 3 + [_P] * 2 + [_I] * 9 \
+    + [_F] * 2
+
+
+def full_workspace(b: int, hkv: int, lk: int, d: int, kv_bf16: bool) -> int:
+    """bf16 elements of the kernel's K/V term workspace: for each of B x
+    Hkv kv-rows, K and V in T terms (1 for bf16 K/V, 3 for f32) of Lk rows
+    of D padded to 16."""
+    terms = 1 if kv_bf16 else 3
+    return b * hkv * 2 * terms * lk * (-(-d // 16) * 16)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,7 +108,7 @@ def _check(q, k, v, window, softcap):
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={k.shape[1]}")
     if d % 4 or d > 128:
         raise ValueError(f"head_dim {d} must be a multiple of 4 and at most "
-                         "128 (a thread owns 8 head dims of the output)")
+                         "128 (a warp's accumulator holds 128 columns)")
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES \
             or v.dtype != k.dtype:
         raise TypeError(f"q {q.dtype}, k {k.dtype}, v {v.dtype}: want "
@@ -127,12 +138,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
     if lq == 0 or b == 0:
         return out
+    kv_bf16 = k.dtype == torch.bfloat16
+    work = torch.empty(full_workspace(b, hkv, lk, d, kv_bf16),
+                       dtype=torch.bfloat16, device=q.device)
     call_kernel("flash_attention_full", _ARGTYPES,
-                int(q.dtype == torch.bfloat16),
-                int(k.dtype == torch.bfloat16),
+                int(q.dtype == torch.bfloat16), int(kv_bf16),
                 q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
-                v.data_ptr(), *v.stride()[:3], out.data_ptr(), b, hq, hkv,
-                lq, lk, d, offset, int(causal), window or 0,
+                v.data_ptr(), *v.stride()[:3], out.data_ptr(),
+                work.data_ptr(), b, hq, hkv, lq, lk, d, offset, int(causal),
+                window or 0,
                 d ** -0.5 if scale is None else scale, softcap or 0.0,
                 source="flash_full")
     flash_attention.launches += 1

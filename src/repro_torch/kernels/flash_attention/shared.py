@@ -128,10 +128,12 @@ _LEAD = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_void_p]               # kv kind, q + strides, k, v, scales
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
-    # pos, out; B, Hkv, group, Lq, D, Lk, bkv, window; scale, softcap
-    "flash_decode": _LEAD + [_P] * 2 + [_I] * 8 + [_F] * 2,
-    # table, pos, out; B, Hkv, group, Lq, D, nblk, bs, bkv, window; ...
-    "flash_decode_paged": _LEAD + [_P] * 3 + [_I] * 9 + [_F] * 2,
+    # pos, out, workspace, counters; B, Hkv, group, Lq, D, Lk, span,
+    # window; scale, softcap
+    "flash_decode": _LEAD + [_P] * 4 + [_I] * 8 + [_F] * 2,
+    # table, pos, out, workspace, counters; B, Hkv, group, Lq, D, nblk, bs,
+    # span, window; ...
+    "flash_decode_paged": _LEAD + [_P] * 5 + [_I] * 9 + [_F] * 2,
     # pos, lengths, out, workspace, counters; B, Hkv, group, W, bq, D, Lk,
     # span, window; ...
     "flash_prefill": _LEAD + [_P] * 5 + [_I] * 9 + [_F] * 2,

@@ -32,7 +32,8 @@ from repro_torch.kernels.flash_attention import (
     KERNELS, PAGED_KERNELS, flash_attention, flash_attention_plain,
     flash_decode, flash_decode_paged,
     flash_decode_paged_plain, flash_decode_paged_quant, flash_decode_plain,
-    flash_decode_quant, flash_prefill, flash_prefill_paged,
+    flash_decode_quant, flash_decode_quant_plain, flash_prefill,
+    flash_prefill_paged,
     flash_prefill_paged_plain, flash_prefill_paged_quant,
     flash_prefill_plain, flash_prefill_quant, flash_prefill_quant_plain)
 from repro_torch.kernels.flash_attention.shared import dequant
@@ -204,6 +205,98 @@ def test_prefill_query_does_not_depend_on_chunk_width(dev, kv, window,
         out = kern(q, *flat, pos=pos, lengths=lens, window=window,
                    softcap=softcap)
         outs.append(out[row, :, idx])
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+def _decode_forms(k, v, kv):
+    """K/V as the decode kernels take them, and their flat and paged
+    wrappers."""
+    if kv == "int8":
+        kc, ks = _q8(k)
+        vc, vs = _q8(v)
+        return (kc, ks, vc, vs), flash_decode_quant, flash_decode_paged_quant
+    dtype = torch.bfloat16 if kv == "bf16" else torch.float32
+    return (k.to(dtype), v.to(dtype)), flash_decode, flash_decode_paged
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("lq,window,softcap", [(1, None, None),
+                                               (1, 300, 30.0),
+                                               (4, 700, 50.0)])
+def test_decode_rows_span_many_splits(dev, kv, lq, window, softcap):
+    """Rows across a 4096-key cache (32 key splits of 128) against the
+    plain version, with and without a window and a softcap; the int8
+    kernel equals the kernel on the dequantized K/V bitwise, and the paged
+    kernel at block sizes 16, 32 and 128 equals the flat one bitwise."""
+    b, hkv, group, lk = 5, 2, 6, 4096
+    q, k, v = _data(dev, 24, b, hkv * group, hkv, lq, lk)
+    pos = torch.tensor([lk - lq, 4000, 2500, 0, 130], dtype=torch.int32,
+                       device=dev)
+    flat, kern, paged = _decode_forms(k, v, kv)
+    kw = dict(pos=pos, window=window, softcap=softcap)
+    got = kern(q, *flat, **kw)
+    if kv == "int8":
+        deq = (dequant(flat[0], flat[1], torch.float32),
+               dequant(flat[2], flat[3], torch.float32))
+        assert torch.equal(got, flash_decode(q, *deq, **kw))
+        _close(got, flash_decode_quant_plain(q, *flat, **kw))
+    else:
+        _close(got, flash_decode_plain(q, *flat, **kw))
+    for bs in (16, 32, 128):
+        pools, table = _paged(dev, flat, bs, seed=bs)
+        assert torch.equal(paged(q, *pools, table=table, **kw), got), bs
+
+
+@pytest.mark.parametrize("span", [64, 256, 512])
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+def test_decode_other_split_spans_match_plain(dev, monkeypatch, span, kv):
+    """A sweep of the split span (`decode.SPLIT_KEYS` patched) runs the
+    same kernel: spans of 256 and more give a warp two tiles of a split,
+    the second staged into its buffer once the first is computed. Each
+    span is within 1e-4 of the plain version and paged equals flat
+    bitwise."""
+    from repro_torch.kernels.flash_attention import decode as decode_mod
+    monkeypatch.setattr(decode_mod, "SPLIT_KEYS", span)
+    b, hkv, group, lk = 4, 2, 6, 2048
+    q, k, v = _data(dev, 27, b, hkv * group, hkv, 1, lk)
+    pos = torch.tensor([lk - 1, 1000, 37, 700], dtype=torch.int32,
+                       device=dev)
+    flat, kern, paged = _decode_forms(k, v, kv)
+    kw = dict(pos=pos, window=900, softcap=30.0)
+    got = kern(q, *flat, **kw)
+    plain = flash_decode_quant_plain if kv == "int8" else flash_decode_plain
+    _close(got, plain(q, *flat, **kw))
+    pools, table = _paged(dev, flat, 16, seed=span)
+    assert torch.equal(paged(q, *pools, table=table, **kw), got)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (300, 30.0)])
+def test_decode_row_does_not_depend_on_other_rows(dev, kv, window, softcap):
+    """A decode row's output is bitwise the same beside any other rows, at
+    any batch index and batch size: its splits and tiles are cut at
+    absolute key positions and merged in a fixed order."""
+    hkv, group, lk, at = 2, 6, 2048, 1700
+    _, k, v = _data(dev, 25, 4, hkv * group, hkv, 1, lk)
+    flat, kern, _ = _decode_forms(k, v, kv)
+    g = torch.Generator(device=dev).manual_seed(26)
+    target = torch.randn(hkv * group, 128, generator=g, device=dev) * 0.5
+    outs = []
+    for b, row, others in ((1, 0, ()), (4, 2, (0, 2047, 900)),
+                           (4, 0, (5, 1, 1000)), (3, 1, (129, 2000))):
+        q = torch.randn(b, 1, hkv * group, 128, generator=g,
+                        device=dev) * 0.5
+        q[row, 0] = target
+        pos = list(others)
+        pos.insert(row, at)
+        idx = [i for i in range(4) if i != 1][:b - 1]
+        idx.insert(row, 1)              # the row's own cache stays row 1
+        cache = tuple(t[idx] for t in flat)
+        out = kern(q.transpose(1, 2), *cache,
+                   pos=torch.tensor(pos, dtype=torch.int32, device=dev),
+                   window=window, softcap=softcap)
+        outs.append(out[row])
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
 
@@ -452,14 +545,21 @@ def test_gemm_rows_do_not_depend_on_m(dev, mode, k, n):
 
 
 @pytest.mark.parametrize("kernel", ["aio_matmul", "grouped_matmul",
-                                    "flash_prefill"])
+                                    "flash_prefill", "flash_decode"])
 def test_split_k_launches_on_two_streams_do_not_race(dev, kernel):
     """Split-K launches queued on two streams at once (B5's down projection
     at M = 8, 11 slices; B9 on a two-model mix, 6 slices; the prefill
-    kernel over rows of up to 16 key splits) each take the tile counters
-    of their own stream: every result equals the one computed alone,
-    bitwise (the slices are summed in index order)."""
-    if kernel == "flash_prefill":
+    kernel over rows of up to 16 key splits; the decode kernel over rows of
+    up to 32) each take the tile counters of their own stream: every
+    result equals the one computed alone, bitwise (the slices are summed
+    in index order)."""
+    if kernel == "flash_decode":
+        q1, k, v = _data(dev, 32, 4, 12, 2, 1, 4096)
+        pos = torch.tensor([4095, 3000, 100, 2047], dtype=torch.int32,
+                           device=dev)
+        run = functools.partial(flash_decode, q1, k.to(torch.bfloat16),
+                                v.to(torch.bfloat16), pos=pos)
+    elif kernel == "flash_prefill":
         qw, k, v = _data(dev, 31, 4, 12, 2, 32, 4096)
         pos = torch.tensor([4064, 3000, 100, 2047], dtype=torch.int32,
                            device=dev)
@@ -644,6 +744,27 @@ def test_full_attention_rows_without_keys_are_finite(dev):
     want = flash_attention_plain(q, k, v, window=8, offset=50)
     assert torch.isfinite(got).all()
     _close(got[:, :, :57], want[:, :, :57])  # 50 + i < 100 + 8 - 1
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(offset=400), dict(window=300),
+                                dict(offset=77, window=200, softcap=30.0),
+                                dict(offset=1000, window=40),
+                                dict(causal=False, softcap=50.0)], ids=str)
+def test_full_attention_over_many_tiles(dev, kv_dtype, kw):
+    """Queries over many 32-key tiles and several 128-row blocks (GQA group
+    6, Lq 700 and Lk 1100, neither a multiple of the tiles), with an
+    offset, a window and a softcap, against the plain version; the rows
+    that have no valid key (past a window that ends before Lk) are finite
+    and every other row matches."""
+    q, k, v = _data(dev, 15, 2, 12, 2, 700, 1100)
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(got).all()
+    qpos = kw.get("offset", 0) + torch.arange(700, device=dev)
+    has_key = qpos < 1100 + kw.get("window", 1100) - 1
+    _close(got[:, :, has_key], want[:, :, has_key])
 
 
 def test_full_attention_wrapper_rejects_bad_operands(dev):
