@@ -30,9 +30,11 @@ of JAX or of the JAX package `repro`. Phases:
    edge rows of `quant_edge_rows` (all zero; max |x| between the floors;
    +-max_finite, so the scale is exactly 1, then every RNE tie of the
    grid, also at scales 2^-20 and 2^12; +-inf and values past
-   max_finite, which saturate; a NaN): codes and scales bitwise. A plain
-   quantizer that rounds half away from zero (C's roundf) must give other
-   codes on every row with ties.
+   max_finite, which saturate; a NaN): codes and scales bitwise, at the
+   launch `quant_plan` takes and at each cluster size (1, 2, 4 and 8 blocks
+   a row, `plan_with`'s threads and values a thread). A plain quantizer
+   that rounds half away from zero (C's roundf) must give other codes on
+   every row with ties.
    Paged attention (the same four kernels read through a block table:
    flash_decode_paged, flash_decode_paged_quant, flash_prefill_paged,
    flash_prefill_paged_quant) at the same serving shapes, the cache
@@ -70,12 +72,15 @@ of JAX or of the JAX package `repro`. Phases:
    down), against torch.matmul on operands decoded to
    bf16 beforehand and, where its shape rules allow (M = 256), torch._int_mm
    on int8 operands. AIO quantizer: each format at M = 8 and 256 of
-   N = 1536 and 8960; no single library call computes it. Paged attention
+   N = 1536 and 8960 (eight input copies: at M = 8 they lie in the L2, as
+   a step's activations do), beside the plan it takes and the launch
+   floor (back-to-back `torch.cuda._sleep(0)` launches, timed the same
+   way); no single library call computes it. Paged attention
    at block size 16 beside the flat kernel on the same data (the cost of
    the address indirection); its bound adds the table entries the rows
-   read; no single library call reads through a block table. Inputs
-   rotate over enough copies to exceed the 50 MB L2, as 28 layers' caches
-   and weights do on the serving path.
+   read; no single library call reads through a block table. Attention
+   and GEMM inputs rotate over enough copies to exceed the 50 MB L2, as 28
+   layers' caches and weights do on the serving path.
 4d. B8 at B 4, Hq 12, Hkv 2, D 128, L 2048, causal, f32: held against
    its plain version there (max |diff| <= 1e-4, no NaN), then timed
    against SDPA (K/V expanded to Hq beforehand), bound by its own
@@ -177,6 +182,9 @@ from repro_torch.kernels.aio_matmul import (MODES, aio_matmul,  # noqa: E402
 from repro_torch.kernels.aio_quant import (KERNEL_FLOOR,  # noqa: E402
                                            aio_quant, aio_quant_plain,
                                            quant_edge_rows)
+from repro_torch.kernels.aio_quant import ops as quant_ops  # noqa: E402
+from repro_torch.kernels.aio_quant.ops import (  # noqa: E402
+    CLUSTER_SIZES, plan_with, quant_plan)
 from repro_torch.kernels.depthwise import (depthwise_conv,  # noqa: E402
                                            depthwise_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -789,6 +797,31 @@ def quant_case(dev, fmt, m, n, seed):
 
 
 @contextlib.contextmanager
+def forced_quant_plan(plan):
+    """Every quantizer launch in the block takes `plan` (None: its own)."""
+    saved = quant_ops.quant_plan
+    if plan is not None:
+        quant_ops.quant_plan = lambda m, n: plan
+    try:
+        yield
+    finally:
+        quant_ops.quant_plan = saved
+
+
+def quant_timing_copies(dev, m, n):
+    """Eight random (M, N) quantizer inputs, the timed calls' rotation: at
+    M = 8 they lie in the L2, as a step's activations do."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    return [torch.randn(m, n, generator=g, device=dev) for _ in range(8)]
+
+
+def launch_floor_ms():
+    """The launch floor: ms a launch of back-to-back minimal kernels
+    (`torch.cuda._sleep(0)`), timed as the kernels are."""
+    return cuda_ms([functools.partial(torch.cuda._sleep, 0)], 200)
+
+
+@contextlib.contextmanager
 def round_half_away():
     """torch.round rounding half away from zero (C's roundf) inside the
     block: a deliberately wrong plain quantizer the edge rows must
@@ -832,24 +865,31 @@ def aio_kernel_phase(dev):
             for m in GEMM_M:
                 for n in (1536, 8960):
                     x = quant_case(dev, fmt, m, n, seed=m + n)
-                    codes, scale = aio_quant(x, fmt_name=fmt, floor=floor)
                     want_codes, want_scale = aio_quant_plain(
                         x, fmt_name=fmt, floor=floor)
                     with round_half_away():
                         away_codes, _ = aio_quant_plain(
                             x, fmt_name=fmt, floor=floor)
-                    torch.cuda.synchronize()
-                    check(torch.equal(codes, want_codes)
-                          and torch.equal(scale, want_scale),
-                          f"aio_quant {fmt} floor {floor} M={m} N={n}: "
-                          "codes or scales differ from the plain version")
+                    # the plan's own launch, then every cluster size
+                    plans = [None] + [plan_with(n, c) for c in CLUSTER_SIZES]
+                    for plan in plans:
+                        with forced_quant_plan(plan):
+                            codes, scale = aio_quant(x, fmt_name=fmt,
+                                                     floor=floor)
+                        torch.cuda.synchronize()
+                        check(torch.equal(codes, want_codes)
+                              and torch.equal(scale, want_scale),
+                              f"aio_quant {fmt} floor {floor} M={m} N={n} "
+                              f"plan {plan or quant_plan(m, n)}: codes or "
+                              "scales differ from the plain version")
+                        n_cases += 1
                     caught = (away_codes != codes)[2:7].any(1).all().item()
                     check(caught, f"aio_quant {fmt} M={m} N={n}: a plain "
                           "quantizer rounding half away from zero matched "
                           "the kernel on a row of ties")
-                    n_cases += 1
         print(f"  aio_quant  {fmt:5s} {n_cases} cases (floors 1e-30 and "
-              "FLT_MIN, M 8/256, N 1536/8960, edge rows): codes and scales "
+              "FLT_MIN, M 8/256, N 1536/8960, edge rows; the plan's own "
+              "launch and clusters of 1, 2, 4 and 8): codes and scales "
               "bitwise equal; the round-half-away plain variant differs on "
               "every row of ties", flush=True)
     errs["aio_quant"] = 0.0
@@ -944,11 +984,12 @@ def aio_timing_phase(dev):
                       f"({bound_by}; {100 * bound_ms / ms:.1f}% of it)",
                       flush=True)
                 del copies, dec
-    g = torch.Generator(device=dev).manual_seed(8)
+    floor_ms = launch_floor_ms()
+    print(f"  launch floor (back-to-back torch.cuda._sleep(0)): "
+          f"{floor_ms:.4f} ms", flush=True)
     for n in (1536, 8960):
         for m in GEMM_M:
-            xs = [torch.randn(m, n, generator=g, device=dev)
-                  for _ in range(8)]
+            xs = quant_timing_copies(dev, m, n)
             for fmt in QUANT_FORMATS:
                 kern = [functools.partial(aio_quant, x, fmt_name=fmt,
                                           floor=FM.FLT_MIN) for x in xs]
@@ -964,10 +1005,14 @@ def aio_timing_phase(dev):
                 rows[(fmt, m, n)] = dict(ms=ms, plain_ms=plain_ms,
                                          library_ms=None, bound_ms=bound_ms,
                                          bound_by=bound_by)
+                p = quant_plan(m, n)
                 print(f"  aio_quant  {fmt:5s} M={m:3d} N={n}: kernel "
                       f"{ms:.4f}  plain {plain_ms:.4f}  library none  bound "
                       f"{bound_ms:.5f} ({bound_by}; "
-                      f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+                      f"{100 * bound_ms / ms:.1f}% of it)  launch floor "
+                      f"{floor_ms:.4f} (+{1e3 * (ms - floor_ms):.2f} us)  "
+                      f"plan cluster {p.cluster} x {p.threads} threads x "
+                      f"{p.vals} values", flush=True)
     # the summary line's shapes: the commonest launch of each on the main
     # path (int4 decode: gate/up GEMM; the quantizer on a d_model row)
     return {"aio_matmul": rows[("int4", 8, 1536, 8960)],

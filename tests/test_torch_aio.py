@@ -34,6 +34,9 @@ from repro_torch.kernels.aio_matmul import (aio_matmul, aio_matmul_codes,
                                             gemm_plan, quantize_operands_ref)
 from repro_torch.kernels.aio_quant import (KERNEL_FLOOR, aio_quant,
                                            aio_quant_plain, quant_edge_rows)
+from repro_torch.kernels.aio_quant.ops import (CLUSTER_SIZES, MAX_THREADS,
+                                               MAX_UNITS, plan_with,
+                                               quant_plan)
 
 MODES = ["bf16", "fp8a", "fp8b", "int8", "int4"]
 
@@ -271,6 +274,68 @@ def test_quantizer_wrapper_counts_no_launch_on_cpu():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError, match="not in"):
         aio_quant(x, fmt_name="bf16", floor=KERNEL_FLOOR)
+
+
+def test_quant_plan_takes_shapes_only():
+    """The quantizer's launch plan is a function of (M, N) alone: no tensor
+    and no device."""
+    assert list(inspect.signature(quant_plan).parameters) == ["m", "n"]
+    assert quant_plan(8, 1536) == quant_plan(8, 1536)
+
+
+def _covered_units(n: int, plan) -> np.ndarray:
+    """How often each unit of a row is read by the kernel's blocks under
+    `plan`, by the kernel's own indexing (csrc/aio_quant.cu): block rank r
+    takes units [r * part, (r + 1) * part), thread t units t + j * threads
+    of its part, j < the units a thread holds (the re-read path: every
+    such index)."""
+    unit = 4 if n % 4 == 0 else 1
+    units = n // unit
+    part = -(-units // plan.cluster)
+    upt = plan.vals // unit
+    hits = np.zeros(units, np.int64)
+    for rank in range(plan.cluster):
+        count = max(0, min(part, units - rank * part))
+        idx = np.arange(plan.threads * upt if upt else count)
+        idx = idx[idx < count]
+        np.add.at(hits, rank * part + idx, 1)
+    return hits
+
+
+@pytest.mark.parametrize("m", [1, 8, 37, 256, 4096])
+@pytest.mark.parametrize("n", [1, 3, 130, 1536, 8960, 11008, 151936])
+def test_quant_plan_covers_each_row_once(m, n):
+    """Each row's values are read exactly once by its cluster's blocks;
+    every block has values; the cluster is a portable size (so the grid,
+    M x cluster, is a multiple of it); a block has whole warps, at most
+    MAX_THREADS; a thread holds at most MAX_UNITS 16-byte vectors in
+    registers, or the plan takes the re-read path."""
+    plan = quant_plan(m, n)
+    unit = 4 if n % 4 == 0 else 1
+    assert plan.cluster in CLUSTER_SIZES
+    assert (m * plan.cluster) % plan.cluster == 0
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= MAX_THREADS
+    assert plan.threads <= 1024
+    assert plan.vals % unit == 0
+    assert plan.vals // unit in (0, 1, 2, 4, MAX_UNITS)
+    assert plan.vals <= 4 * MAX_UNITS
+    assert (_covered_units(n, plan) == 1).all()
+    part = -(-(n // unit) // plan.cluster)
+    assert (plan.cluster - 1) * part < n // unit     # no block left idle
+    if plan.vals:
+        assert plan.threads * (plan.vals // unit) >= part
+    if m == 8 and n in (1536, 8960):
+        assert m * plan.cluster >= 64
+
+
+@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+@pytest.mark.parametrize("units", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("n", [130, 1536, 8960])
+def test_plans_of_a_sweep_cover_each_row_once(cluster, units, n):
+    """Every plan a sweep or a card test forces (`plan_with`) reads each
+    value of a row once."""
+    plan = plan_with(n, cluster, units)
+    assert (_covered_units(n, plan) == 1).all()
 
 
 # ================================================================ ops

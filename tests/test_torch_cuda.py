@@ -10,7 +10,10 @@ the plain version's; the fused int8-KV kernels must equal the same kernels
 run on the dequantized f32 K/V bitwise, prefill pad rows must be exact
 zeros, and the paged kernels must equal the flat kernels on the un-paged
 cache bitwise at every block size. AIO GEMM: integer modes bitwise, float modes rtol 2e-5, atol 2e-5 *
-max|plain|; the quantizer bitwise."""
+max|plain|; the quantizer bitwise, on every float32 bit pattern at scale 1
+and every pattern of its formats' edge binades at other scales:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py -k quant"""
 import contextlib
 import dataclasses
 import functools
@@ -27,6 +30,10 @@ from repro_torch.kernels.aio_matmul import (MODES, aio_matmul,
                                             quantize_operands_ref)
 from repro_torch.kernels.aio_quant import (KERNEL_FLOOR, aio_quant,
                                            aio_quant_plain, quant_edge_rows)
+from repro_torch.kernels.aio_quant import ops as quant_ops
+from repro_torch.kernels.aio_quant.ops import (CLUSTER_SIZES, MAX_THREADS,
+                                               MAX_UNITS, QUANT_FORMATS,
+                                               QuantPlan, plan_with)
 from repro_torch.kernels.depthwise import depthwise_conv, depthwise_plain
 from repro_torch.kernels.flash_attention import (
     KERNELS, PAGED_KERNELS, flash_attention, flash_attention_plain,
@@ -633,6 +640,165 @@ def test_quantizer_kernel_matches_plain_bitwise(dev, fmt, floor, m, n):
     want_codes, want_scale = aio_quant_plain(x, fmt_name=fmt, floor=floor)
     assert torch.equal(codes, want_codes)
     assert torch.equal(scale, want_scale)
+
+
+# The quantizer's encoder against the plain version on every bit pattern
+# that can decide it: rows of PATTERN_ROW values, each led by a value that
+# fixes the row's scale, in chunks of about 2^26 elements (the plain
+# version's temporaries stay a few GB).
+PATTERN_ROW = 4096
+PATTERN_CHUNK_ROWS = 1 << 14
+
+
+def _pattern_rows(dev, lo: int, hi: int, lead: float) -> torch.Tensor:
+    """float32 rows: `lead`, then the bit patterns lo..hi-1 (ints in
+    [0, 2^32)) in order, the last row padded with pattern lo."""
+    per = PATTERN_ROW - 1
+    rows = -(-(hi - lo) // per)
+    bits = torch.arange(lo, lo + rows * per, dtype=torch.int64, device=dev)
+    bits = torch.where(bits < hi, bits, lo)
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    vals = bits.to(torch.int32).view(torch.float32).view(rows, per)
+    return torch.cat([vals.new_full((rows, 1), lead), vals], 1)
+
+
+def _assert_quant_equal(x, fmt, floor):
+    """Kernel and plain version bitwise on x; a difference names its first
+    input's bits and both codes."""
+    codes, scale = aio_quant(x, fmt_name=fmt, floor=floor)
+    want, want_scale = aio_quant_plain(x, fmt_name=fmt, floor=floor)
+    torch.cuda.synchronize()
+    assert torch.equal(scale, want_scale), f"{fmt}: scales differ"
+    bad = (codes != want).nonzero()
+    if len(bad):
+        r, c = bad[0].tolist()
+        bits = x[r, c].view(torch.int32).item() & 0xFFFFFFFF
+        raise AssertionError(
+            f"{fmt}: {len(bad)} codes differ; first x bits {bits:#010x} "
+            f"scale {scale[r].item()}: kernel {codes[r, c].item()}, plain "
+            f"{want[r, c].item()}")
+    return scale
+
+
+@pytest.mark.parametrize("fmt", QUANT_FORMATS)
+def test_quantizer_every_f32_pattern_at_scale_1(dev, fmt):
+    """All 2^32 float32 bit patterns (zeros, f32 subnormals, every binade,
+    +-inf, NaNs with either sign) coded at scale 1: each row is led by
+    +inf, so its scale is 1 and the rest is coded as it is."""
+    step = PATTERN_CHUNK_ROWS * (PATTERN_ROW - 1)
+    for lo in range(0, 1 << 32, step):
+        x = _pattern_rows(dev, lo, min(lo + step, 1 << 32), float("inf"))
+        scale = _assert_quant_equal(x, fmt, KERNEL_FLOOR)
+        assert (scale == 1).all()
+
+
+def _edge_binades(fmt_name: str):
+    """The quotient ranges [2^lo, 2^hi) around the format's subnormal range
+    (int: around 1/2 and 1, where rounding to 0 and 1 decides) and
+    [2^top, max_finite] at its saturation edge, as (lo, hi, top)."""
+    fmt = F.REGISTRY[fmt_name]
+    if fmt.kind == "fp":
+        emin = 1 - fmt.bias
+        emax = (1 << fmt.ebits) - 1 - fmt.bias
+        return emin - fmt.mbits - 2, emin + 1, emax - 1
+    return -3, 1, int(np.floor(np.log2(fmt.max_finite))) - 1
+
+
+def _edge_scales(fmt_name: str):
+    """Exponents k of the scales 2^k the edge binades are coded at: the
+    least a row reaches above the FLT_MIN floor (a subnormal scale), the
+    two sides of where 2^-k leaves the float range, 2^-126, 2^-20, 2^12,
+    2^100 and the largest."""
+    mf = F.REGISTRY[fmt_name].max_finite
+    k_min = int(np.ceil(np.log2(F.FLT_MIN / mf)))
+    k_max = int(np.floor(np.log2(np.finfo(np.float32).max / mf)))
+    return sorted({k_min, -128, -127, -126, -20, 12, 100, k_max})
+
+
+def _bits(v: float) -> int:
+    return int(np.array(v, dtype=np.float32).view(np.uint32))
+
+
+@pytest.mark.parametrize("fmt", QUANT_FORMATS)
+def test_quantizer_edge_binades_at_other_scales(dev, fmt):
+    """Every float32 bit pattern x, of either sign, whose quotient x / 2^k
+    lies in the binades around the format's subnormal range or between
+    2^(emax - 1) and max_finite, at scales 2^k from subnormal to the
+    largest (`_edge_scales`): each row led by max_finite * 2^k, so its
+    scale is exactly 2^k (floor FLT_MIN)."""
+    lo, hi, top = _edge_binades(fmt)
+    mf = F.REGISTRY[fmt].max_finite
+    for k in _edge_scales(fmt):
+        lead = float(np.float32(mf * 2.0 ** k))
+        assert lead == mf * 2.0 ** k and lead >= F.FLT_MIN
+        spans = [(_bits(2.0 ** (lo + k)), _bits(2.0 ** (hi + k))),
+                 (_bits(2.0 ** (top + k)), _bits(lead) + 1)]
+        for sign in (0, 1 << 31):
+            for a, b in spans:
+                step = PATTERN_CHUNK_ROWS * (PATTERN_ROW - 1)
+                for s in range(a, b, step):
+                    x = _pattern_rows(dev, sign + s, sign + min(s + step, b),
+                                      lead)
+                    scale = _assert_quant_equal(x, fmt, F.FLT_MIN)
+                    assert (scale == 2.0 ** k).all(), (fmt, k)
+
+
+def _last_block_rows(dev, m, n, plan, seed):
+    """Random rows with a NaN or an inf only in the last block's part of
+    the row: at its last value, and at the first value of its part."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, n, generator=g, device=dev) * 3.0
+    unit = 4 if n % 4 == 0 else 1
+    part = -(-(n // unit) // plan.cluster) * unit
+    first = (plan.cluster - 1) * part
+    for r, (col, val) in enumerate([(n - 1, float("nan")),
+                                    (n - 1, -float("inf")),
+                                    (first, float("inf")),
+                                    (first, -float("nan"))]):
+        x[r % m, col] = val
+    return x
+
+
+@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+@pytest.mark.parametrize("fmt", ["fp8a", "fp8b", "int8", "int4"])
+def test_quantizer_every_cluster_size(dev, monkeypatch, cluster, fmt):
+    """Every cluster size the plan can choose, each with every count of
+    values a thread holds and the re-read path, at the chip-smoke shapes
+    (M 8 and 256, N 1536 and 8960) and a ragged one (M 37, N 130, scalar):
+    `quant_edge_rows` on random rows, and rows whose only NaN or inf lies
+    in the last block's part, bitwise against the plain version at both
+    floors."""
+    for m, n in [(8, 1536), (8, 8960), (256, 1536), (256, 8960), (37, 130)]:
+        plans = [plan_with(n, cluster, u) for u in (0, 1, 2, 4, MAX_UNITS)]
+        for plan in plans:
+            if plan.threads > MAX_THREADS:
+                continue
+            monkeypatch.setattr(quant_ops, "quant_plan",
+                                lambda m, n, plan=plan: plan)
+            g = torch.Generator(device=dev).manual_seed(m + n)
+            x = torch.randn(m, n, generator=g, device=dev) * torch.exp(
+                torch.randn(m, 1, generator=g, device=dev) * 4)
+            edge = quant_edge_rows(fmt, n).to(dev)
+            x[: min(m, len(edge))] = edge[:m]
+            for floor in (KERNEL_FLOOR, F.FLT_MIN):
+                _assert_quant_equal(x, fmt, floor)
+                _assert_quant_equal(_last_block_rows(dev, m, n, plan, n),
+                                    fmt, floor)
+
+
+def test_quantizer_refuses_a_plan_it_does_not_take(dev, monkeypatch):
+    """A cluster size past the portable ones, or too few threads for a
+    part, is refused by the launch: the wrapper raises and falls back to
+    nothing."""
+    x = torch.randn(8, 1536, device=dev)
+    for plan in (QuantPlan(3, 64, 4), QuantPlan(8, 32, 4),
+                 QuantPlan(1, 1024, 4), QuantPlan(2, 64, 12)):
+        monkeypatch.setattr(quant_ops, "quant_plan",
+                            lambda m, n, plan=plan: plan)
+        before = aio_quant.launches
+        with pytest.raises(RuntimeError, match="aio_quant"):
+            aio_quant(x, fmt_name="int4", floor=KERNEL_FLOOR)
+        assert aio_quant.launches == before
 
 
 def test_resident_engine_on_card_matches_plain_gemm_engine(dev):
