@@ -136,6 +136,27 @@ of JAX or of the JAX package `repro`. Phases:
    and evictions > 0 in (c); the paged kernels of the path must launch and
    the flat attention kernels must not during a paged pass. Reports
    tokens/s, step medians, peak memory, launches per step and pool_stats().
+5c. Robustness on the card, the qwen2_1p5b CONFIG at full width and depth
+   (phase 5's weights), each case against the tokens phases 5 and 5b
+   computed: (1) preemption: 5b's mix with priorities alternating 0/1 by
+   request id on a paged engine of 160 blocks (smaller if that preempts
+   nothing) and swap_watermark 0.9, bf16 and int8 KV: every request's
+   tokens equal 5b's bitwise, preemptions, swap-outs and swap-ins >= 1,
+   bytes swapped in == out > 0, the host store empty when drained; (2)
+   quarantine: phase 5's mix on the flat engine under a NaN logits poison,
+   a +inf KV poison, a latency fault and a malformed submission
+   (drive_with_plan), then int8 KV under a NaN K-scale poison: tokens
+   equal phase 5's, one quarantine a poison, none failed or demoted, the
+   malformed request rejected; (3) demotion: a launch fault at step 0 at
+   the launch and at the dispatch boundary: one demotion each,
+   cuda-decode/cuda-prefill -> ref/ref, tokens equal phase 5's
+   free-running ref engine's; (4) snapshot/restore into a fresh engine
+   mid-stream (flat: rows mid-prefill and mid-decode; paged: case 1 with a
+   row PREEMPTED): the tokens equal the earlier phase's; (5) weight poison
+   on the int4-resident engine after a snapshot with the weights at step
+   2: every request FAILED, then the restore's tokens equal phase 5's int4
+   free pass. Snapshots go under build/snapshots and are deleted. Prints
+   each case's wall time, counters and pool_stats().
 6. Full-sequence path: the qwen2_1p5b CONFIG at full width and depth
    (phase 5's weights, seed 0), 4 random prompts of 1,920 tokens:
    `forward`, `launch.steps.make_prefill_step` and `loss_fn` (labels the
@@ -150,9 +171,11 @@ of JAX or of the JAX package `repro`. Phases:
    launch each; every tenant within 1e-5 of its plain product; the MAC
    utilization equal to the plain packing's) and api.ops.depthwise_conv on
    a MobileNetV2 block (one launch, bitwise).
-8. Summary: a `{"kernels": [...]}` line (13 kernel entry points), the
-   script's wall time, then as the last line `{"ok": true, "device":
-   {...}}`. Any failed check exits non-zero before.
+8. Summary: no engine of any phase demoted but phase 5c's two injected
+   faults (every demotion warns; the script records the warnings), a
+   `{"kernels": [...]}` line (13 kernel entry points), the script's wall
+   time, then as the last line `{"ok": true, "device": {...}}`. Any failed
+   check exits non-zero before.
 """
 from __future__ import annotations
 
@@ -160,9 +183,11 @@ import contextlib
 import dataclasses
 import functools
 import json
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -205,7 +230,9 @@ from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import (forward, init_caches,  # noqa: E402
                                 init_params, loss_fn, quantize_params)
 from repro_torch.models.attention import _q8  # noqa: E402
-from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.serving import (FaultPlan, Request,  # noqa: E402
+                                 ServingEngine, drive_with_plan)
+from repro_torch.serving.faults import Fault  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
@@ -1264,6 +1291,17 @@ def tokens(eng):
     return {r.rid: list(r.out_tokens) for r in eng.finished}
 
 
+def check_no_faults(label, *engines):
+    """No row of these engines was quarantined and no request failed. With
+    no fault injected, a non-finite row is a kernel's fault, which the
+    engine would otherwise scrub and replay without a word."""
+    for eng in engines:
+        st = eng.stats
+        check(st.quarantines == 0 and st.failed_requests == 0,
+              f"{label}: {st.quarantines} quarantines and "
+              f"{st.failed_requests} failed requests with no fault injected")
+
+
 def compare(label, got, ref, limit=None):
     """Tokens of the kernel engine vs a comparison engine. Without `limit`
     (lockstep) every step is compared except near-ties (comparison margin
@@ -1348,6 +1386,7 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
           f"decode-only steps (median {np.median(decode_ms):.2f} ms); "
           f"max_memory_allocated {peak / 2**30:.2f} GiB (weights, this "
           f"engine's caches and activations); {card}", flush=True)
+    check_no_faults(f"{label} free-running", eng)
     served = tokens(eng)
     del eng
     torch.cuda.empty_cache()
@@ -1370,6 +1409,7 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
         eng, shadow, free, prompts, max_new, profile_at, rows_differ)
     for step, text in profiles:
         print(f"  [{label}] profile of step {step}: {text}", flush=True)
+    check_no_faults(f"{label} checked pass", eng, shadow, free)
     got = tokens(eng)
     check(got == served, f"{label}: the checked pass's tokens differ from "
           "the free-running pass's")
@@ -1404,19 +1444,32 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
                  f"{sorted(first_diff.values())})")
     print(f"  [{label}] free-running vs the comparison engine: {text}",
           flush=True)
+    free_tokens = tokens(free)
     del eng, shadow, free
     torch.cuda.empty_cache()
-    return {n: counts[n] for n in path}
+    return {n: counts[n] for n in path}, served, free_tokens
+
+
+ENGINE_PLENS = [16, 1000, 137, 512, 64, 800, 300, 33]
+MAX_NEW = 32
+
+
+def engine_prompts(vocab):
+    """Phase 5's mix: 8 prompts of 16..1000 tokens (32 new tokens each)."""
+    rng = np.random.RandomState(0)
+    return [rng.randint(1, vocab, n).astype(np.int32) for n in ENGINE_PLENS]
 
 
 def engine_phase(dev, card):
+    """Returns the launch counts and, per variant, the free-running kernel
+    pass's tokens (phase 5c's baselines), and the dense variant's
+    free-running ref engine's."""
     phase("5. engine: qwen2_1p5b CONFIG, 8 slots, max_len 2048, chunk 32")
     base = get_config("qwen2_1p5b")
-    rng = np.random.RandomState(0)
-    plens = [16, 1000, 137, 512, 64, 800, 300, 33]
-    prompts = [rng.randint(1, base.vocab, n).astype(np.int32) for n in plens]
-    max_new = 32
+    prompts = engine_prompts(base.vocab)
+    max_new = MAX_NEW
     launches = {k.__name__: 0 for k in ALL_KERNELS}
+    served_by = {}
     variants = [("dense bf16-KV", False, None), ("int8-KV", True, None)]
     variants += [(f"{fmt}-resident", False, fmt) for fmt in RESIDENT]
     for label, kv_quant, resident in variants:
@@ -1429,12 +1482,16 @@ def engine_phase(dev, card):
               f"{base.d_ff}, vocab {base.vocab}; {n_params / 1e9:.3f} B f32 "
               f"params in {time.perf_counter() - t0:.1f}s", flush=True)
         cfg = dataclasses.replace(base, kv_quant=kv_quant)
-        for name, n in run_variant(label, cfg, model, prompts, max_new, card,
-                                   resident=resident).items():
+        counts, served, free = run_variant(label, cfg, model, prompts,
+                                           max_new, card, resident=resident)
+        for name, n in counts.items():
             launches[name] += n
+        served_by[label] = served
+        if label == "dense bf16-KV":
+            served_by["dense ref"] = free
         del model
         torch.cuda.empty_cache()
-    return launches
+    return launches, served_by
 
 
 PAGED_HEAD = 300                   # 18 full blocks of 16 and 12 tokens
@@ -1444,17 +1501,26 @@ PAGED_VARIANTS = [("paged bf16-KV", False, None),
                   ("paged bf16-KV, pool 160", False, 160)]
 
 
+def paged_prompts(vocab):
+    """Phase 5b's mix: 16 prompts of a shared 300-token head and the tails
+    of PAGED_TAILS, each twice (32 new tokens each)."""
+    rng = np.random.RandomState(1)
+    head = rng.randint(1, vocab, PAGED_HEAD).astype(np.int32)
+    return [np.concatenate([head, rng.randint(1, vocab, n)])
+            .astype(np.int32) for n in PAGED_TAILS * 2]
+
+
 def paged_engine_phase(dev, card):
+    """Returns the launch counts and, per variant, the paged engine's
+    tokens (phase 5c's baselines)."""
     phase("5b. paged engine: qwen2_1p5b CONFIG, 8 slots, max_len 2048, "
           "chunk 32, block size 16; 16 requests sharing a 300-token head")
     base = get_config("qwen2_1p5b")
     model = init_params(base, seed=0, device=dev)
-    rng = np.random.RandomState(1)
-    head = rng.randint(1, base.vocab, PAGED_HEAD).astype(np.int32)
-    prompts = [np.concatenate([head, rng.randint(1, base.vocab, n)])
-               .astype(np.int32) for n in PAGED_TAILS * 2]
-    max_new = 32
+    prompts = paged_prompts(base.vocab)
+    max_new = MAX_NEW
     launches = {k.__name__: 0 for k in PAGED_KERNELS}
+    served_by = {}
     flat_served = {}      # the flat kernel engine's tokens, per KV layout
     for label, kv_quant, pool_blocks in PAGED_VARIANTS:
         cfg = dataclasses.replace(base, kv_quant=kv_quant)
@@ -1490,6 +1556,7 @@ def paged_engine_phase(dev, card):
             check(not any(counts[k.__name__] for k in idle),
                   f"{label} ({kind}): a kernel of the other layout "
                   f"launched: {counts}")
+            check_no_faults(f"{label} ({kind})", eng)
             st = eng.stats
             n_tok = st.generated_tokens
             print(f"  [{label}] {kind}: {n_tok} tokens in {wall_s:.3f} s = "
@@ -1515,6 +1582,7 @@ def paged_engine_phase(dev, card):
         check(served[True] == served[False],
               f"{label}: the paged engine's tokens differ from the flat "
               "kernel engine's")
+        served_by[label] = served[True]
         need = ("deferred_admissions", "evictions") if pool_blocks else \
             ("prefix_hits", "shared_tokens", "cow_copies")
         check(all(ps[k] > 0 for k in need), f"{label}: want {need} > 0, "
@@ -1525,7 +1593,277 @@ def paged_engine_phase(dev, card):
               + ", ".join(f"{k} {ps[k]}" for k in need), flush=True)
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, served_by
+
+
+# ------------------------------------------------ robustness on the card
+DEMOTED = "serving engine demoted"
+# every warning of the run (main records them): the demotions among them
+# must be exactly phase 5c's two injected ones
+WARNINGS: list = []
+SNAP_DIR = ROOT / "build" / "snapshots"
+
+
+def demotion_count() -> int:
+    return sum(DEMOTED in w for w in WARNINGS)
+
+
+def record_warnings():
+    """Keep the text of every warning of the run in WARNINGS (still
+    printed), each RuntimeWarning every time it is raised."""
+    show = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        WARNINGS.append(str(message))
+        show(message, category, filename, lineno, file, line)
+    warnings.showwarning = record
+    warnings.simplefilter("always", RuntimeWarning)
+
+
+def submit_mix(eng, prompts, priorities=None):
+    for rid, p in enumerate(prompts):
+        check(eng.submit(Request(rid, p, max_new_tokens=MAX_NEW,
+                                 priority=priorities[rid] if priorities
+                                 else 0)), f"request {rid} refused")
+
+
+def same_tokens(label, got, want):
+    """Every request's tokens bitwise equal to the earlier phase's for the
+    same request id."""
+    check(set(got) <= set(want), f"{label}: unknown requests {set(got)}")
+    bad = [rid for rid in got if got[rid] != want[rid]]
+    check(not bad, f"{label}: requests {bad} differ from the earlier "
+          f"phase's tokens (first: {got[bad[0]] if bad else ''} vs "
+          f"{want[bad[0]] if bad else ''})")
+
+
+def case_report(label, eng, t0, extra=""):
+    torch.cuda.synchronize()
+    st = eng.stats
+    counters = {k: getattr(st, k) for k in (
+        "quarantines", "demotions", "timeouts", "rejected_submits",
+        "failed_requests", "preemptions", "swap_outs", "swap_ins",
+        "generated_tokens", "prefill_chunk_calls", "decode_steps")}
+    print(f"  [{label}] {time.perf_counter() - t0:.2f} s wall; "
+          f"{eng.step_no} steps; counters {json.dumps(counters)}"
+          f"{extra}; pool_stats {json.dumps(eng.pool_stats())}",
+          flush=True)
+
+
+def snapshot_midstream(label, make, prompts, want, cond, priorities=None):
+    """Serve `prompts` with engine A = make() until cond(A) holds, snapshot
+    it, restore into a FRESH engine B = make() and drain B: the requests A
+    finished before the snapshot and those B finishes after it must have
+    the tokens `want`. Returns A (for the caller to go on with)."""
+    a = make()
+    submit_mix(a, prompts, priorities)
+    while a.pending() and not cond(a):
+        a.step()
+    check(a.pending(), f"{label}: the run drained before the snapshot")
+    t0 = time.perf_counter()
+    path = a.snapshot(SNAP_DIR)
+    size = sum(f.stat().st_size for f in Path(path).iterdir())
+    t_save = time.perf_counter() - t0
+    b = make()
+    t0 = time.perf_counter()
+    check(b.restore(SNAP_DIR) == a.step_no, f"{label}: restored step")
+    t_load = time.perf_counter() - t0
+    preempted = len(b._preempted)
+    b.run_until_drained()
+    check_no_faults(label, a, b)
+    got = tokens(a) | tokens(b)
+    check(set(got) == set(range(len(prompts))), f"{label}: requests lost "
+          f"across the restore: {sorted(got)}")
+    same_tokens(label, got, want)
+    print(f"  [{label}] snapshot at step {a.step_no} ({len(a.finished)} "
+          f"done, {int(a._prefilling.sum())} mid-prefill, "
+          f"{int((a._occupied() & ~a._prefilling).sum())} mid-decode, "
+          f"{preempted} preempted) of {size / 1e6:.1f} MB: save "
+          f"{t_save:.2f} s, restore {t_load:.2f} s; every request's tokens "
+          f"equal the earlier phase's after the restore", flush=True)
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)
+    del b
+    return a
+
+
+def robustness_phase(dev, card, served, paged_served):
+    phase("5c. robustness on the card: qwen2_1p5b CONFIG at full width and "
+          "depth (phase 5's weights), the mixes of phases 5 and 5b")
+    t_phase = time.perf_counter()
+    base = get_config("qwen2_1p5b")
+    model = init_params(base, seed=0, device=dev)
+    geo = dict(slots=8, max_len=LK, prefill_chunk=W)
+    prompts = engine_prompts(base.vocab)
+    pprompts = paged_prompts(base.vocab)
+    prios = [rid % 2 for rid in range(len(pprompts))]
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)
+
+    # 1. preemption: the contended shared-head mix, priorities 0/1
+    for label, kv_quant, want in (
+            ("preemption bf16-KV", False, paged_served["paged bf16-KV"]),
+            ("preemption int8-KV", True, paged_served["paged int8-KV"])):
+        cfg = dataclasses.replace(base, kv_quant=kv_quant)
+        for pool in (160, 128, 96):
+            def make():
+                return ServingEngine(cfg, model, paged=True, block_size=16,
+                                     pool_blocks=pool, swap_watermark=0.9,
+                                     **geo)
+            t0 = time.perf_counter()
+            if kv_quant:
+                eng = make()
+                submit_mix(eng, pprompts, prios)
+            else:
+                # case 4b rides along: snapshot while a row is PREEMPTED,
+                # restore into a fresh engine, finish there
+                eng = snapshot_midstream(
+                    f"snapshot/restore paged, pool {pool}", make, pprompts,
+                    want, lambda e: e._preempted and len(e._swap_store),
+                    prios)
+            eng.run_until_drained()
+            if eng.stats.preemptions:
+                break
+            print(f"  [{label}] pool {pool}: no preemption, shrinking the "
+                  "pool", flush=True)
+        case_report(label, eng, t0, f"; pool {pool} blocks, watermark 0.9")
+        same_tokens(label, tokens(eng), want)
+        check(len(eng.finished) == len(pprompts) and all(
+            r.status == "done" for r in eng.finished),
+            f"{label}: not every request done")
+        ps = eng.pool_stats()
+        check(min(ps["preemptions"], ps["swap_outs"], ps["swap_ins"]) >= 1,
+              f"{label}: want preemptions, swap-outs and swap-ins: {ps}")
+        check(ps["swap_bytes_in"] == ps["swap_bytes_out"] > 0,
+              f"{label}: swap bytes out {ps['swap_bytes_out']}, in "
+              f"{ps['swap_bytes_in']}")
+        check(ps["host_blocks"] == ps["host_bytes"] == 0,
+              f"{label}: the host store is not empty when drained: {ps}")
+        check(eng.stats.demotions == 0, f"{label}: demoted")
+        check_no_faults(label, eng)
+        print(f"  [{label}] all {len(pprompts)} requests' tokens equal "
+              f"phase 5b's ({'int8' if kv_quant else 'bf16'} KV) bitwise; "
+              f"{ps['preemptions']} preemptions, {ps['swap_bytes_out']} "
+              "bytes swapped out and back", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+
+    # 2. quarantine: phase 5's mix (request r in slot r) under four faults
+    for label, kv_quant, want, faults in (
+            ("quarantine bf16-KV", False, served["dense bf16-KV"], [
+                Fault("poison", step=5, slot=7, target="logits"),
+                Fault("poison", step=10, slot=4, target="kv",
+                      value=float("inf")),
+                Fault("latency", step=6, delay_s=0.05),
+                Fault("malformed", step=2, target="2d-prompt")]),
+            ("quarantine int8-KV", True, served["int8-KV"], [
+                Fault("poison", step=10, slot=4, target="kv")])):
+        cfg = dataclasses.replace(base, kv_quant=kv_quant)
+        eng = ServingEngine(cfg, model, **geo)
+        plan = FaultPlan(faults)
+        t0 = time.perf_counter()
+        submit_mix(eng, prompts)
+        _, rejections = drive_with_plan(eng, plan)
+        case_report(label, eng, t0, f"; plan {plan.describe()}")
+        same_tokens(label, tokens(eng), want)
+        poisons = [f for f in faults if f.kind == "poison"]
+        check(all(f.tripped for f in faults), f"{label}: a fault did not "
+              f"trip: {plan.describe()}")
+        check(eng.stats.quarantines == len(poisons),
+              f"{label}: {eng.stats.quarantines} quarantines, want "
+              f"{len(poisons)} (one row a poison)")
+        check(eng.stats.failed_requests == 0 and eng.stats.demotions == 0,
+              f"{label}: failed or demoted: {eng.stats}")
+        n_bad = sum(f.kind == "malformed" for f in faults)
+        check(len(rejections) == n_bad, f"{label}: rejections {rejections}")
+        print(f"  [{label}] every request's tokens equal phase 5's; "
+              f"{eng.stats.quarantines} rows quarantined and replayed; "
+              f"{len(rejections)} malformed submission(s) rejected",
+              flush=True)
+        del eng
+        torch.cuda.empty_cache()
+
+    # 3. demotion: a launch fault at step 0, at each boundary
+    for boundary in ("launch", "dispatch"):
+        label = f"demotion at the {boundary} boundary"
+        eng = ServingEngine(base, model, **geo)
+        before = demotion_count()
+        t0 = time.perf_counter()
+        eng.arm_fault_plan(FaultPlan.single("launch", step=0,
+                                            boundary=boundary))
+        submit_mix(eng, prompts)
+        eng.run_until_drained()
+        (event,) = eng.degraded_routes()
+        case_report(label, eng, t0, f"; degraded {json.dumps(event)}")
+        check(eng.stats.demotions == 1 and demotion_count() == before + 1,
+              f"{label}: {eng.stats.demotions} demotions")
+        check(event["from"] == {"decode": "cuda-decode",
+                                "prefill": "cuda-prefill"}
+              and event["to"] == {"decode": "ref", "prefill": "ref"},
+              f"{label}: routes {event}")
+        same_tokens(label, tokens(eng), served["dense ref"])
+        check_no_faults(label, eng)
+        print(f"  [{label}] one demotion, cuda-decode/cuda-prefill -> "
+              "ref/ref; tokens equal phase 5's free-running ref engine's",
+              flush=True)
+        del eng
+        torch.cuda.empty_cache()
+
+    # 4. snapshot/restore of the flat engine, rows mid-prefill and
+    # mid-decode (the paged one rode along with case 1)
+    t0 = time.perf_counter()
+    eng = snapshot_midstream(
+        "snapshot/restore flat", lambda: ServingEngine(base, model, **geo),
+        prompts, served["dense bf16-KV"],
+        lambda e: e._prefilling.any() and (e._occupied()
+                                           & ~e._prefilling).any()
+        and e.step_no >= 8)
+    del eng
+    torch.cuda.empty_cache()
+
+    # 5. weight poison on the int4-resident engine, then restore with the
+    # weights
+    label = "weight poison int4-resident"
+    quantize_params(model, "int4")
+    eng = ServingEngine(base, model, max_replays=0, **geo)
+    t0 = time.perf_counter()
+    submit_mix(eng, prompts)
+    eng.step()
+    eng.step()
+    ts = time.perf_counter()
+    path = eng.snapshot(SNAP_DIR, include_params=True)
+    size = sum(f.stat().st_size for f in Path(path).iterdir())
+    t_save = time.perf_counter() - ts
+    pre = tokens(eng)
+    eng.arm_fault_plan(FaultPlan.single("poison", step=eng.step_no,
+                                        target="weight"))
+    eng.run_until_drained()
+    case_report(f"{label}, poisoned", eng, t0)
+    failed = [r.status for r in eng.finished if r.rid not in pre]
+    check(len(failed) == len(prompts) - len(pre)
+          and set(failed) == {"FAILED"},
+          f"{label}: statuses under weight poison {failed}")
+    n_failed = eng.stats.failed_requests
+    eng.arm_fault_plan(None)
+    ts = time.perf_counter()
+    eng.restore(SNAP_DIR)
+    t_load = time.perf_counter() - ts
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    case_report(f"{label}, restored", eng, t0)
+    # the restore put back the counters of step 2, before the poison
+    check_no_faults(f"{label}, restored", eng)
+    same_tokens(label, pre | tokens(eng), served["int4-resident"])
+    check(all(r.status == "done" for r in eng.finished),
+          f"{label}: not every request done after the restore")
+    print(f"  [{label}] snapshot with the weights at step 2 "
+          f"({size / 1e9:.2f} GB: save {t_save:.2f} s, restore "
+          f"{t_load:.2f} s); the weight poison failed all {n_failed} "
+          "requests in flight; after the restore every request's tokens "
+          "equal phase 5's int4 free pass", flush=True)
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 5c: {wall:.1f} s wall; {card}", flush=True)
 
 
 # ------------------------------------- full-sequence attention, B9 and B11
@@ -1920,6 +2258,7 @@ def fullseq_phase(dev, card):
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     eng_s = time.perf_counter() - ts
+    check_no_faults("serving engine, f32 caches", eng)
     first = [r.out_tokens[0] for r in sorted(done, key=lambda r: r.rid)]
     print(f"  serving engine (f32 caches, chunk {W}): first tokens {first} "
           f"in {eng_s:.2f} s ({eng.stats.prefill_chunk_calls} chunk steps; "
@@ -1985,6 +2324,7 @@ def main() -> int:
         return 2
     name, count, smi = dev_info
     dev = torch.device("cuda")
+    record_warnings()
     build_phase()
     errs = kernel_phase(dev)
     errs.update(paged_kernel_phase(dev))
@@ -1994,11 +2334,18 @@ def main() -> int:
     times.update(paged_timing_phase(dev))
     times.update(aio_timing_phase(dev))
     times.update(full_timing_phase(dev, errs))
-    launches = engine_phase(dev, smi)
-    launches.update(paged_engine_phase(dev, smi))
+    launches, served = engine_phase(dev, smi)
+    paged_launches, paged_served = paged_engine_phase(dev, smi)
+    launches.update(paged_launches)
+    robustness_phase(dev, smi, served, paged_served)
     launches.update(fullseq_phase(dev, smi))
     launches.update(morphable_phase(dev))
     phase("8. summary")
+    demotions = [w for w in WARNINGS if DEMOTED in w]
+    check(len(demotions) == 2, f"{len(demotions)} engine demotions in the "
+          f"run, want only phase 5c's two injected ones: {demotions}")
+    print("engine demotions: the two injected in phase 5c, no other",
+          flush=True)
     kernels = []
     for kname in (k.__name__ for k in ALL_KERNELS):
         source, replaces = KERNEL_META[kname]

@@ -80,6 +80,14 @@ class ExecutionPolicy:
         effective = {k: v for k, v in overrides.items() if v is not None}
         return dataclasses.replace(self, **effective) if effective else self
 
+    def demoted(self) -> "ExecutionPolicy":
+        """The safe-route copy of this policy: backend re-pinned to "ref"
+        (the plain eager reference every kernel is held to), every other
+        plane untouched. The serving engine installs it when a launch
+        raises the fault plans' `KernelLaunchError`, and retries the step
+        down the reference route with the formats and tiling it pinned."""
+        return dataclasses.replace(self, backend="ref")
+
 
 default_policy = ExecutionPolicy()
 

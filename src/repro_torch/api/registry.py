@@ -4,13 +4,19 @@ Implementations register under ``(op_name, impl)`` with ``impl`` one of
 IMPLS; `repro_torch.api.ops` resolves the active ExecutionPolicy and the
 call's shape to an impl key and dispatches here. Kernel packages register
 themselves when imported; `lookup` imports them on first use.
+
+`set_dispatch_hook` / `dispatch_intercepted` install a hook that every
+`lookup` calls first: the seam the serving engine's fault plans use to make
+an op dispatch fail.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
-__all__ = ["KernelRegistry", "registry", "register", "IMPLS"]
+__all__ = ["KernelRegistry", "registry", "register", "IMPLS",
+           "set_dispatch_hook", "dispatch_intercepted"]
 
 IMPLS = ("cuda", "cuda-decode", "cuda-prefill", "ref")
 
@@ -20,6 +26,35 @@ _KERNEL_PACKAGES = ("repro_torch.kernels.flash_attention",
                     "repro_torch.kernels.aio_quant",
                     "repro_torch.kernels.grouped_matmul",
                     "repro_torch.kernels.depthwise")
+
+
+# The dispatch hook: ``hook(op_name, impl)``, called on every registry
+# lookup before the impl is returned; it may raise. Unset, a lookup pays one
+# `is not None` check. The reference calls its hook while the engine's step
+# TRACES, so there a dispatch fault fires only on a step that has not been
+# compiled; the port has no trace, so the hook runs at every op dispatch of
+# every launch and a dispatch fault fires at the first dispatch of the
+# launch it is armed for.
+_dispatch_hook: Optional[Callable[[str, str], None]] = None
+
+
+def set_dispatch_hook(hook: Optional[Callable[[str, str], None]]):
+    """Install (or clear, with None) the dispatch hook; returns the one it
+    replaces."""
+    global _dispatch_hook
+    prev = _dispatch_hook
+    _dispatch_hook = hook
+    return prev
+
+
+@contextlib.contextmanager
+def dispatch_intercepted(hook: Callable[[str, str], None]):
+    """Install `hook` for the with-block, then restore the previous one."""
+    prev = set_dispatch_hook(hook)
+    try:
+        yield hook
+    finally:
+        set_dispatch_hook(prev)
 
 
 class KernelRegistry:
@@ -48,6 +83,8 @@ class KernelRegistry:
         self._loaded = True
 
     def lookup(self, op_name: str, impl: str) -> Callable:
+        if _dispatch_hook is not None:
+            _dispatch_hook(op_name, impl)
         self._ensure_kernels()
         try:
             return self._impls[(op_name, impl)]

@@ -8,11 +8,15 @@
         --weight-format int4                             # resident int4
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --paged --block-size 8                           # paged KV pool
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --paged --pool-blocks 16 --priority 0,1 --swap-watermark 0.75 \\
+        --deadline-steps 40 --max-queue 8                # robustness knobs
 
 Random weights from seed 0, 4 slots of 128 positions, prompts of 3-9
 random tokens. Prints the routes the attention and the Linear weights
-take, the token rate and the launch counts of the kernels, and with
---paged the block pool's occupancy and sharing counters.
+take, the token rate and the launch counts of the kernels, the fault
+counters, every route demotion, and with --paged the block pool's
+occupancy, sharing and swap counters.
 """
 from __future__ import annotations
 
@@ -59,6 +63,24 @@ def main(argv=None):
     ap.add_argument("--pool-blocks", type=int, default=None,
                     help="blocks in the pool (--paged; default: every slot "
                          "can reach max_len)")
+    ap.add_argument("--swap-watermark", type=float, default=1.0,
+                    help="fraction of the pool an admission may fill before "
+                         "the engine evicts cold prefixes and then PREEMPTS "
+                         "lower-priority rows (live KV swapped to the host, "
+                         "resumed bitwise); 1.0 = only when a reservation "
+                         "cannot be met at all (--paged)")
+    ap.add_argument("--priority", default=None,
+                    help="comma-separated priority cycle given to the "
+                         "requests, e.g. '0,1' alternates low and high; "
+                         "higher preempts lower under pool pressure")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bound the admission queue: submits past it are "
+                         "REJECTED instead of queued")
+    ap.add_argument("--deadline-steps", type=int, default=None,
+                    help="per-request deadline in engine steps; an expired "
+                         "request finishes with status TIMEOUT")
+    ap.add_argument("--ttl-s", type=float, default=None,
+                    help="per-request wall-clock TTL in seconds")
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
@@ -71,7 +93,10 @@ def main(argv=None):
     eng = ServingEngine(cfg, model, slots=4, max_len=128,
                         prefill_chunk=args.prefill_chunk, paged=args.paged,
                         block_size=args.block_size,
-                        pool_blocks=args.pool_blocks)
+                        pool_blocks=args.pool_blocks,
+                        swap_watermark=args.swap_watermark,
+                        max_queue=args.max_queue,
+                        deadline_steps=args.deadline_steps, ttl_s=args.ttl_s)
     t0 = time.perf_counter()
     eng.warmup()
     print(f"[serve:{args.arch}] warmup {time.perf_counter() - t0:.2f}s "
@@ -80,10 +105,13 @@ def main(argv=None):
           f"{eng.device})")
     for k in KERNELS:
         k.launches = 0
+    priorities = ([int(x) for x in args.priority.split(",")]
+                  if args.priority else [0])
     rng = np.random.RandomState(0)
     for rid in range(args.requests):
         prompt = rng.randint(1, cfg.vocab, rng.randint(3, 10)).astype(np.int32)
-        eng.submit(Request(rid, prompt, max_new_tokens=args.max_new))
+        eng.submit(Request(rid, prompt, max_new_tokens=args.max_new,
+                           priority=priorities[rid % len(priorities)]))
     t0 = time.perf_counter()
     done = eng.run_until_drained()
     if eng.device.type == "cuda":
@@ -96,6 +124,9 @@ def main(argv=None):
           f"steps, {st.prefill_chunk_calls} chunked prefills)")
     print(f"[serve:{args.arch}] kernel launches: "
           + ", ".join(f"{k.__name__}={k.launches}" for k in KERNELS))
+    print(f"[serve:{args.arch}] fault counters: quarantines={st.quarantines} "
+          f"demotions={st.demotions} timeouts={st.timeouts} "
+          f"rejected={st.rejected_submits} failed={st.failed_requests}")
     if args.paged:
         ps = eng.pool_stats()
         print(f"[serve:{args.arch}] pool: {ps['pool_blocks']} blocks "
@@ -105,6 +136,16 @@ def main(argv=None):
               f"shared_tokens={ps['shared_tokens']} cow={ps['cow_copies']} "
               f"evictions={ps['evictions']} skips={ps['eviction_skips']} "
               f"deferred={ps['deferred_admissions']}")
+        print(f"[serve:{args.arch}] swap: watermark "
+              f"{ps['swap_watermark']:.2f} (soft cap "
+              f"{ps['watermark_blocks']} blocks) preemptions="
+              f"{ps['preemptions']} out={ps['swap_outs']} "
+              f"in={ps['swap_ins']} bytes_out={ps['swap_bytes_out']} "
+              f"bytes_in={ps['swap_bytes_in']} host_resident="
+              f"{ps['host_blocks']} blocks ({ps['host_bytes']} B)")
+    for ev in eng.degraded_routes():
+        print(f"[serve:{args.arch}] DEGRADED at step {ev['step']}: "
+              f"{ev['from']} -> {ev['to']} ({ev['error']})")
     return done
 
 

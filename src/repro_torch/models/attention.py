@@ -23,7 +23,8 @@ from .layers import Linear, QuantPolicy, rope
 
 __all__ = ["KVCache", "QuantKVCache", "PagedKVCache", "PagedQuantKVCache",
            "PAGED_TYPES", "init_kv_cache", "init_paged_kv_cache",
-           "paged_kv_cache", "striped_table", "Attention"]
+           "paged_kv_cache", "striped_table", "pool_fields",
+           "pool_block_values", "store_pool_blocks", "Attention"]
 
 
 @dataclasses.dataclass
@@ -146,6 +147,36 @@ def init_paged_kv_cache(n_kv: int, pool_blocks: int, block_size: int,
     return paged_kv_cache(table, pos,
                           k=torch.zeros(shape, dtype=dtype, device=device),
                           v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def pool_fields(cache) -> tuple:
+    """The names of a paged cache's block pools, in field order."""
+    if isinstance(cache, PagedKVCache):
+        return ("k", "v")
+    if isinstance(cache, PagedQuantKVCache):
+        return ("k_codes", "k_scale", "v_codes", "v_scale")
+    raise TypeError(f"not a paged cache: {type(cache).__name__}")
+
+
+def pool_block_values(cache, ids: torch.Tensor) -> dict:
+    """Physical pool blocks `ids` ((C,) long, on the cache's device) of one
+    paged cache: each pool narrowed to those C blocks, as new tensors
+    {name: (C, Hkv, bs, X)}. `store_pool_blocks` is its exact inverse; the
+    two are the device halves of KV block swap-out and swap-in."""
+    return {name: getattr(cache, name).index_select(0, ids)
+            for name in pool_fields(cache)}
+
+
+def store_pool_blocks(cache, values: dict, dst: torch.Tensor) -> None:
+    """Write `pool_block_values`-shaped block contents into the pools at
+    physical blocks `dst` ((C,) long), in place (the pool tensors keep
+    their storage). A destination equal to the pool size P is padding: it
+    lands in the trash block P, which no table names — so a fixed-width,
+    sentinel-padded `dst` writes only the real blocks (the reference's
+    `mode="drop"`)."""
+    for name in pool_fields(cache):
+        pool = getattr(cache, name)
+        pool.index_copy_(0, dst, values[name].to(pool.device, pool.dtype))
 
 
 def _q8(x: torch.Tensor):

@@ -19,7 +19,9 @@ a value (no gradient: the training stack is not ported).
 `init_caches(..., paged=(pool_blocks, block_size))` gives block-pool caches
 instead (every layer a pool, all layers sharing one (B, nblk) block table);
 `set_block_tables` and `copy_pool_blocks` are the device halves of the
-serving engine's block allocator.
+serving engine's block allocator, `gather_pool_blocks` and
+`write_pool_blocks` those of its host swap, and `scrub_slots` that of its
+quarantine. All of them write into the cache tensors in place.
 """
 from __future__ import annotations
 
@@ -32,15 +34,17 @@ from torch import nn
 
 from .. import resolve_device
 from ..core import formats as F
-from .attention import (PAGED_TYPES, Attention, KVCache, PagedKVCache,
+from .attention import (PAGED_TYPES, Attention, KVCache,
                         QuantKVCache, init_kv_cache, init_paged_kv_cache,
+                        pool_block_values, pool_fields, store_pool_blocks,
                         striped_table)
 from .layers import MLP, Embedding, Linear, QuantPolicy, RMSNorm, linear
 
 __all__ = ["ModelConfig", "Transformer", "DenseBlock", "init_params",
            "forward", "loss_fn", "decode_step", "init_caches",
-           "reset_slots",
-           "set_block_tables", "copy_pool_blocks", "quantize_params",
+           "reset_slots", "scrub_slots",
+           "set_block_tables", "copy_pool_blocks", "gather_pool_blocks",
+           "write_pool_blocks", "quantize_params",
            "resident_view", "resident_format"]
 
 
@@ -335,6 +339,48 @@ def reset_slots(caches: List, slot_mask: torch.Tensor,
     return caches
 
 
+@torch.no_grad()
+def scrub_slots(caches: List, slot_mask: torch.Tensor) -> List:
+    """`reset_slots` to position 0 plus VALUE scrubbing, in place: rows
+    where slot_mask (B,) is True get their cache values re-initialized (KV
+    values and int8 codes 0, scales 1), not only their positions rewound.
+
+    `reset_slots` leans on the causal mask to hide stale rows, which is
+    sound for finite stale values only: a masked key's weight is 0, but the
+    product P V still reads its tile's V, and 0 * NaN is NaN, so a poisoned
+    row could leak through the mask that hides ordinary stale data. The
+    engine's quarantine scrubs a row before it is reused; everything else
+    keeps the cheap `reset_slots`.
+
+    A paged cache scrubs every physical block that a scrubbed row's table
+    row names, blocks shared with other rows included (a NaN in a shared
+    block must not survive into another row's attention; the engine
+    quarantines the rows that share them). No host sync."""
+    for c in caches:
+        if not isinstance(c, _CACHE_TYPES):
+            raise TypeError(f"not a KV cache: {type(c).__name__}")
+        mask = slot_mask.to(device=c.pos.device, dtype=torch.bool)
+        if isinstance(c, PAGED_TYPES):
+            names = pool_fields(c)
+            nblocks = getattr(c, names[0]).shape[0]
+            hits = torch.zeros(nblocks, dtype=torch.int32,
+                               device=mask.device)
+            hits.index_add_(0, c.table.reshape(-1).long(),
+                            mask[:, None].expand(c.table.shape)
+                            .reshape(-1).to(torch.int32))
+            rows = hits > 0
+        else:
+            names = tuple(f.name for f in dataclasses.fields(c)
+                          if f.name != "pos")
+            rows = mask
+        for name in names:
+            pool = getattr(c, name)
+            pool.masked_fill_(rows.view((-1,) + (1,) * (pool.dim() - 1)),
+                              1 if name.endswith("_scale") else 0)
+        c.pos = torch.where(mask, torch.zeros_like(c.pos), c.pos)
+    return caches
+
+
 def _paged(caches: List) -> List:
     for c in caches:
         if not isinstance(c, PAGED_TYPES):
@@ -354,9 +400,7 @@ def set_block_tables(caches: List, table: torch.Tensor) -> List:
 
 
 def _pools(c) -> Tuple[torch.Tensor, ...]:
-    if isinstance(c, PagedKVCache):
-        return c.k, c.v
-    return c.k_codes, c.k_scale, c.v_codes, c.v_scale
+    return tuple(getattr(c, name) for name in pool_fields(c))
 
 
 @torch.no_grad()
@@ -376,4 +420,34 @@ def copy_pool_blocks(caches: List, src: Sequence[int],
     for c in _paged(caches):
         for pool in _pools(c):
             pool[d] = pool[s]
+    return caches
+
+
+@torch.no_grad()
+def gather_pool_blocks(caches: List, ids: torch.Tensor) -> dict:
+    """Read physical pool blocks `ids` ((C,) int) out of every paged cache
+    layer: {pool name: (n_layers, C, Hkv, bs, X)} new tensors on the
+    caches' device (the reference's stacked-segment layout).
+    `write_pool_blocks` is the exact inverse: the device half of KV
+    swap-out, run at the scheduler boundary, never inside the step."""
+    layers = _paged(caches)
+    ids = torch.as_tensor(ids, dtype=torch.long, device=layers[0].pos.device)
+    per = [pool_block_values(c, ids) for c in layers]
+    return {name: torch.stack([p[name] for p in per])
+            for name in pool_fields(layers[0])}
+
+
+@torch.no_grad()
+def write_pool_blocks(caches: List, values: dict, dst) -> List:
+    """Write `gather_pool_blocks`-shaped block values into every paged
+    layer's pools at physical blocks `dst` ((C,) int), in place. Entries
+    equal to the pool size P are padding and land in the trash block, so a
+    fixed-width sentinel-padded `dst` writes only the real blocks (the
+    reference's `mode="drop"`). The device half of KV swap-in: the written
+    bytes are exactly the gathered ones, so a preempted row resumes
+    bitwise."""
+    layers = _paged(caches)
+    dst = torch.as_tensor(dst, dtype=torch.long, device=layers[0].pos.device)
+    for i, c in enumerate(layers):
+        store_pool_blocks(c, {name: v[i] for name, v in values.items()}, dst)
     return caches

@@ -1118,3 +1118,180 @@ def test_depthwise_wrapper_rejects_bad_operands(dev):
                                       dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         depthwise_conv(x.transpose(1, 2), torch.zeros(3, 3, 8, device=dev))
+
+
+# ========================================== robustness layer on the card
+def _poisoned(flat, row, value, kv):
+    """A copy of the K/V operands with K (or the int8 K scale) of batch
+    row `row` set to `value` at position 0, every head: the engine's KV
+    poison."""
+    out = [a.clone() for a in flat]
+    k = out[1] if kv == "int8" else out[0]
+    k[row, :, 0, :] = value
+    return out
+
+
+def _poison_case(dev, kv):
+    """Decode and prefill operands over a 512-key cache (4 decode splits,
+    2 prefill splits): row 0 holds one key (position 0, so one whole split
+    sees only the poisoned key), row 1 many splits."""
+    b, hkv, group, lk, w = 4, 2, 6, 512, 32
+    q1, k, v = _data(dev, 40, b, hkv * group, hkv, 1, lk)
+    qw, _, _ = _data(dev, 41, b, hkv * group, hkv, w, lk)
+    if kv == "int8":
+        kc, ks = _q8(k)
+        vc, vs = _q8(v)
+        flat = (kc, ks, vc, vs)
+    else:
+        flat = (k.to(torch.bfloat16), v.to(torch.bfloat16))
+    pos = torch.tensor([0, 300, 200, 450], dtype=torch.int32, device=dev)
+    ppos = torch.tensor([0, 300, 100, 5], dtype=torch.int32, device=dev)
+    lens = torch.tensor([1, 32, 7, 0], dtype=torch.int32, device=dev)
+    return q1, qw, flat, pos, ppos, lens
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"),
+                                   float("-inf")], ids=["nan", "inf", "-inf"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+def test_poisoned_key_makes_its_row_non_finite(dev, value, kv, paged):
+    """A non-finite K (or K scale) at position 0 of one row makes every
+    valid query of that row non-finite in the decode and prefill kernels
+    (B1-B4, paged B6/B7) — also where a whole key split holds only the
+    poisoned key, whose running max drops the NaN — as the reference's
+    softmax does; every other row stays bitwise equal to the clean call
+    and pad queries stay exactly 0. This is what the serving engine's
+    health flag reads."""
+    q1, qw, flat, pos, ppos, lens = _poison_case(dev, kv)
+    if kv == "int8":
+        dec, pre = ((flash_decode_paged_quant, flash_prefill_paged_quant)
+                    if paged else (flash_decode_quant, flash_prefill_quant))
+    else:
+        dec, pre = ((flash_decode_paged, flash_prefill_paged)
+                    if paged else (flash_decode, flash_prefill))
+
+    def run(ops):
+        kw = {}
+        if paged:
+            ops, table = _paged(dev, ops, 16, seed=5)
+            kw = dict(table=table)
+        return (dec(q1, *ops, pos=pos, **kw),
+                pre(qw, *ops, pos=ppos, lengths=lens, **kw))
+
+    clean = run(flat)
+    for row in (0, 1):
+        got = run(_poisoned(flat, row, value, kv))
+        n = int(lens[row])
+        for out, want, nq in ((got[0], clean[0], 1), (got[1], clean[1], n)):
+            assert not torch.isfinite(out[row, :, :nq]).any(), (row, nq)
+            assert not out[row, :, nq:].any()          # pad queries: 0
+            others = [r for r in range(out.shape[0]) if r != row]
+            assert torch.equal(out[others], want[others])
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_pool_blocks_round_trip_on_card(dev, kv_quant):
+    """gather_pool_blocks -> the host block store -> write_pool_blocks
+    moves blocks bitwise (bf16 as its 16-bit pattern; int8 codes and
+    scales), and sentinel-padded destinations land in the trash block
+    only."""
+    from repro_torch.models import init_caches
+    from repro_torch.models.transformer import (gather_pool_blocks,
+                                                write_pool_blocks)
+    from repro_torch.serving import HostBlockStore
+    cfg = dataclasses.replace(get_smoke("qwen2_1p5b"), kv_quant=kv_quant)
+    caches = init_caches(cfg, 2, 64, paged=(8, 16))
+    g = torch.Generator(device=dev).manual_seed(0)
+    for c in caches:
+        for f in dataclasses.fields(c):
+            if f.name not in ("table", "pos"):
+                t = getattr(c, f.name)
+                t.copy_(torch.randn(t.shape, generator=g, device=dev)
+                        .mul(9).to(t.dtype))
+    before = [{f.name: getattr(c, f.name).clone()
+               for f in dataclasses.fields(c)} for c in caches]
+    store = HostBlockStore()
+    hids = store.put(gather_pool_blocks(caches, [5, 2, 7]), 3)
+    back = store.get(hids)
+    assert store.bytes_in == store.bytes_out > 0
+    pad = {n: torch.cat([a, a.new_zeros(a.shape[:1] + (2,) + a.shape[2:])],
+                        1) for n, a in back.items()}
+    write_pool_blocks(caches, pad, torch.tensor([0, 3, 1, 8, 8]))
+    names = ("k_codes", "k_scale", "v_codes", "v_scale") if kv_quant \
+        else ("k", "v")
+    for c, old in zip(caches, before):
+        for name in names:
+            new = getattr(c, name)
+            for dst, src in ((0, 5), (3, 2), (1, 7)):
+                assert torch.equal(new[dst], old[name][src])
+            for b in (2, 4, 5, 6, 7):
+                assert torch.equal(new[b], old[name][b])
+            assert torch.equal(new[8], torch.zeros_like(new[8]))
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+def test_scrubbed_slot_serves_as_a_fresh_cache(dev, kv_quant, paged):
+    """Stale non-finite values in a slot's cache (past its frontier, where
+    the kernels mask the keys but still read their tile's V) are gone after
+    scrub_slots: the reused slot emits a fresh engine's tokens through the
+    kernels, with no quarantine."""
+    from repro_torch.models.transformer import scrub_slots
+    cfg = dataclasses.replace(get_smoke("qwen2_1p5b"), kv_quant=kv_quant)
+    model = init_params(cfg, seed=3)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab, n).astype(np.int32)
+               for n in (5, 21)]
+    outs = []
+    for dirty in (False, True):
+        eng = ServingEngine(cfg, model, slots=2, max_len=64,
+                            prefill_chunk=8, paged=paged, block_size=16)
+        if dirty:
+            for c in eng.caches:
+                for f in dataclasses.fields(c):
+                    if f.name not in ("table", "pos", "k_codes", "v_codes"):
+                        getattr(c, f.name).fill_(float("nan"))
+            scrub_slots(eng.caches, torch.ones(2, dtype=torch.bool,
+                                               device=dev))
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, max_new_tokens=6))
+        outs.append({r.rid: r.out_tokens for r in eng.run_until_drained()})
+        assert eng.stats.quarantines == 0
+    assert outs[0] == outs[1]
+
+
+def test_engine_faults_and_preemption_on_card(dev):
+    """On the card, through the kernels: logits and KV poison quarantine
+    and replay to the unfaulted tokens; a launch fault demotes once to the
+    reference route's tokens; a contended paged pool with alternating
+    priorities preempts, swaps and resumes to the uncontended tokens."""
+    from repro_torch.serving import FaultPlan
+    cfg = get_smoke("qwen2_1p5b")
+    model = init_params(cfg, seed=4)
+    rng = np.random.RandomState(4)
+    spec = [rng.randint(1, cfg.vocab, rng.randint(18, 30)).astype(np.int32)
+            for _ in range(6)]
+
+    def serve(plan=None, **kw):
+        eng = ServingEngine(cfg, model, slots=2, max_len=64, prefill_chunk=8,
+                            **kw)
+        eng.arm_fault_plan(plan)
+        for rid, p in enumerate(spec):
+            eng.submit(Request(rid, p, max_new_tokens=12, priority=rid % 2))
+        return {r.rid: r.out_tokens for r in eng.run_until_drained()}, eng
+
+    want, _ = serve()
+    plan = FaultPlan([FaultPlan.single("poison", step=3, slot=0).faults[0],
+                      FaultPlan.single("poison", step=5, slot=1, target="kv",
+                                       value=float("inf")).faults[0]])
+    got, eng = serve(plan)
+    assert got == want and eng.stats.quarantines == 2
+    assert eng.stats.demotions == 0
+    ref, _ = serve(policy=api.ExecutionPolicy(backend="ref"))
+    with pytest.warns(RuntimeWarning, match="demoted"):
+        got, eng = serve(FaultPlan.single("launch", step=0))
+    assert got == ref and eng.stats.demotions == 1
+    got, eng = serve(paged=True, block_size=16, pool_blocks=4)
+    st = eng.pool_stats()
+    assert got == want and st["preemptions"] >= 1 and st["swap_ins"] >= 1
+    assert st["swap_bytes_in"] == st["swap_bytes_out"] > 0
