@@ -157,6 +157,26 @@ of JAX or of the JAX package `repro`. Phases:
    2: every request FAILED, then the restore's tokens equal phase 5's int4
    free pass. Snapshots go under build/snapshots and are deleted. Prints
    each case's wall time, counters and pool_stats().
+5d. The other families, each as a phase-5 variant (bf16 KV, random f32
+   weights from seed 0, chunk 32; the free-running kernel engine, then the
+   checked pass beside a lockstep and a free-running ref-route engine):
+   olmoe_1b_7b CONFIG at full width and depth (16 MoE layers, d_model
+   2048, 64 experts top 8 at d_ff 1024, vocab 50304; 6.9 B parameters) on
+   phase 5's mix and geometry, one decode-only step profiled beside the
+   experts' byte bound, each step width's expert capacity and the first
+   launch's dropped assignments printed; gemma2_27b CONFIG at full width
+   over 4 layers (2 local/global pairs, window 4096, softcaps 50 / 30,
+   head_dim 128, GQA group 2; 3.45 B parameters), 4 slots, max_len 6144,
+   prompts of 4600, 4200, 700 and 90 tokens (two past the window), one
+   chunk step profiled; gpt2_small and olmo_1b CONFIG at full width and
+   depth and internlm2_20b CONFIG at full width over 4 layers, 4 slots,
+   max_len 2048, 4 requests each. The MoE variant's comparison engines
+   follow the kernel engine's expert dispatch in lockstep (a top-k choice
+   or a capacity cut flips at a tie, and a chunk's pad rows, which the
+   routes give other values, compete for capacity); the ref route's own
+   choice of experts may differ on at most 1% of valid token-layers.
+   kimi_k2 is not run on the card (one MoE layer at full width is 16.9 B
+   parameters, 67 GB in f32). Prints the phase's wall time.
 6. Full-sequence path: the qwen2_1p5b CONFIG at full width and depth
    (phase 5's weights, seed 0), 4 random prompts of 1,920 tokens:
    `forward`, `launch.steps.make_prefill_step` and `loss_fn` (labels the
@@ -230,6 +250,7 @@ from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import (forward, init_caches,  # noqa: E402
                                 init_params, loss_fn, quantize_params)
 from repro_torch.models.attention import _q8  # noqa: E402
+from repro_torch.models.moe import MoE, expert_capacity  # noqa: E402
 from repro_torch.serving import (FaultPlan, Request,  # noqa: E402
                                  ServingEngine, drive_with_plan)
 from repro_torch.serving.faults import Fault  # noqa: E402
@@ -1250,6 +1271,120 @@ def code_rows_differ(a, b) -> np.ndarray:
     return differ.cpu().numpy()
 
 
+@contextlib.contextmanager
+def patched(owner, name, value):
+    """`owner.name` set to `value` inside the block."""
+    saved = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+def token_routes(d):
+    """A dispatch's experts (T, k) and keep mask (T, k), in token order."""
+    keep = torch.empty_like(d.keep)
+    keep[d.order] = d.keep
+    return d.ids, keep.view(d.ids.shape)
+
+
+class RouteEngine(MarginEngine):
+    """An engine that keeps every MoE dispatch of its last step in
+    `routes`, each with its launch's valid-token mask (T,) (pad positions
+    and idle rows False), and every launch's dropped-assignment counts in
+    `dropped` (per launch width, per layer; 0-d tensors on the card).
+
+    With `follow` (the lockstep engine), each MoE call routes as `follow`
+    did in the same call of its last step: a top-k choice or a capacity
+    cut is a discrete decision that a 1e-6 difference can flip at a tie,
+    and a chunk's pad rows, which the two attention routes give different
+    values, compete for capacity. It still computes its own dispatch and
+    counts, over valid tokens, those whose own experts (`ids_differ`) or
+    own kept assignments (`keep_differ`) differ from the followed ones."""
+
+    def __init__(self, *args, follow=None, **kw):
+        super().__init__(*args, **kw)
+        self.follow = follow
+        self.routes, self.dropped = [], {}
+        zero = functools.partial(torch.zeros, (), dtype=torch.int64,
+                                 device=self.device)
+        self.ids_differ, self.keep_differ, self.valid_seen = (zero(), zero(),
+                                                              zero())
+
+    def step(self):
+        self.routes = []
+        return super().step()
+
+    def _step_program(self, tokens, lengths):
+        width = tokens.shape[1]
+        valid = (torch.arange(width, device=self.device)[None, :]
+                 < lengths[:, None]).reshape(-1)
+        own = MoE.dispatch
+
+        def dispatch(mod, xt):
+            d = own(mod, xt)
+            if self.follow is not None:
+                fd, _ = self.follow.routes[len(self.routes)]
+                ids, keep = token_routes(d)
+                fids, fkeep = token_routes(fd)
+                self.ids_differ += ((ids != fids).any(1) & valid).sum()
+                self.keep_differ += ((keep != fkeep).any(1) & valid).sum()
+                self.valid_seen += valid.sum()
+                d = fd
+            self.routes.append((d, valid))
+            self.dropped.setdefault(width, []).append(d.dropped)
+            return d
+
+        with patched(MoE, "dispatch", dispatch):
+            return super()._step_program(tokens, lengths)
+
+
+def route_rows_differ(a, b) -> np.ndarray:
+    """(slots,) bool: rows with a valid token whose experts or kept
+    assignments differed between two RouteEngines' last steps."""
+    check(len(a.routes) == len(b.routes), "the engines made different "
+          "MoE calls")
+    differ = torch.zeros(a.slots, dtype=torch.bool, device=a.device)
+    for (da, valid), (db, _) in zip(a.routes, b.routes):
+        (ia, ka), (ib, kb) = token_routes(da), token_routes(db)
+        tok = ((ia != ib) | (ka != kb)).any(1) & valid
+        differ |= tok.view(a.slots, -1).any(1)
+    return differ.cpu().numpy()
+
+
+def report_routes(label, cfg, eng, shadow):
+    """The MoE checks of a checked pass: each step width's expert
+    capacity, the first chunk launch's dropped assignments, and how often
+    the lockstep comparison engine's own dispatch differed from the kernel
+    engine's it followed. A valid token's experts depend on its own hidden
+    state only, so they may differ at a near-tie of its router's
+    probabilities alone (at most 1% of the valid tokens); its kept
+    assignments also depend on the pad rows before it, which the ref
+    route gives other values (reported, not checked)."""
+    n_moe = cfg.block_kinds().count("moe")
+    for width in sorted(eng.dropped):
+        tokens_ = eng.slots * width
+        cap = expert_capacity(tokens_, cfg.n_experts, cfg.top_k,
+                              cfg.capacity_factor)
+        first = [int(x) for x in eng.dropped[width][:n_moe]]
+        print(f"  [{label}] step width {width}: T = {tokens_} tokens, "
+              f"expert capacity {cap}; the first such launch dropped "
+              f"{sum(first)} of {tokens_ * cfg.top_k * n_moe} assignments "
+              f"over its {n_moe} MoE layers (per layer {first})",
+              flush=True)
+    ids, keep, seen = (int(shadow.ids_differ), int(shadow.keep_differ),
+                       int(shadow.valid_seen))
+    check(seen > 0 and ids <= seen // 100,
+          f"{label}: the ref route's own expert choice differed from the "
+          f"kernel engine's on {ids} of {seen} valid token-layers")
+    print(f"  [{label}] lockstep dispatch: the ref route's own choice of "
+          f"experts differed from the kernel engine's on {ids} of {seen} "
+          f"valid token-layers, its own kept assignments on {keep} (pad "
+          "rows compete for capacity, and the two routes give them other "
+          "values)", flush=True)
+
+
 def drive_checked(eng, shadow, free, prompts, max_new, profile_at,
                   rows_differ):
     """Serve every prompt through kernel engine `eng` beside two comparison
@@ -1270,7 +1405,11 @@ def drive_checked(eng, shadow, free, prompts, max_new, profile_at,
         copy_state(shadow, eng)
         before = {r.rid: len(r.out_tokens) for r in reqs}
         if step in profile_at:
-            profiles.append((step, profiled(eng.step)))
+            calls = eng.stats.prefill_chunk_calls
+            text = profiled(eng.step)
+            kind = ("a chunk step" if eng.stats.prefill_chunk_calls > calls
+                    else "decode only")
+            profiles.append((step, f"({kind}) {text}"))
         else:
             eng.step()
         shadow.step()
@@ -1331,15 +1470,18 @@ def compare(label, got, ref, limit=None):
 
 
 def run_variant(label, cfg, model, prompts, max_new, card, *,
-                resident=None):
+                resident=None, geo=None, profile_at=(6, 45)):
     """One engine variant: the free-running pass of the kernel engine
     alone (launches, tokens/s, step times, peak memory), then the checked
     pass beside two comparison engines. Returns the launch counts of the
-    kernels on the variant's path."""
-    geo = dict(slots=8, max_len=LK, prefill_chunk=W)
-    # step 6: the 1000-token prompt admits while others decode; step 45:
-    # every prompt is in, decode only
-    profile_at = (6, 45)
+    kernels on the variant's path. `geo`: the engine's slots, max_len and
+    prefill chunk (phase 5's by default); `profile_at`: the checked pass's
+    steps to profile (phase 5's mix: at step 6 the 1000-token prompt
+    admits while others decode; at step 45 every prompt is in, decode
+    only). An MoE config's comparison engines follow the kernel engine's
+    expert dispatch (`RouteEngine`)."""
+    geo = geo or dict(slots=8, max_len=LK, prefill_chunk=W)
+    moe = cfg.n_experts > 0
 
     # the main path, free-running and alone on the card; resident weights
     # converted in place (as the serve launcher does), so no dense copy of
@@ -1399,6 +1541,13 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
         shadow = CodeEngine(cfg, model, gemm=PLAIN_GEMM, follow=eng, **geo)
         free = CodeEngine(cfg, model, gemm=PLAIN_GEMM, **geo)
         rows_differ = code_rows_differ
+    elif moe:
+        ref_policy = api.ExecutionPolicy(backend="ref")
+        eng = RouteEngine(cfg, model, **geo)
+        shadow = RouteEngine(cfg, model, policy=ref_policy, follow=eng,
+                             **geo)
+        free = RouteEngine(cfg, model, policy=ref_policy, **geo)
+        rows_differ = route_rows_differ
     else:
         ref_policy = api.ExecutionPolicy(backend="ref")
         eng = ServingEngine(cfg, model, **geo)
@@ -1430,6 +1579,10 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
                  "step's first call), and the plain quantizer gave each "
                  "the kernel's codes and scale bitwise (the GEMMs then "
                  "took the kernel engine's codes)")
+    if moe:
+        report_routes(label, cfg, eng, shadow)
+        text += ("; the lockstep engine took the kernel engine's expert "
+                 "dispatch")
     print(f"  [{label}] lockstep vs the comparison engine: {text}",
           flush=True)
     compared, skipped, bad = compare(label, got, free, limit=first_diff)
@@ -1438,9 +1591,11 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
     text = (f"{compared} tokens match, {skipped} not compared; "
             f"{tie} request(s) reach a margin <= {MARGIN}")
     if rows_differ is not None:
-        what = "activation" if resident else "int8 KV"
+        what = ("activation codes or scales" if resident
+                 else "expert dispatch (experts or kept assignments)" if moe
+                 else "int8 KV codes or scales")
         text += (f", {len(first_diff)} reach a step where the two engines' "
-                 f"{what} codes or scales differ (tokens before it: "
+                 f"{what} differ (tokens before it: "
                  f"{sorted(first_diff.values())})")
     print(f"  [{label}] free-running vs the comparison engine: {text}",
           flush=True)
@@ -1864,6 +2019,87 @@ def robustness_phase(dev, card, served, paged_served):
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     print(f"  phase 5c: {wall:.1f} s wall; {card}", flush=True)
+
+
+# ------------------------------------------------ the other families (5d)
+# gemma2-27B at full width over 4 layers: two prompts past its 4096-token
+# window, so the local layers' chunked prefill and decode cross it
+GEMMA_PLENS = [4600, 4200, 700, 90]
+GEMMA_GEO = dict(slots=4, max_len=6144, prefill_chunk=W)
+# the dense configs: four requests each
+DENSE_PLENS = [16, 1000, 300, 64]
+DENSE_GEO = dict(slots=4, max_len=LK, prefill_chunk=W)
+
+
+def family_prompts(vocab, lens, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, vocab, n).astype(np.int32) for n in lens]
+
+
+def families_phase(dev, card):
+    """Phase 5d: the families beside the llama family, each served by the
+    kernel engine and checked as phase 5 checks its variants. Returns the
+    launch counts of the kernels on their paths."""
+    phase("5d. the other families: olmoe_1b_7b CONFIG (full width and "
+          "depth), gemma2_27b CONFIG over 4 layers, gpt2_small and olmo_1b "
+          "CONFIG, internlm2_20b CONFIG over 4 layers; bf16 KV, f32 weights "
+          "(seed 0), chunk 32. kimi_k2 stays on the CPU: one of its MoE "
+          "layers at full width is 16.9 B parameters (67 GB in f32)")
+    t_phase = time.perf_counter()
+    olmoe = get_config("olmoe_1b_7b")
+    variants = [
+        ("olmoe_1b_7b", olmoe, engine_prompts(olmoe.vocab), MAX_NEW,
+         None, (45,)),
+        ("gemma2_27b x4", dataclasses.replace(get_config("gemma2_27b"),
+                                              n_layers=4),
+         None, 16, GEMMA_GEO, (6,)),
+        ("gpt2_small", get_config("gpt2_small"), None, MAX_NEW, DENSE_GEO,
+         ()),
+        ("olmo_1b", get_config("olmo_1b"), None, MAX_NEW, DENSE_GEO, ()),
+        ("internlm2_20b x4", dataclasses.replace(
+            get_config("internlm2_20b"), n_layers=4), None, MAX_NEW,
+         DENSE_GEO, ()),
+    ]
+    launches = {}
+    for label, cfg, prompts, max_new, geo, profile_at in variants:
+        t0 = time.perf_counter()
+        if prompts is None:
+            lens = GEMMA_PLENS if cfg.local_global else DENSE_PLENS
+            prompts = family_prompts(cfg.vocab, lens, seed=2)
+        model = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"  [{label}] {cfg.name}: {cfg.n_layers} layers "
+              f"({'/'.join(sorted(set(cfg.block_kinds())))}), d_model "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.hd}, d_ff {cfg.d_ff}"
+              + (f" x {cfg.n_experts} experts (top {cfg.top_k})"
+                 if cfg.n_experts else "")
+              + f", vocab {cfg.vocab}, window {cfg.sliding_window}, "
+              f"softcaps {cfg.softcap_attn}/{cfg.softcap_final}; "
+              f"{n_params / 1e9:.3f} B f32 params in "
+              f"{time.perf_counter() - t0:.1f}s; prompts "
+              f"{[len(p) for p in prompts]}, {max_new} new tokens each",
+              flush=True)
+        if cfg.n_experts:
+            n_moe = cfg.block_kinds().count("moe")
+            expert_bytes = 4 * 3 * n_moe * cfg.n_experts * cfg.d_model \
+                * cfg.d_ff
+            print(f"  [{label}] the experts' f32 weights, read whole by "
+                  f"each step's batched expert products: "
+                  f"{expert_bytes / 1e9:.2f} GB, >= "
+                  f"{1e3 * expert_bytes / HBM_BYTES_PER_S:.2f} ms a launch "
+                  f"at 3.35 TB/s", flush=True)
+        counts, _, _ = run_variant(label, cfg, model, prompts, max_new,
+                                   card, geo=geo, profile_at=profile_at)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"  [{label}] {time.perf_counter() - t0:.1f} s", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    print(f"  phase 5d: {time.perf_counter() - t_phase:.1f} s wall; {card}",
+          flush=True)
+    return launches
 
 
 # ------------------------------------- full-sequence attention, B9 and B11
@@ -2322,7 +2558,7 @@ def main() -> int:
     dev_info = device_phase()
     if dev_info is None:
         return 2
-    name, count, smi = dev_info
+    _, _, smi = dev_info
     dev = torch.device("cuda")
     record_warnings()
     build_phase()
@@ -2338,6 +2574,8 @@ def main() -> int:
     paged_launches, paged_served = paged_engine_phase(dev, smi)
     launches.update(paged_launches)
     robustness_phase(dev, smi, served, paged_served)
+    for kname, n in families_phase(dev, smi).items():
+        launches[kname] += n
     launches.update(fullseq_phase(dev, smi))
     launches.update(morphable_phase(dev))
     phase("8. summary")
@@ -2354,8 +2592,9 @@ def main() -> int:
                             max_abs_err=errs[kname], **times[kname]))
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

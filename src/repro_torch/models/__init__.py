@@ -1,4 +1,4 @@
-"""The dense decoder model: layers, attention with KV caches, transformer."""
+"""The decoder models: layers, attention with KV caches, MoE, transformer."""
 from .layers import QuantPolicy  # noqa: F401
 from .transformer import (ModelConfig, Transformer,  # noqa: F401
                           copy_pool_blocks, decode_step, forward,

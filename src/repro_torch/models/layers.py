@@ -1,5 +1,6 @@
-"""NN layers of the dense decoder: Linear, embedding, RMSNorm, RoPE and the
-SwiGLU MLP, as `nn.Module`s whose weights keep the JAX package's layout
+"""NN layers of the decoder: Linear, embedding, the norms (RMSNorm,
+LayerNorm, OLMo's non-parametric LayerNorm), RoPE and the MLPs (SwiGLU,
+GeGLU, GELU), as `nn.Module`s whose weights keep the JAX package's layout
 (a Linear's weight is (d_in, d_out), applied as ``x @ w``).
 
 Every Linear can route through the AIO quantized-matmul plane: under a
@@ -10,7 +11,8 @@ per-output-channel pow2 scales, as registered buffers, the dense weight
 freed — and dispatches through `api.ops.matmul_codes`.
 
 Initialization follows the JAX init scales (normal * d_in^-0.5 for a
-Linear, normal * 0.02 for the embedding, ones for a norm gain) from an
+Linear, normal * 0.02 for the embedding, ones for a norm gain, zeros for
+a bias) from an
 explicit `torch.Generator`; the values differ from `jax.random`'s, so a
 test that compares the two packages copies one set of weights into both
 (see `repro_torch.bridge`).
@@ -27,8 +29,9 @@ from .. import resolve_device
 from ..api import ops as aio_ops
 from ..core import formats as F
 
-__all__ = ["QuantPolicy", "Linear", "Embedding", "RMSNorm", "MLP", "linear",
-           "rmsnorm", "rope"]
+__all__ = ["QuantPolicy", "Linear", "Embedding", "RMSNorm", "LayerNorm",
+           "NonParamLayerNorm", "MLP", "linear", "norm", "rmsnorm",
+           "layernorm", "rope"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +177,60 @@ class RMSNorm(nn.Module):
         return rmsnorm(x, self.g)
 
 
+def layernorm(x: torch.Tensor, g: Optional[torch.Tensor] = None,
+              b: Optional[torch.Tensor] = None, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """LayerNorm computed in f32 over the population variance (as
+    `jnp.var`), then the gain and bias when given, cast back to x's
+    dtype."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if g is not None:
+        y = y * g + b
+    return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with a gain `g` (ones) and a bias `b` (zeros), eps 1e-5."""
+
+    def __init__(self, d: int, *, device="cuda", dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.g = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                              requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(d, dtype=dtype, device=device),
+                              requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x, self.g, self.b)
+
+
+class NonParamLayerNorm(nn.Module):
+    """OLMo's non-parametric LayerNorm: no gain, no bias, eps 1e-5."""
+
+    def __init__(self, d: int, *, device="cuda", dtype=torch.float32):
+        super().__init__()
+        resolve_device(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x)
+
+
+_NORMS = {"rmsnorm": RMSNorm, "layernorm": LayerNorm,
+          "nonparam_ln": NonParamLayerNorm}
+
+
+def norm(kind: str, d: int, *, device="cuda",
+         dtype=torch.float32) -> nn.Module:
+    """The norm of a config's `norm` kind (the reference's `norm_init` /
+    `apply_norm` pair)."""
+    if kind not in _NORMS:
+        raise ValueError(f"norm {kind!r} not in {sorted(_NORMS)}")
+    return _NORMS[kind](d, device=device, dtype=dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding, half-split (not interleaved). x: (..., L, D) with D
@@ -193,17 +250,37 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 class MLP(nn.Module):
-    """SwiGLU feed-forward: down(silu(gate(x)) * up(x))."""
+    """The feed-forward of `kind`: "swiglu" down(silu(gate(x)) * up(x)),
+    "geglu" down(gelu(gate(x)) * up(x)), or "gelu" fc2(gelu(fc1(x))) with
+    biases. GELU is the tanh approximation (`jax.nn.gelu`'s default)."""
 
-    def __init__(self, d_model: int, d_ff: int, *,
+    def __init__(self, d_model: int, d_ff: int, kind: str = "swiglu", *,
                  gen: Optional[torch.Generator] = None, device="cuda",
                  dtype=torch.float32, policy: QuantPolicy = QuantPolicy()):
         super().__init__()
         kw = dict(gen=gen, device=resolve_device(device), dtype=dtype,
                   policy=policy)
-        self.gate = Linear(d_model, d_ff, **kw)
-        self.up = Linear(d_model, d_ff, **kw)
-        self.down = Linear(d_ff, d_model, **kw)
+        self.kind = kind
+        if kind in ("swiglu", "geglu"):
+            self.gate = Linear(d_model, d_ff, **kw)
+            self.up = Linear(d_model, d_ff, **kw)
+            self.down = Linear(d_ff, d_model, **kw)
+        elif kind == "gelu":
+            self.fc1 = Linear(d_model, d_ff, True, **kw)
+            self.fc2 = Linear(d_ff, d_model, True, **kw)
+        else:
+            raise ValueError(f"mlp {kind!r} not in ('swiglu', 'geglu', "
+                             "'gelu')")
+
+    @property
+    def out_proj(self) -> Linear:
+        """The projection back to d_model (down, or fc2)."""
+        return self.fc2 if self.kind == "gelu" else self.down
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(torch.nn.functional.silu(self.gate(x)) * self.up(x))
+        if self.kind == "gelu":
+            return self.fc2(torch.nn.functional.gelu(self.fc1(x),
+                                                     approximate="tanh"))
+        act = (torch.nn.functional.silu(self.gate(x)) if self.kind == "swiglu"
+               else torch.nn.functional.gelu(self.gate(x), approximate="tanh"))
+        return self.down(act * self.up(x))

@@ -1,11 +1,18 @@
-"""Dense decoder-only transformer (the llama family: RMSNorm, RoPE, GQA,
-SwiGLU, optional QKV bias), its per-layer KV caches, and the full-sequence
-and cached forward passes.
+"""Decoder-only transformer, its per-layer KV caches, and the
+full-sequence and cached forward passes.
 
-The JAX package scans stacked layer params with `lax.scan`; here the layers
-are an `nn.ModuleList` run in a Python loop, and the caches a list with one
-cache per layer, updated in place. Only the `dense` family is ported; the
-other families raise NotImplementedError (ROADMAP A7).
+Every ported layer is one attention block over its own KV cache, then a
+feed-forward: the llama family (RMSNorm, RoPE, GQA, SwiGLU, optional QKV
+bias), olmo (non-parametric LayerNorm), gpt2 (LayerNorm, GELU MLP, learned
+positions on top of RoPE), gemma2 (alternating local/global layers,
+softcaps, sandwich norms, GeGLU, embeddings scaled in `forward` only) and
+the MoE family (olmoe, kimi-k2: `moe.MoE` in place of the MLP, after
+`n_dense_layers` dense layers). The JAX package scans stacked segment
+params with `lax.scan`; here the layers are an `nn.ModuleList` in layer
+order (`ModelConfig.block_kinds`), run in a Python loop, and the caches a
+list with one cache per layer, updated in place. The recurrent, hybrid and
+encoder-decoder families and the frontends raise NotImplementedError
+(ROADMAP A7).
 
 `quantize_params` makes the Linear weights resident in an AIO format, in
 place (the dense weights are freed, as the reference's donating launcher
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -38,7 +46,9 @@ from .attention import (PAGED_TYPES, Attention, KVCache,
                         QuantKVCache, init_kv_cache, init_paged_kv_cache,
                         pool_block_values, pool_fields, store_pool_blocks,
                         striped_table)
-from .layers import MLP, Embedding, Linear, QuantPolicy, RMSNorm, linear
+from .layers import (_NORMS, MLP, Embedding, Linear, QuantPolicy, _normal,
+                     linear, norm)
+from .moe import MoE
 
 __all__ = ["ModelConfig", "Transformer", "DenseBlock", "init_params",
            "forward", "loss_fn", "decode_step", "init_caches",
@@ -99,65 +109,123 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def segments(self) -> List[Tuple[Tuple[str, ...], int]]:
+        """The reference's layer layout: (unit of block kinds, repeats)
+        pairs, for the layouts the port runs — dense, gemma2's alternating
+        local/global layers, and MoE after `n_dense_layers` dense ones."""
+        if self.local_global:
+            if self.n_layers % 2:
+                raise ValueError(f"{self.name}: local/global attention "
+                                 f"needs an even layer count, not "
+                                 f"{self.n_layers}")
+            return [(("dense_local", "dense_global"), self.n_layers // 2)]
+        if self.n_experts:
+            segs = []
+            if self.n_dense_layers:
+                segs.append((("dense",), self.n_dense_layers))
+            segs.append((("moe",), self.n_layers - self.n_dense_layers))
+            return segs
+        return [(("dense",), self.n_layers)]
+
+    def block_kinds(self) -> List[str]:
+        """Each layer's block kind, in layer order."""
+        return [kind for unit, n in self.segments() for _ in range(n)
+                for kind in unit]
+
+
+_MLP_KINDS = ("swiglu", "geglu", "gelu")
+
 
 def _check_supported(cfg: ModelConfig) -> None:
     unported = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         unported.append(f"family {cfg.family!r}")
-    if cfg.local_global:
-        unported.append("local/global attention")
-    if cfg.learned_pos or cfg.encoder_layers or cfg.cross_attention:
-        unported.append("learned positions / encoder-decoder")
-    if cfg.norm != "rmsnorm":
+    if cfg.attn_every or cfg.slstm_every or cfg.ssm_state:
+        unported.append("recurrent blocks")
+    if cfg.encoder_layers or cfg.cross_attention:
+        unported.append("encoder-decoder")
+    if cfg.frontend:
+        unported.append(f"frontend {cfg.frontend!r}")
+    if cfg.norm not in _NORMS:
         unported.append(f"norm {cfg.norm!r}")
-    if cfg.mlp_kind != "swiglu":
+    if cfg.mlp_kind not in _MLP_KINDS:
         unported.append(f"mlp {cfg.mlp_kind!r}")
-    if cfg.name.startswith("gemma"):
-        unported.append("gemma embedding scaling")
     if unported:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not ported yet; only the "
-            "dense llama-family path is (see ROADMAP.md, A7)")
+            f"{cfg.name}: {', '.join(unported)} not ported yet; the dense, "
+            "gemma2 and MoE families are (see ROADMAP.md, A7)")
+
+
+def _layer_window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    """The attention window of a layer of `kind` (the reference's rule): a
+    local layer, or a dense layer of a config without local/global
+    alternation, attends within `sliding_window`; a global layer (and an
+    MoE layer) over its whole causal prefix."""
+    if kind == "dense_local" or (kind == "dense" and cfg.sliding_window
+                                 and not cfg.local_global):
+        return cfg.sliding_window
+    return None
 
 
 class DenseBlock(nn.Module):
-    """Pre-norm block: x + attn(ln1(x)), then + mlp(ln2(x)); optional
-    post-norms (pn1/pn2) on each branch."""
+    """Pre-norm block of one layer kind ("dense", "dense_local",
+    "dense_global" or "moe"): x + attn(ln1(x)), then + ffn(ln2(x)), the
+    ffn an `MLP` of `cfg.mlp_kind` or, for "moe", the `MoE` layer
+    (attribute `moe`); optional post-norms (pn1/pn2) on each branch. The
+    norms are `cfg.norm`'s."""
 
-    def __init__(self, cfg: ModelConfig, *, gen=None, device="cuda",
-                 dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, kind: str = "dense", *, gen=None,
+                 device="cuda", dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
         d = cfg.d_model
-        self.ln1 = RMSNorm(d, device=device, dtype=dtype)
+        nkw = dict(device=device, dtype=dtype)
+        self.kind = kind
+        self.ln1 = norm(cfg.norm, d, **nkw)
         self.attn = Attention(
             d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
-            rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+            rope_theta=cfg.rope_theta, window=_layer_window(cfg, kind),
             softcap=cfg.softcap_attn, gen=gen, device=device, dtype=dtype,
             policy=cfg.quant)
-        self.ln2 = RMSNorm(d, device=device, dtype=dtype)
-        self.mlp = MLP(d, cfg.d_ff if cfg.d_ff else 4 * d, gen=gen,
-                       device=device, dtype=dtype, policy=cfg.quant)
+        self.ln2 = norm(cfg.norm, d, **nkw)
+        self.mlp = self.moe = None
+        if kind == "moe":
+            self.moe = MoE(d, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                           n_shared=cfg.n_shared_experts,
+                           capacity_factor=cfg.capacity_factor, gen=gen,
+                           device=device, dtype=dtype, policy=cfg.quant)
+        else:
+            self.mlp = MLP(d, cfg.d_ff if cfg.d_ff else 4 * d, cfg.mlp_kind,
+                           gen=gen, device=device, dtype=dtype,
+                           policy=cfg.quant)
         self.pn1 = self.pn2 = None
         if cfg.post_norm:
-            self.pn1 = RMSNorm(d, device=device, dtype=dtype)
-            self.pn2 = RMSNorm(d, device=device, dtype=dtype)
+            self.pn1 = norm(cfg.norm, d, **nkw)
+            self.pn2 = norm(cfg.norm, d, **nkw)
 
     def forward(self, x: torch.Tensor, *, cache=None,
-                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lengths: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Returns (x, the MoE aux loss or None)."""
         h = self.attn(self.ln1(x), cache=cache, lengths=lengths)
         if self.pn1 is not None:
             h = self.pn1(h)
         x = x + h
-        h = self.mlp(self.ln2(x))
+        aux = None
+        if self.moe is not None:
+            h, aux = self.moe(self.ln2(x))
+        else:
+            h = self.mlp(self.ln2(x))
         if self.pn2 is not None:
             h = self.pn2(h)
-        return x + h
+        return x + h, aux
 
 
 class Transformer(nn.Module):
-    """Embedding -> n_layers DenseBlocks -> final RMSNorm -> unembedding
-    (tied to the embedding table, or an lm_head Linear)."""
+    """Embedding (+ a learned position table `pos` (max_seq, d_model) with
+    cfg.learned_pos) -> one DenseBlock per layer, of the kinds
+    `cfg.block_kinds()` -> final norm -> unembedding (tied to the
+    embedding table, or an lm_head Linear)."""
 
     def __init__(self, cfg: ModelConfig, *, gen=None, device="cuda",
                  dtype=torch.float32):
@@ -167,9 +235,14 @@ class Transformer(nn.Module):
         self.cfg = cfg
         kw = dict(gen=gen, device=device, dtype=dtype)
         self.embed = Embedding(cfg.vocab, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(DenseBlock(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.pos = None
+        if cfg.learned_pos:
+            self.pos = _normal((cfg.max_seq, cfg.d_model), 0.01, gen, device,
+                               dtype)
+        self.layers = nn.ModuleList(DenseBlock(cfg, kind, **kw)
+                                    for kind in cfg.block_kinds())
+        self.final_norm = norm(cfg.norm, cfg.d_model, device=device,
+                               dtype=dtype)
         self.lm_head = None
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.d_model, cfg.vocab, **kw)
@@ -186,9 +259,14 @@ class Transformer(nn.Module):
 
 
 # Module paths whose Linears stay dense: those that never receive the
-# model's QuantPolicy in the reference (its `_RESIDENT_SKIP`; in the dense
-# family only `lm_head`). Embeddings and norms are not Linears.
+# model's QuantPolicy in the reference (its `_RESIDENT_SKIP`: `lm_head`, and
+# the MoE layer wholesale). Embeddings and norms are not Linears.
 _RESIDENT_SKIP = ("router", "mamba", "mlstm", "slstm", "lm_head", "moe")
+# Of those, the Linears that do take the model's QuantPolicy (the MoE
+# shared expert): the reference's resident engine pins that policy to the
+# residency format, so they fake-quantize their weights in it, the same
+# math as resident codes.
+_PINNED = ("shared",)
 
 
 @torch.no_grad()
@@ -198,14 +276,20 @@ def quantize_params(model: Transformer, fmt: str, *,
     packed two per byte along K, int8/fp8 codes; per-output-channel pow2
     scales), IN PLACE: each dense weight is freed as its codes are built,
     so the device never holds both. Linears already resident are left as
-    they are. Returns `model`."""
+    they are; skipped Linears under `_PINNED` paths fake-quantize their
+    weights in `fmt` from then on. Returns `model`."""
     if fmt not in F.RESIDENT_FORMATS:
         raise ValueError(f"resident weight format {fmt!r} not in "
                          f"{F.RESIDENT_FORMATS}")
     for name, mod in model.named_modules():
-        if (isinstance(mod, Linear) and mod.fmt is None
-                and not set(name.split(".")) & set(skip)):
+        if not isinstance(mod, Linear) or mod.fmt is not None:
+            continue
+        path = set(name.split("."))
+        if not path & set(skip):
             mod.quantize_(fmt)
+        elif path & set(_PINNED):
+            mod.policy = dataclasses.replace(mod.policy, weights=fmt,
+                                             resident=True)
     return model
 
 
@@ -251,12 +335,23 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 @torch.no_grad()
 def forward(model: Transformer, tokens: torch.Tensor):
     """Full-sequence forward. tokens: (B, L) -> (logits (B, L, V), aux).
-    aux is the MoE auxiliary loss — zero for the dense family."""
+    aux is the MoE auxiliary loss summed over the layers (zero without
+    MoE layers). Learned positions add pos[:L]; gemma scales the
+    embeddings by sqrt(d_model) here and not in `decode_step`, as the
+    reference does."""
+    cfg = model.cfg
     x = model.embed(tokens)
+    if model.pos is not None:
+        x = x + model.pos[:x.shape[1]]
+    if cfg.name.startswith("gemma"):
+        x = x * math.sqrt(cfg.d_model)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        x = layer(x)
+        x, a = layer(x)
+        if a is not None:
+            aux = aux + a
     logits = model.unembed(model.final_norm(x))
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 @torch.no_grad()
@@ -287,10 +382,19 @@ def decode_step(model: Transformer, caches: List, tokens: torch.Tensor, *,
     (B, l) block with `lengths` (B,) marking each row's valid-token count —
     rows with lengths[b] == 0 keep caches and positions untouched. The
     caches are updated in place and returned for convenience.
+
+    Learned positions add pos[clip(p_b + i, 0, max_seq - 1)] to token i of
+    row b, p_b the first cache's position before the step (rows idling past
+    the table clip; their logits are never read).
     """
     x = model.embed(tokens)
+    if model.pos is not None:
+        idx = (caches[0].pos[:, None].long()
+               + torch.arange(tokens.shape[1], device=x.device)).clamp(
+                   0, model.pos.shape[0] - 1)
+        x = x + model.pos[idx]
     for layer, cache in zip(model.layers, caches):
-        x = layer(x, cache=cache, lengths=lengths)
+        x, _ = layer(x, cache=cache, lengths=lengths)
     return model.unembed(model.final_norm(x)), caches
 
 

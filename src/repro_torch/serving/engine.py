@@ -1480,20 +1480,23 @@ def _req_rebuild(st: dict, now: float) -> Request:
 
 class _InputProbe:
     """The resident engine's health probe over one model. Inside `with`,
-    each attention output (o) and MLP down projection writes the per-row
-    sum of its input into one (points, slots) float32 buffer, one
-    reduction launch each; `finite()` then gives (slots,) True where every
-    sum is finite. No other check sees these inputs: at a resident Linear
-    the activation quantizer codes a NaN or inf as a finite value (the
-    reference's `quantize_scaled` rule, ROADMAP C), while a NaN anywhere
-    else rides the residual stream to the logits. The hooks live only for
-    the launch, so the model carries none between steps."""
+    each attention output (o) and MLP output projection (down, or a GELU
+    MLP's fc2) writes the per-row sum of its input into one (points,
+    slots) float32 buffer, one reduction launch each; `finite()` then
+    gives (slots,) True where every sum is finite. No other check sees
+    these inputs: at a resident Linear the activation quantizer codes a
+    NaN or inf as a finite value (the reference's `quantize_scaled` rule,
+    ROADMAP C), while a NaN anywhere else rides the residual stream to the
+    logits. An MoE layer is not probed: its Linears are never resident
+    (and its shared expert sees flattened tokens, not slots). The hooks
+    live only for the launch, so the model carries none between steps."""
 
     def __init__(self, model):
         self.model = model
-        self.mods = [m.o if isinstance(m, Attention) else m.down
-                     for m in model.modules()
-                     if isinstance(m, (Attention, MLP))]
+        self.mods = [m.o if isinstance(m, Attention) else m.out_proj
+                     for name, m in model.named_modules()
+                     if isinstance(m, (Attention, MLP))
+                     and "moe" not in name.split(".")]
         self.buf: Optional[torch.Tensor] = None
 
     def __enter__(self):

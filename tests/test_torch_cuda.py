@@ -356,6 +356,63 @@ def test_engine_on_card_matches_ref_engine(dev, kv_quant):
     assert outs["auto"] == outs["ref"]
 
 
+def _family_prompts(cfg, head=0):
+    """Prompts that cross gemma2 SMOKE's window of 16 in prefill and in
+    decode, optionally behind a shared head."""
+    rng = np.random.RandomState(1)
+    shared = rng.randint(1, cfg.vocab, head).astype(np.int32)
+    return [np.concatenate([shared, rng.randint(1, cfg.vocab, n)])
+            .astype(np.int32) for n in (3, 40, 11, 25)]
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_gemma2_engine_on_card_matches_ref_engine(dev, kv_quant):
+    """gemma2 SMOKE (local window 16 on every other layer, softcaps 50 / 30,
+    head_dim 16, GQA group 2) through the kernels emits the ref route's
+    tokens over prompts and decodes that cross the window."""
+    cfg = dataclasses.replace(get_smoke("gemma2_27b"), kv_quant=kv_quant)
+    model = init_params(cfg, seed=0)
+    outs = {}
+    for backend in ("auto", "ref"):
+        eng = ServingEngine(cfg, model, slots=2, max_len=128,
+                            prefill_chunk=16,
+                            policy=api.ExecutionPolicy(backend=backend))
+        for k in KERNELS:
+            k.launches = 0
+        for rid, p in enumerate(_family_prompts(cfg)):
+            eng.submit(Request(rid, p, max_new_tokens=24))
+        outs[backend] = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        used = [k for k in KERNELS if k.__name__.endswith("_quant") == kv_quant]
+        assert all((k.launches > 0) == (backend == "auto") for k in used)
+    assert outs["auto"] == outs["ref"]
+
+
+@pytest.mark.parametrize("arch,head", [("gemma2_27b", 20),
+                                       ("olmoe_1b_7b", 0)])
+def test_family_paged_engine_on_card_matches_flat_engine(dev, arch, head):
+    """gemma2's windowed layers and olmoe's MoE layers served from the
+    block pool through the paged kernels emit the per-slot kernel engine's
+    tokens (on MoE configs a chunk's pad rows compete for expert capacity,
+    so this also holds the paged kernels' pad rows to the flat ones').
+    gemma2's prompts share a head (prefix hits); olmoe's do not: a hit
+    skips the shared tokens' prefill, which changes the launches whose
+    positions compete for capacity, in the reference as in the port."""
+    cfg = get_smoke(arch)
+    model = init_params(cfg, seed=0)
+    outs = {}
+    for paged in (False, True):
+        eng = ServingEngine(cfg, model, slots=2, max_len=128,
+                            prefill_chunk=16, paged=paged, block_size=16)
+        for kern in PAGED_KERNELS:
+            kern.launches = 0
+        for rid, p in enumerate(_family_prompts(cfg, head=head)):
+            eng.submit(Request(rid, p, max_new_tokens=24))
+        outs[paged] = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        assert (flash_prefill_paged.launches > 0) == paged
+    assert outs[True] == outs[False]
+    assert (eng.pool_stats()["prefix_hits"] > 0) == (head > 0)
+
+
 # ======================================================= paged attention
 def _paged(dev, flat, bs, seed):
     """A (B, Hkv, L, X) cache scattered into a shuffled (B * L / bs, Hkv,

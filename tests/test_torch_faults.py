@@ -297,6 +297,37 @@ def test_weight_poison_fails_over_to_snapshot_restore(tmp_path):
     assert all(r.status == "done" for r in eng.finished)
 
 
+def test_weight_poison_fails_over_on_a_gelu_mlp(tmp_path):
+    """The weight-poison failover above on a resident gpt2 SMOKE engine
+    (LayerNorm, GELU MLP, learned positions), whose health probe reads
+    each attention's o input and each GELU MLP's fc2 input."""
+    from repro_torch.serving.engine import _InputProbe
+    cfg = get_smoke("gpt2_small")
+    model = init_params(cfg, seed=4, device="cpu")
+    spec = _spec(cfg.vocab, [4, 9], [6, 5], seed=4)
+    want = _baseline(cfg, model, spec, weight_format="int8")
+    eng = _engine(cfg, model, weight_format="int8", max_replays=1)
+    probed = _InputProbe(eng.model).mods
+    assert probed == [m for b in eng.model.layers
+                      for m in (b.attn.o, b.mlp.fc2)]
+    for rid, (p, m) in enumerate(spec):
+        eng.submit(Request(rid, p, max_new_tokens=m))
+    eng.step()
+    eng.step()
+    eng.snapshot(tmp_path, include_params=True)
+    eng.arm_fault_plan(FaultPlan.single(
+        "poison", step=eng.step_no, target="weight", value=NAN))
+    eng.run_until_drained()
+    assert all(r.status == "FAILED" for r in eng.finished)
+    assert eng.stats.failed_requests == len(spec)
+    assert eng.stats.quarantines >= len(spec)
+    eng.arm_fault_plan(None)
+    eng.restore(tmp_path)
+    got = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+    assert got == want
+    assert all(r.status == "done" for r in eng.finished)
+
+
 def test_poison_weights_leaves_the_callers_model_alone():
     """Weight poison makes a corrupted copy for the engine (the reference
     poisons a new param tree): the caller's tensors stay finite, and the

@@ -25,7 +25,9 @@ from repro_torch.configs import get_smoke
 from repro_torch.models import (decode_step, forward, init_caches,
                                 init_params)
 from repro_torch.models.attention import Attention
-from repro_torch.models.layers import MLP, Embedding, Linear, RMSNorm
+from repro_torch.models.layers import (MLP, Embedding, LayerNorm, Linear,
+                                       NonParamLayerNorm, RMSNorm)
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import DenseBlock, Transformer
 
 TOL = 1e-4        # f32 products and attention summed in another order
@@ -158,7 +160,10 @@ _DEFAULT_DEVICE_CALLS = {
     "Linear": lambda cfg: Linear(4, 4),
     "Embedding": lambda cfg: Embedding(8, 4),
     "RMSNorm": lambda cfg: RMSNorm(4),
+    "LayerNorm": lambda cfg: LayerNorm(4),
+    "NonParamLayerNorm": lambda cfg: NonParamLayerNorm(4),
     "MLP": lambda cfg: MLP(4, 8),
+    "MoE": lambda cfg: MoE(4, 8, 4, 2),
     "Attention": lambda cfg: Attention(8, 2, 1, 4),
     "DenseBlock": lambda cfg: DenseBlock(cfg),
     "Transformer": lambda cfg: Transformer(cfg),
@@ -181,6 +186,6 @@ def test_module_default_device_needs_a_card(name):
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(get_smoke("llama2_7b"), family="moe")
+    cfg = dataclasses.replace(get_smoke("llama2_7b"), family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(cfg, device="cpu")
