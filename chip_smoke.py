@@ -177,6 +177,25 @@ of JAX or of the JAX package `repro`. Phases:
    choice of experts may differ on at most 1% of valid token-layers.
    kimi_k2 is not run on the card (one MoE layer at full width is 16.9 B
    parameters, 67 GB in f32). Prints the phase's wall time.
+5e. The recurrent and hybrid families at full width and depth, random f32
+   weights from seed 0, 8 slots, max_len 1024, served through the merged
+   engine (one l=1 launch a step for prefilling and decoding rows):
+   zamba2_2p7b CONFIG (54 layers: 45 Mamba2 and 9 invocations of one
+   shared attention + MLP block, d_model 2560, 32 heads of 80; 2.06 B
+   parameters) in bf16 KV, int8 KV and int4 resident (the shared block's
+   seven Linears; the Mamba2 mixers stay dense, as in the reference), and
+   xlstm_1p3b CONFIG (48 layers: 42 mLSTM, 6 sLSTM, d_model 2048, mLSTM
+   heads of 1024 with a 1024 x 1025 state; 3.61 B), each as a phase-5
+   variant on 8 prompts of 4-48 tokens, 32 new tokens each. First B1, B2
+   and B8 at zamba2's head_dim 80 against their plain versions (1e-4; B2
+   bitwise equal to B1 on the dequantized K/V), timed beside their plain
+   versions, SDPA and their bounds. Then per config a teacher-forced
+   `decode_step` over 256 tokens (one row, f32 caches) against `forward`:
+   max |dlogit| <= 2e-3 x max |logit|, the reference test's tolerance.
+   zamba2 must launch its decode kernel once per shared-block invocation
+   of every model call (9), the AIO kernels 63 times a call when
+   resident, and no chunk launch; xlstm no kernel. One merged step of each
+   config is profiled. Prints the phase's wall time.
 6. Full-sequence path: the qwen2_1p5b CONFIG at full width and depth
    (phase 5's weights, seed 0), 4 random prompts of 1,920 tokens:
    `forward`, `launch.steps.make_prefill_step` and `loss_fn` (labels the
@@ -247,9 +266,12 @@ from repro_torch.kernels.flash_attention.shared import dequant  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul, grouped_matmul_plain, make_group_ids, pack_tenants)
 from repro_torch.launch.steps import make_prefill_step  # noqa: E402
-from repro_torch.models import (forward, init_caches,  # noqa: E402
-                                init_params, loss_fn, quantize_params)
+from repro_torch.models import (decode_step, forward,  # noqa: E402
+                                init_caches, init_params, loss_fn,
+                                quantize_params)
 from repro_torch.models.attention import _q8  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    RECURRENT_KINDS, has_recurrent, kv_caches)
 from repro_torch.models.moe import MoE, expert_capacity  # noqa: E402
 from repro_torch.serving import (FaultPlan, Request,  # noqa: E402
                                  ServingEngine, drive_with_plan)
@@ -377,13 +399,13 @@ def cuda_ms(fns, iters: int) -> float:
 
 
 # ------------------------------------------------------------------ inputs
-def make_case(dev, seed, *, b, hq, hkv, lq, lk, pos, lens=None):
+def make_case(dev, seed, *, b, hq, hkv, lq, lk, pos, lens=None, d=D):
     """One attention case as the serving path hands it over: q a head-split
     (strided) f32 view, a bf16 cache, and its int8 codes + pow2 scales."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(b, lq, hq, D, generator=g, device=dev).transpose(1, 2)
-    k = torch.randn(b, hkv, lk, D, generator=g, device=dev) * 0.5
-    v = torch.randn(b, hkv, lk, D, generator=g, device=dev)
+    q = torch.randn(b, lq, hq, d, generator=g, device=dev).transpose(1, 2)
+    k = torch.randn(b, hkv, lk, d, generator=g, device=dev) * 0.5
+    v = torch.randn(b, hkv, lk, d, generator=g, device=dev)
     kc, ks = _q8(k)
     vc, vs = _q8(v)
     case = dict(q=q * 0.5, k=k.to(torch.bfloat16), v=v.to(torch.bfloat16),
@@ -1148,21 +1170,28 @@ def profiled(fn) -> str:
                         for e in top) + ours_txt)
 
 
+def prefill_calls(eng) -> int:
+    """Launches with no decoding row: chunk launches, and a merged
+    engine's prefill token steps."""
+    return eng.stats.prefill_chunk_calls + eng.stats.prefill_token_steps
+
+
 def serve_timed(eng, prompts, max_new):
     """The main path as a user drives it: submit every request and step the
     engine until it drains, with nothing else on the card. Returns the
     pass's wall seconds (ended by a synchronize) and each step's host
-    milliseconds, split into steps with a chunk launch and decode-only
-    steps; a step ends where the engine reads its tokens back."""
+    milliseconds, split into steps with a prefill launch (a chunk launch,
+    or a merged engine's prefill-only launch) and the others; a step ends
+    where the engine reads its tokens back."""
     submit_all(eng, prompts, max_new)
     chunk_ms, decode_ms = [], []
     t0 = time.perf_counter()
     while eng.pending():
-        calls_before = eng.stats.prefill_chunk_calls
+        calls_before = prefill_calls(eng)
         ts = time.perf_counter()
         eng.step()
         dt = 1e3 * (time.perf_counter() - ts)
-        (chunk_ms if eng.stats.prefill_chunk_calls > calls_before
+        (chunk_ms if prefill_calls(eng) > calls_before
          else decode_ms).append(dt)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, chunk_ms, decode_ms
@@ -1170,13 +1199,15 @@ def serve_timed(eng, prompts, max_new):
 
 def quant_rows_differ(a, b) -> np.ndarray:
     """(slots,) bool: rows whose position, int8 KV codes or scales differ
-    between two engines' caches, up to each row's frontier."""
-    pos = a.caches[0].pos
-    lmax = a.caches[0].k_codes.shape[2]
+    between two engines' caches, up to each row's frontier (the attention
+    layers' caches; a hybrid model's recurrent states are float)."""
+    kv_a, kv_b = kv_caches(a.caches), kv_caches(b.caches)
+    pos = kv_a[0].pos
+    lmax = kv_a[0].k_codes.shape[2]
     live = (torch.arange(lmax, device=pos.device)[None, :]
             < pos[:, None].long())[:, None, :, None]
     differ = torch.zeros(pos.shape, dtype=torch.bool, device=pos.device)
-    for ca, cb in zip(a.caches, b.caches):
+    for ca, cb in zip(kv_a, kv_b):
         differ |= ca.pos != cb.pos
         for name in ("k_codes", "k_scale", "v_codes", "v_scale"):
             x, y = getattr(ca, name), getattr(cb, name)
@@ -1406,9 +1437,13 @@ def drive_checked(eng, shadow, free, prompts, max_new, profile_at,
         before = {r.rid: len(r.out_tokens) for r in reqs}
         if step in profile_at:
             calls = eng.stats.prefill_chunk_calls
+            prefilling = int(eng._prefilling.sum())
+            occupied = int(eng._occupied().sum())
             text = profiled(eng.step)
-            kind = ("a chunk step" if eng.stats.prefill_chunk_calls > calls
-                    else "decode only")
+            kind = (f"merged: {occupied} rows, {prefilling} prefilling"
+                    if eng._merged_mode()
+                    else "a chunk step" if eng.stats.prefill_chunk_calls
+                    > calls else "decode only")
             profiles.append((step, f"({kind}) {text}"))
         else:
             eng.step()
@@ -1479,9 +1514,14 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
     steps to profile (phase 5's mix: at step 6 the 1000-token prompt
     admits while others decode; at step 45 every prompt is in, decode
     only). An MoE config's comparison engines follow the kernel engine's
-    expert dispatch (`RouteEngine`)."""
+    expert dispatch (`RouteEngine`). A model with recurrent blocks runs
+    merged l=1 launches: flash_decode (or its int8 variant) launches once
+    per attention layer of every model call, no chunk launch is made,
+    and an attention-free model launches no kernel."""
     geo = geo or dict(slots=8, max_len=LK, prefill_chunk=W)
     moe = cfg.n_experts > 0
+    merged = has_recurrent(cfg)
+    n_attn = sum(k not in RECURRENT_KINDS for k in cfg.block_kinds())
 
     # the main path, free-running and alone on the card; resident weights
     # converted in place (as the serve launcher does), so no dense copy of
@@ -1490,7 +1530,7 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
         quantize_params(model, resident)
     eng = ServingEngine(cfg, model, **geo)
     routes = (eng.decode_route(), eng.prefill_route(), eng.weight_route())
-    want = ("cuda-decode", "cuda-prefill",
+    want = ("cuda-decode", "cuda-decode" if merged else "cuda-prefill",
             f"resident-{resident}" if resident else "dense")
     check(routes == want, f"{label}: routes {routes}, want {want}")
     eng.warmup()
@@ -1502,7 +1542,8 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
     counts = {k.__name__: k.launches for k in ALL_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     path = [k.__name__ for k in KERNELS
-            if k.__name__.endswith("_quant") == cfg.kv_quant]
+            if k.__name__.endswith("_quant") == cfg.kv_quant
+            and n_attn and not (merged and "prefill" in k.__name__)]
     if resident:
         path += [k.__name__ for k in AIO_KERNELS]
     st = eng.stats
@@ -1510,22 +1551,40 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
           f"{label}: a kernel of the path never launched: {counts}")
     check(not any(counts[k.__name__] for k in PAGED_KERNELS),
           f"{label}: a paged kernel launched on the flat path: {counts}")
-    per_call = 7 * cfg.n_layers * st.model_calls
+    per_call = 7 * n_attn * st.model_calls
     if resident:
         check(counts["aio_matmul"] == counts["aio_quant"] == per_call,
               f"{label}: {counts} AIO launches, want {per_call} (7 Linears "
-              f"x {cfg.n_layers} layers x {st.model_calls} model calls)")
+              f"x {n_attn} attention layers x {st.model_calls} model "
+              "calls)")
+    if merged:
+        others = {n: c for n, c in counts.items() if c and n not in path}
+        check(st.prefill_chunk_calls == 0 and not others and (
+            not path or counts[path[0]] == n_attn * st.model_calls),
+            f"{label}: merged engine: {st.prefill_chunk_calls} chunk "
+            f"launches; launches {counts}, want {path[:1]} x {n_attn} a "
+            f"model call ({st.model_calls} model calls) and no other "
+            "kernel but the path's")
+        per_step = (f"merged: {st.model_calls} model calls "
+                    f"({st.prefill_token_steps} prefill-only, "
+                    f"{st.decode_steps} with a decoding row)"
+                    + (f", {path[0]} {counts[path[0]] / st.model_calls:g} a "
+                       "call" if path else ", no kernel launched"))
+    else:
+        per_step = (f"decode {counts[path[0]] / st.decode_steps:g}, prefill "
+                    f"{counts[path[1]] / st.prefill_chunk_calls:g}")
     n_tok = st.generated_tokens
     print(f"  [{label}] routes {routes}; launches {counts}; per step: "
-          f"decode {counts[path[0]] / st.decode_steps:g}, prefill "
-          f"{counts[path[1]] / st.prefill_chunk_calls:g}"
+          + per_step
           + (f"; AIO GEMM and quantizer "
              f"{counts['aio_matmul'] / st.model_calls:g} each per model "
              f"call ({st.model_calls} model calls)" if resident else ""))
     print(f"  [{label}] free-running: {n_tok} tokens in {wall_s:.3f} s = "
-          f"{n_tok / wall_s:.1f} tok/s; {len(chunk_ms)} chunk steps "
+          f"{n_tok / wall_s:.1f} tok/s; {len(chunk_ms)} "
+          f"{'prefill-only' if merged else 'chunk'} steps "
           f"(median {np.median(chunk_ms):.2f} ms), {len(decode_ms)} "
-          f"decode-only steps (median {np.median(decode_ms):.2f} ms); "
+          f"{'other' if merged else 'decode-only'} steps (median "
+          f"{np.median(decode_ms):.2f} ms); "
           f"max_memory_allocated {peak / 2**30:.2f} GiB (weights, this "
           f"engine's caches and activations); {card}", flush=True)
     check_no_faults(f"{label} free-running", eng)
@@ -2102,6 +2161,151 @@ def families_phase(dev, card):
     return launches
 
 
+# --------------------------------------- recurrent and hybrid (5e)
+# the merged engine makes one launch a token, so the longest prompt sets
+# the step count (48 + 32 steps a pass; the mix 16-256 cut to about a
+# fifth, which kept the phase near 150 s: at 256 it took 463 s)
+RECURRENT_PLENS = [4, 12, 24, 48, 8, 40, 16, 32]
+RECURRENT_GEO = dict(slots=8, max_len=1024)
+TEACHER_L = 256
+TEACHER_TOL = 2e-3                 # the reference test's tolerance
+
+
+def teacher_forced(label, cfg, model, dev):
+    """`decode_step` token by token over TEACHER_L tokens (one row, f32
+    caches) against `forward` on the same tokens: the step recurrence
+    against the chunked one (and zamba2's flash_decode against B8) at full
+    width. Returns max |dlogit| / max |logit|."""
+    rng = np.random.RandomState(11)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab, (1, TEACHER_L))).to(
+        dev)
+    ts = time.perf_counter()
+    full, _ = forward(model, toks)
+    caches = init_caches(cfg, 1, TEACHER_L, device=dev, dtype=torch.float32)
+    worst = torch.zeros((), device=dev)
+    for t in range(TEACHER_L):
+        step, _ = decode_step(model, caches, toks[:, t:t + 1])
+        worst = torch.maximum(worst, (step[:, 0] - full[:, t]).abs().max())
+    worst = worst.item()
+    rel = worst / full.abs().max().item()
+    print(f"  [{label}] teacher-forced decode_step over {TEACHER_L} tokens "
+          f"(f32 caches) vs forward: max |dlogit| {worst:.3e} = {rel:.2e} "
+          f"of max |logit| {full.abs().max().item():.3f} (bound "
+          f"{TEACHER_TOL}); {time.perf_counter() - ts:.1f} s", flush=True)
+    check(rel <= TEACHER_TOL, f"{label}: teacher-forced decode is {rel} of "
+          f"max |logit| from forward, above {TEACHER_TOL}")
+    del full, caches
+    torch.cuda.empty_cache()
+    return rel
+
+
+def zamba2_kernel_rows(dev, card):
+    """B1, B2 and B8 at zamba2's head_dim of 80 (32 heads, MHA), the only
+    served head_dim beside 64 and 128: held against the plain versions
+    (max |diff| <= 1e-4; B2 bitwise equal to B1 on the dequantized K/V),
+    then timed beside their plain versions, SDPA and their bounds. Decode:
+    8 rows of one query over a 1024-position cache at the phase's prompt
+    lengths (its mid-stream positions); B8: one row of TEACHER_L tokens,
+    the teacher-forced forward's shape. Returns the max |diff| per
+    kernel."""
+    cfg = get_config("zamba2_2p7b")
+    h, d, lk = cfg.n_heads, cfg.hd, RECURRENT_GEO["max_len"]
+    cases = [make_case(dev, 90 + i, b=RECURRENT_GEO["slots"], hq=h, hkv=h,
+                       lq=1, lk=lk, pos=RECURRENT_PLENS, d=d)
+             for i in range(3)]          # 3 x 84 MB of bf16 K/V: > 50 MB L2
+    errs = {}
+    for name in ("flash_decode", "flash_decode_quant"):
+        kern, plain, deq = calls(name, cases[0], {})
+        got = kern()
+        err = (got - plain()).abs().max().item()
+        check(err <= TOL, f"{name} at D={d}: max |diff| {err} above {TOL}")
+        if deq is not None:
+            check(torch.equal(got, deq()), f"{name} at D={d}: not bitwise "
+                  "equal to flash_decode on the dequantized K/V")
+        errs[name] = err
+        ms = cuda_ms([calls(name, c, {})[0] for c in cases], 60)
+        plain_ms = cuda_ms([calls(name, c, {})[1] for c in cases], 12)
+        lib_ms = cuda_ms([library_call(name, c) for c in cases], 12)
+        bound_ms, bound_by = bound(name, cases[0])
+        print(f"  {name} B={RECURRENT_GEO['slots']} Hq=Hkv={h} D={d} "
+              f"Lk={lk} at positions {RECURRENT_PLENS}: max|diff| "
+              f"{err:.3e}; kernel {ms:.4f}  plain {plain_ms:.4f}  library "
+              f"{lib_ms:.4f}  bound {bound_ms:.4f} ({bound_by}; "
+              f"{100 * bound_ms / ms:.1f}% of it){decode_split_text(cases[0])}"
+              f"; {card}", flush=True)
+    del cases
+    full = [full_case(dev, 95 + i, b=1, hq=h, hkv=h, lq=TEACHER_L,
+                      lk=TEACHER_L, d=d) for i in range(8)]
+    got = flash_attention(*full[0])
+    err = (got - flash_attention_plain(*full[0])).abs().max().item()
+    check(err <= TOL and not got.isnan().any(), f"flash_attention at D={d}: "
+          f"max |diff| {err} above {TOL} or NaN")
+    errs["flash_attention"] = err
+    ms = cuda_ms([functools.partial(flash_attention, *c) for c in full], 40)
+    plain_ms = cuda_ms([functools.partial(flash_attention_plain, *c)
+                        for c in full], 10)
+    lib_ms = cuda_ms([functools.partial(F.scaled_dot_product_attention, *c,
+                                        is_causal=True) for c in full], 40)
+    bound_ms, bound_by = full_bound(1, h, h, TEACHER_L, TEACHER_L, d, mmas=6)
+    print(f"  flash_attention B=1 H={h} D={d} L={TEACHER_L} causal f32: "
+          f"max|diff| {err:.3e}; kernel {ms:.4f}  plain {plain_ms:.4f}  SDPA "
+          f"{lib_ms:.4f}  bound {bound_ms:.4f} ({bound_by}, MMA mix; "
+          f"{100 * bound_ms / ms:.1f}% of it); {card}", flush=True)
+    return errs
+
+
+def recurrent_phase(dev, card):
+    """Phase 5e: zamba2 (Mamba2 + one shared attention block) and xlstm
+    (mLSTM / sLSTM) at full width and depth, served by the merged engine
+    and checked as phase 5 checks its variants. Returns the launch counts
+    of the kernels on their paths."""
+    phase("5e. recurrent and hybrid: zamba2_2p7b CONFIG (bf16 KV, int8 KV, "
+          "int4 resident) and xlstm_1p3b CONFIG at full width and depth, "
+          "f32 weights (seed 0), 8 slots, max_len 1024, merged l=1 launches")
+    t_phase = time.perf_counter()
+    errs = zamba2_kernel_rows(dev, card)
+    launches = {}
+    cases = [("zamba2_2p7b", [("zamba2 bf16-KV", False, None, (30,)),
+                              ("zamba2 int8-KV", True, None, ()),
+                              ("zamba2 int4-resident", False, "int4", ())]),
+             ("xlstm_1p3b", [("xlstm", False, None, (30,))])]
+    for arch, variants in cases:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        model = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        kinds = cfg.block_kinds()
+        heads = (f"{cfg.n_heads} heads of {cfg.hd}" if cfg.attn_every else
+                 f"{cfg.n_heads} heads (mLSTM heads of {2 * cfg.hd}, a "
+                 f"{2 * cfg.hd} x {2 * cfg.hd + 1} state each)")
+        print(f"  [{arch}] {cfg.name}: {cfg.n_layers} layers ("
+              + ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(
+                  kinds)) + f"), d_model {cfg.d_model}, {heads}, vocab "
+              f"{cfg.vocab}; {n_params / 1e9:.3f} B f32 "
+              f"params ({4 * n_params / 1e9:.1f} GB) in "
+              f"{time.perf_counter() - t0:.1f}s; prompts {RECURRENT_PLENS}, "
+              f"{MAX_NEW} new tokens each", flush=True)
+        teacher_forced(arch, cfg, model, dev)
+        prompts = family_prompts(cfg.vocab, RECURRENT_PLENS, seed=3)
+        for label, kv_quant, resident, profile_at in variants:
+            t1 = time.perf_counter()
+            vcfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+            counts, _, _ = run_variant(label, vcfg, model, prompts, MAX_NEW,
+                                       card, resident=resident,
+                                       geo=RECURRENT_GEO,
+                                       profile_at=profile_at)
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            print(f"  [{label}] {time.perf_counter() - t1:.1f} s",
+                  flush=True)
+        del model
+        torch.cuda.empty_cache()
+    print(f"  phase 5e: {time.perf_counter() - t_phase:.1f} s wall; {card}",
+          flush=True)
+    return launches, errs
+
+
 # ------------------------------------- full-sequence attention, B9 and B11
 FULL_CASES = [
     # the reference's six cases (tests/test_kernels.py), then non-causal,
@@ -2576,6 +2780,11 @@ def main() -> int:
     robustness_phase(dev, smi, served, paged_served)
     for kname, n in families_phase(dev, smi).items():
         launches[kname] += n
+    recurrent_launches, d80_errs = recurrent_phase(dev, smi)
+    for kname, n in recurrent_launches.items():
+        launches[kname] += n
+    for kname, err in d80_errs.items():
+        errs[kname] = max(errs[kname], err)
     launches.update(fullseq_phase(dev, smi))
     launches.update(morphable_phase(dev))
     phase("8. summary")

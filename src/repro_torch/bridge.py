@@ -4,8 +4,12 @@ The JAX package stacks each segment's layer params along a leading axis
 for `lax.scan`: segment s repeats a unit of block kinds n times, and
 ``params["segments"][s][f"{j}_{kind}"]`` holds the (n, ...) leaves of the
 unit's j-th kind (gemma2: ``0_dense_local`` and ``1_dense_global``, layers
-2i and 2i + 1; kimi-k2: ``0_dense`` x 1, then ``0_moe``). The port keeps
-one `DenseBlock` per layer, in layer order (`ModelConfig.segments`). These
+2i and 2i + 1; kimi-k2: ``0_dense`` x 1, then ``0_moe``; zamba2: ``0_mamba``
+.. ``4_mamba`` and ``5_shared_attn``, whose params are NOT stacked — one
+weight copy for every invocation — while its caches are, one KV cache an
+invocation). The port keeps one block per layer, in layer order
+(`ModelConfig.segments`; zamba2's shared block is one module at each of
+its positions). These
 functions take the JAX pytrees with every leaf already converted to numpy
 (``jax.tree.map(np.asarray, tree)``) — so this module imports no JAX — and
 unstack them into the port's layout, keeping the tied embedding tied. A
@@ -24,10 +28,12 @@ import torch
 
 from . import resolve_device
 from .core.formats import QuantWeight
+from .models import ssm
 from .models.attention import KVCache, QuantKVCache, paged_kv_cache
-from .models.transformer import ModelConfig, Transformer
+from .models.transformer import RECURRENT_KINDS, ModelConfig, Transformer
 
-__all__ = ["params_from_jax", "caches_from_jax", "to_torch"]
+__all__ = ["params_from_jax", "caches_from_jax", "mixer_from_jax",
+           "to_torch"]
 
 
 def to_torch(a, device="cuda") -> torch.Tensor:
@@ -41,9 +47,12 @@ def to_torch(a, device="cuda") -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def _layer_leaves(np_segments, cfg: ModelConfig) -> list:
+def _layer_leaves(np_segments, cfg: ModelConfig, *,
+                  shared_stacked: bool) -> list:
     """[(stacked leaves, index)] of each layer, in layer order: the JAX
-    package's segment list (params or caches) walked by `cfg.segments()`."""
+    package's segment list (params or caches) walked by `cfg.segments()`.
+    A shared_attn entry's index is None when its leaves are not stacked
+    (the params)."""
     segs = cfg.segments()
     if len(np_segments) != len(segs):
         raise ValueError(f"{cfg.name}: {len(np_segments)} segments, the "
@@ -54,8 +63,56 @@ def _layer_leaves(np_segments, cfg: ModelConfig) -> list:
         if sorted(seg) != sorted(keys):
             raise ValueError(f"{cfg.name}: segment keys {sorted(seg)}, the "
                              f"config's unit gives {keys}")
-        out += [(seg[key], i) for i in range(n) for key in keys]
+        out += [(seg[key], None if key.endswith("_shared_attn")
+                 and not shared_stacked else i)
+                for i in range(n) for key in keys]
     return out
+
+
+def _at(a, i):
+    return a if i is None else a[i]
+
+
+def _put(param: torch.Tensor, value) -> None:
+    t = to_torch(value, param.device)
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(f"shape {tuple(t.shape)} does not fit "
+                         f"{tuple(param.shape)}")
+    param.copy_(t)
+
+
+def _linear(mod, p, i, device) -> None:
+    w = p["w"]
+    if hasattr(w, "codes"):               # a resident QuantWeight leaf
+        mod.set_resident(QuantWeight(to_torch(_at(w.codes, i), device),
+                                     to_torch(_at(w.scale, i), device),
+                                     w.fmt, w.k))
+    else:
+        _put(mod.w, _at(w, i))
+    if mod.b is not None:
+        _put(mod.b, _at(p["b"], i))
+
+
+def _norm(mod, p, i=None) -> None:
+    for name in ("g", "b"):               # none for the non-parametric LN
+        if hasattr(mod, name):
+            _put(getattr(mod, name), _at(p[name], i))
+
+
+@torch.no_grad()
+def mixer_from_jax(mod, np_p, i=None, device="cuda") -> None:
+    """Copy a recurrent mixer's JAX params (`ssm.mamba_init`, `mlstm_init`
+    or `slstm_init`'s dict; with `i`, layer i of their stacked leaves) into
+    the port's `ssm.Mamba2` / `MLSTM` / `SLSTM` `mod`, leaf by attribute
+    name: Linears, norms and plain tensors."""
+    for name, leaf in np_p.items():
+        sub = getattr(mod, name)
+        if isinstance(sub, torch.nn.Parameter):
+            _put(sub, _at(leaf, i))
+        elif "w" in leaf:
+            _linear(sub, leaf, i, device)
+        else:
+            _norm(sub, leaf, i)
 
 
 @torch.no_grad()
@@ -65,53 +122,41 @@ def params_from_jax(np_params, cfg: ModelConfig,
     param pytree (dense or resident Linear weights)."""
     device = resolve_device(device)
     model = Transformer(cfg, device=device)
-    layers = _layer_leaves(np_params["segments"], cfg)
-
-    def put(param: torch.Tensor, value):
-        t = to_torch(value, device)
-        if tuple(t.shape) != tuple(param.shape):
-            raise ValueError(f"shape {tuple(t.shape)} does not fit "
-                             f"{tuple(param.shape)}")
-        param.copy_(t)
+    layers = _layer_leaves(np_params["segments"], cfg, shared_stacked=False)
 
     def linear(mod, p, i):
-        w = p["w"]
-        if hasattr(w, "codes"):           # a resident QuantWeight leaf
-            mod.set_resident(QuantWeight(to_torch(w.codes[i], device),
-                                         to_torch(w.scale[i], device),
-                                         w.fmt, w.k))
-        else:
-            put(mod.w, w[i])
-        if mod.b is not None:
-            put(mod.b, p["b"][i])
-
-    def norm(mod, p, i=None):
-        for name in ("g", "b"):           # none for the non-parametric LN
-            if hasattr(mod, name):
-                put(getattr(mod, name), p[name] if i is None else p[name][i])
+        _linear(mod, p, i, device)
 
     def mlp(mod, p, i):
         for name in ("gate", "up", "down", "fc1", "fc2"):
             if hasattr(mod, name):
                 linear(getattr(mod, name), p[name], i)
 
-    put(model.embed.table, np_params["embed"]["table"])
-    norm(model.final_norm, np_params["final_norm"])
+    _put(model.embed.table, np_params["embed"]["table"])
+    _norm(model.final_norm, np_params["final_norm"])
     if model.lm_head is not None:
-        put(model.lm_head.w, np_params["lm_head"]["w"])
+        _put(model.lm_head.w, np_params["lm_head"]["w"])
     if model.pos is not None:
-        put(model.pos, np_params["pos"])
+        _put(model.pos, np_params["pos"])
+    done = set()
     for block, (p, i) in zip(model.layers, layers):
+        if id(block) in done:             # the shared block, set once
+            continue
+        done.add(id(block))
+        if block.kind in RECURRENT_KINDS:
+            _norm(block.ln, p["ln"], i)
+            mixer_from_jax(block.mixer, p[block.kind], i, device)
+            continue
         for name in ("ln1", "ln2", "pn1", "pn2"):
             if getattr(block, name) is not None:
-                norm(getattr(block, name), p[name], i)
+                _norm(getattr(block, name), p[name], i)
         for name in ("q", "k", "v", "o"):
             linear(getattr(block.attn, name), p["attn"][name], i)
         if block.moe is not None:
             moe = block.moe
             linear(moe.router, p["moe"]["router"], i)
             for name in ("gate", "up", "down"):
-                put(getattr(moe, name), p["moe"][name][i])
+                _put(getattr(moe, name), p["moe"][name][i])
             if moe.shared is not None:
                 mlp(moe.shared, p["moe"]["shared"], i)
         else:
@@ -119,23 +164,46 @@ def params_from_jax(np_params, cfg: ModelConfig,
     return model
 
 
+# a JAX recurrent cache's type, told by its first field
+_RECURRENT = {"ssm": ssm.MambaCache, "state": ssm.MLSTMCache,
+              "c": ssm.SLSTMCache}
+
+
 def caches_from_jax(np_caches, cfg: ModelConfig, device="cuda") -> List:
     """Per-layer KVCache / QuantKVCache / PagedKVCache / PagedQuantKVCache
-    copies of the JAX engine's stacked cache pytree (a segment list of
-    {f"{j}_{kind}": stacked cache}, walked in layer order), on `device`.
-    The layers of a paged cache share one table tensor, as `init_caches`
-    builds them (the JAX layers' tables are equal)."""
+    and MambaCache / MLSTMCache / SLSTMCache copies of the JAX engine's
+    stacked cache pytree (a segment list of {f"{j}_{kind}": stacked
+    cache}, walked in layer order; zamba2's shared block has one KV cache
+    an invocation), on `device`. Recurrent states come as float32 (the
+    reference's conv caches start in the cache dtype and turn float32 at
+    their first step; the port keeps them float32 throughout). The layers
+    of a paged cache share one table tensor, as `init_caches` builds them
+    (the JAX layers' tables are equal)."""
     device = resolve_device(device)
-    layers = [(c._asdict(), i) for c, i in _layer_leaves(np_caches, cfg)]
-    if "table" not in layers[0][0]:
-        kind = QuantKVCache if "k_codes" in layers[0][0] else KVCache
-        return [kind(**{f: to_torch(a[i], device) for f, a in c.items()})
-                for c, i in layers]
-    tables = [np.asarray(c["table"][i]) for c, i in layers]
-    if any(not np.array_equal(t, tables[0]) for t in tables):
-        raise ValueError("the JAX paged layers' block tables differ")
-    table = to_torch(tables[0], device)
-    return [paged_kv_cache(table, to_torch(c["pos"][i], device),
-                           **{f: to_torch(a[i], device) for f, a in c.items()
-                              if f not in ("table", "pos")})
-            for c, i in layers]
+    layers = [(c._asdict(), i) for c, i in
+              _layer_leaves(np_caches, cfg, shared_stacked=True)]
+
+    def arrays(c, i, skip=()):
+        return {f: to_torch(a[i], device) for f, a in c.items()
+                if f not in skip}
+
+    kv = [(c, i) for c, i in layers if next(iter(c)) not in _RECURRENT]
+    table = None
+    if kv and "table" in kv[0][0]:
+        tables = [np.asarray(c["table"][i]) for c, i in kv]
+        if any(not np.array_equal(t, tables[0]) for t in tables):
+            raise ValueError("the JAX paged layers' block tables differ")
+        table = to_torch(tables[0], device)
+    out = []
+    for c, i in layers:
+        first = next(iter(c))
+        if first in _RECURRENT:
+            out.append(_RECURRENT[first](**{
+                f: t.to(torch.float32) for f, t in arrays(c, i).items()}))
+        elif table is not None:
+            out.append(paged_kv_cache(table, to_torch(c["pos"][i], device),
+                                      **arrays(c, i, ("table", "pos"))))
+        else:
+            kind = QuantKVCache if "k_codes" in c else KVCache
+            out.append(kind(**arrays(c, i)))
+    return out

@@ -8,6 +8,8 @@
         --weight-format int4                             # resident int4
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --paged --block-size 8                           # paged KV pool
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_2p7b \\
+        --weight-format int4                     # hybrid: merged launches
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --paged --pool-blocks 16 --priority 0,1 --swap-watermark 0.75 \\
         --deadline-steps 40 --max-queue 8                # robustness knobs
@@ -121,7 +123,8 @@ def main(argv=None):
     st = eng.stats
     print(f"[serve:{args.arch}] {len(done)} requests, {toks} tokens, "
           f"{dt:.2f}s ({toks / dt:.1f} tok/s; {st.decode_steps} decode "
-          f"steps, {st.prefill_chunk_calls} chunked prefills)")
+          f"steps, {st.prefill_chunk_calls} chunked prefills, "
+          f"{st.prefill_token_steps} prefill token steps)")
     print(f"[serve:{args.arch}] kernel launches: "
           + ", ".join(f"{k.__name__}={k.launches}" for k in KERNELS))
     print(f"[serve:{args.arch}] fault counters: quarantines={st.quarantines} "

@@ -7,11 +7,18 @@ bias), olmo (non-parametric LayerNorm), gpt2 (LayerNorm, GELU MLP, learned
 positions on top of RoPE), gemma2 (alternating local/global layers,
 softcaps, sandwich norms, GeGLU, embeddings scaled in `forward` only) and
 the MoE family (olmoe, kimi-k2: `moe.MoE` in place of the MLP, after
-`n_dense_layers` dense layers). The JAX package scans stacked segment
-params with `lax.scan`; here the layers are an `nn.ModuleList` in layer
-order (`ModelConfig.block_kinds`), run in a Python loop, and the caches a
-list with one cache per layer, updated in place. The recurrent, hybrid and
-encoder-decoder families and the frontends raise NotImplementedError
+`n_dense_layers` dense layers), the recurrent family (xlstm: mLSTM
+layers with an sLSTM every `slstm_every`-th) and the hybrid one (zamba2:
+Mamba2 layers with ONE shared attention+MLP block invoked every
+`attn_every`-th layer: one weight copy, a KV cache per invocation). The
+JAX package scans stacked segment params with `lax.scan`; here the layers
+are an `nn.ModuleList` in layer order (`ModelConfig.block_kinds`; the
+shared block sits at each of its positions, one module object), run in a
+Python loop, and the caches a list with one cache per layer: a KV cache,
+updated in place, or a recurrent state (`ssm.MambaCache`, `MLSTMCache`,
+`SLSTMCache`), whose fields each step rebinds to new tensors. A model
+with recurrent blocks decodes one token a row per `decode_step`. The
+encoder-decoder family and the frontends raise NotImplementedError
 (ROADMAP A7).
 
 `quantize_params` makes the Linear weights resident in an AIO format, in
@@ -49,12 +56,14 @@ from .attention import (PAGED_TYPES, Attention, KVCache,
 from .layers import (_NORMS, MLP, Embedding, Linear, QuantPolicy, _normal,
                      linear, norm)
 from .moe import MoE
+from . import ssm
 
-__all__ = ["ModelConfig", "Transformer", "DenseBlock", "init_params",
+__all__ = ["ModelConfig", "Transformer", "DenseBlock", "RecurrentBlock",
+           "init_params",
            "forward", "loss_fn", "decode_step", "init_caches",
            "reset_slots", "scrub_slots",
            "set_block_tables", "copy_pool_blocks", "gather_pool_blocks",
-           "write_pool_blocks", "quantize_params",
+           "write_pool_blocks", "kv_caches", "quantize_params",
            "resident_view", "resident_format"]
 
 
@@ -112,7 +121,17 @@ class ModelConfig:
     def segments(self) -> List[Tuple[Tuple[str, ...], int]]:
         """The reference's layer layout: (unit of block kinds, repeats)
         pairs, for the layouts the port runs — dense, gemma2's alternating
-        local/global layers, and MoE after `n_dense_layers` dense ones."""
+        local/global layers, MoE after `n_dense_layers` dense ones, zamba2's
+        Mamba2 layers with the shared attention block every `attn_every`-th,
+        and xlstm's mLSTM layers with an sLSTM every `slstm_every`-th."""
+        for every, kinds in ((self.attn_every, ("mamba", "shared_attn")),
+                             (self.slstm_every, ("mlstm", "slstm"))):
+            if every:
+                if self.n_layers % every:
+                    raise ValueError(f"{self.name}: {self.n_layers} layers "
+                                     f"is not a multiple of {every}")
+                unit = (kinds[0],) * (every - 1) + (kinds[1],)
+                return [(unit, self.n_layers // every)]
         if self.local_global:
             if self.n_layers % 2:
                 raise ValueError(f"{self.name}: local/global attention "
@@ -134,14 +153,19 @@ class ModelConfig:
 
 
 _MLP_KINDS = ("swiglu", "geglu", "gelu")
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
+
+
+def has_recurrent(cfg: ModelConfig) -> bool:
+    """True when some layer keeps a recurrent state (mamba, mlstm or
+    slstm): its cached path advances one token a row per launch."""
+    return any(k in RECURRENT_KINDS for k in cfg.block_kinds())
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     unported = []
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         unported.append(f"family {cfg.family!r}")
-    if cfg.attn_every or cfg.slstm_every or cfg.ssm_state:
-        unported.append("recurrent blocks")
     if cfg.encoder_layers or cfg.cross_attention:
         unported.append("encoder-decoder")
     if cfg.frontend:
@@ -153,7 +177,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported yet; the dense, "
-            "gemma2 and MoE families are (see ROADMAP.md, A7)")
+            "gemma2, MoE, hybrid and recurrent families are (see "
+            "ROADMAP.md, A7)")
 
 
 def _layer_window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -169,7 +194,9 @@ def _layer_window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 class DenseBlock(nn.Module):
     """Pre-norm block of one layer kind ("dense", "dense_local",
-    "dense_global" or "moe"): x + attn(ln1(x)), then + ffn(ln2(x)), the
+    "dense_global", "moe", or zamba2's "shared_attn", a dense block whose
+    one instance serves every shared position): x + attn(ln1(x)), then +
+    ffn(ln2(x)), the
     ffn an `MLP` of `cfg.mlp_kind` or, for "moe", the `MoE` layer
     (attribute `moe`); optional post-norms (pn1/pn2) on each branch. The
     norms are `cfg.norm`'s."""
@@ -221,11 +248,59 @@ class DenseBlock(nn.Module):
         return x + h, aux
 
 
+class RecurrentBlock(nn.Module):
+    """Pre-norm residual block of a recurrent kind: x + mixer(ln(x)), the
+    mixer an `ssm.Mamba2` ("mamba"), `ssm.MLSTM` ("mlstm") or `ssm.SLSTM`
+    ("slstm"), held under the kind's name. With a cache the mixer takes
+    one step and the cache's fields are rebound to its new state, except
+    on rows with lengths == 0, which keep theirs."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, gen=None,
+                 device="cuda", dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        kw = dict(gen=gen, device=device, dtype=dtype)
+        d = cfg.d_model
+        self.kind = kind
+        self.ln = norm(cfg.norm, d, device=device, dtype=dtype)
+        if kind == "mamba":
+            mixer = ssm.Mamba2(d, cfg.ssm_state, cfg.ssm_expand,
+                               cfg.ssm_headdim, **kw)
+        elif kind == "mlstm":
+            mixer = ssm.MLSTM(d, cfg.n_heads, **kw)
+        elif kind == "slstm":
+            mixer = ssm.SLSTM(d, cfg.n_heads, **kw)
+        else:
+            raise ValueError(f"not a recurrent block kind: {kind!r}")
+        setattr(self, kind, mixer)
+
+    @property
+    def mixer(self) -> nn.Module:
+        return getattr(self, self.kind)
+
+    def forward(self, x: torch.Tensor, *, cache=None,
+                lengths: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, None]:
+        h = self.ln(x)
+        if cache is None:
+            h, _ = self.mixer(h)
+            return x + h, None
+        h, new = self.mixer.step(h, cache)
+        for f in dataclasses.fields(cache):
+            value = getattr(new, f.name)
+            if lengths is not None:
+                value = ssm.where_rows(lengths > 0, value,
+                                       getattr(cache, f.name))
+            setattr(cache, f.name, value)
+        return x + h, None
+
+
 class Transformer(nn.Module):
     """Embedding (+ a learned position table `pos` (max_seq, d_model) with
-    cfg.learned_pos) -> one DenseBlock per layer, of the kinds
-    `cfg.block_kinds()` -> final norm -> unembedding (tied to the
-    embedding table, or an lm_head Linear)."""
+    cfg.learned_pos) -> one block per layer, of the kinds
+    `cfg.block_kinds()` (a DenseBlock, or a RecurrentBlock; zamba2's one
+    shared DenseBlock at each "shared_attn" position) -> final norm ->
+    unembedding (tied to the embedding table, or an lm_head Linear)."""
 
     def __init__(self, cfg: ModelConfig, *, gen=None, device="cuda",
                  dtype=torch.float32):
@@ -239,8 +314,17 @@ class Transformer(nn.Module):
         if cfg.learned_pos:
             self.pos = _normal((cfg.max_seq, cfg.d_model), 0.01, gen, device,
                                dtype)
-        self.layers = nn.ModuleList(DenseBlock(cfg, kind, **kw)
-                                    for kind in cfg.block_kinds())
+        blocks, shared_attn = [], None
+        for kind in cfg.block_kinds():
+            if kind in RECURRENT_KINDS:
+                blocks.append(RecurrentBlock(cfg, kind, **kw))
+            elif kind == "shared_attn":
+                if shared_attn is None:
+                    shared_attn = DenseBlock(cfg, kind, **kw)
+                blocks.append(shared_attn)
+            else:
+                blocks.append(DenseBlock(cfg, kind, **kw))
+        self.layers = nn.ModuleList(blocks)
         self.final_norm = norm(cfg.norm, cfg.d_model, device=device,
                                dtype=dtype)
         self.lm_head = None
@@ -293,15 +377,22 @@ def quantize_params(model: Transformer, fmt: str, *,
     return model
 
 
-def _shallow_copy(mod: nn.Module) -> nn.Module:
+def _shallow_copy(mod: nn.Module, memo: Optional[dict] = None
+                  ) -> nn.Module:
     """A copy of the module tree that shares every parameter and buffer
     tensor: each module is copied with its own parameter, buffer and child
-    tables, so replacing an entry in the copy leaves the original alone."""
-    new = copy.copy(mod)
+    tables, so replacing an entry in the copy leaves the original alone. A
+    module the tree holds at several places (zamba2's shared block) is
+    copied once, and the copy holds it at the same places."""
+    memo = {} if memo is None else memo
+    if id(mod) in memo:
+        return memo[id(mod)]
+    new = memo[id(mod)] = copy.copy(mod)
     new._parameters = dict(mod._parameters)
     new._buffers = dict(mod._buffers)
     new._non_persistent_buffers_set = set(mod._non_persistent_buffers_set)
-    new._modules = {name: None if child is None else _shallow_copy(child)
+    new._modules = {name: None if child is None
+                    else _shallow_copy(child, memo)
                     for name, child in mod._modules.items()}
     return new
 
@@ -381,15 +472,21 @@ def decode_step(model: Transformer, caches: List, tokens: torch.Tensor, *,
     l is 1 for a decode step; a chunked prefill passes a right-padded
     (B, l) block with `lengths` (B,) marking each row's valid-token count —
     rows with lengths[b] == 0 keep caches and positions untouched. The
-    caches are updated in place and returned for convenience.
+    caches are updated in place (a recurrent cache's fields rebound) and
+    returned for convenience. A model with recurrent blocks takes l == 1
+    only (ValueError otherwise): its step recurrence reads one token a row.
 
     Learned positions add pos[clip(p_b + i, 0, max_seq - 1)] to token i of
-    row b, p_b the first cache's position before the step (rows idling past
-    the table clip; their logits are never read).
+    row b, p_b the first KV cache's position before the step (rows idling
+    past the table clip; their logits are never read).
     """
+    if tokens.shape[1] != 1 and has_recurrent(model.cfg):
+        raise ValueError(
+            f"{model.cfg.name}: a model with recurrent blocks decodes one "
+            f"token a row per step, not {tokens.shape[1]}")
     x = model.embed(tokens)
     if model.pos is not None:
-        idx = (caches[0].pos[:, None].long()
+        idx = (kv_caches(caches)[0].pos[:, None].long()
                + torch.arange(tokens.shape[1], device=x.device)).clamp(
                    0, model.pos.shape[0] - 1)
         x = x + model.pos[idx]
@@ -398,32 +495,78 @@ def decode_step(model: Transformer, caches: List, tokens: torch.Tensor, *,
     return model.unembed(model.final_norm(x)), caches
 
 
+def _recurrent_cache(kind: str, cfg: ModelConfig, batch: int, device):
+    if kind == "mamba":
+        return ssm.init_mamba_cache(batch, cfg.d_model, d_state=cfg.ssm_state,
+                                    expand=cfg.ssm_expand,
+                                    headdim=cfg.ssm_headdim, device=device)
+    if kind == "mlstm":
+        return ssm.init_mlstm_cache(batch, cfg.d_model, n_heads=cfg.n_heads,
+                                    device=device)
+    return ssm.init_slstm_cache(batch, cfg.d_model, device=device)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device="cuda", dtype=torch.bfloat16,
                 paged: Optional[Tuple[int, int]] = None) -> List:
-    """One KV cache per layer: KVCache (bf16 by default) or, with
-    cfg.kv_quant, QuantKVCache (int8 codes + pow2 scales).
+    """One cache per layer: for an attention layer a KVCache (bf16 by
+    default) or, with cfg.kv_quant, a QuantKVCache (int8 codes + pow2
+    scales); for a recurrent layer its state (`ssm.MambaCache`,
+    `MLSTMCache` or `SLSTMCache`, float32 whatever `dtype`: the reference's
+    conv caches turn float32 at their first step, and its states are
+    float32 from the start).
 
     paged: (pool_blocks, block_size) — block-pool PagedKVCache /
-    PagedQuantKVCache layers instead, each with its own pool of pool_blocks
-    blocks of block_size positions and all sharing ONE (batch, nblk) block
-    table tensor, nblk = ceil(max_len / block_size)."""
+    PagedQuantKVCache attention layers instead, each with its own pool of
+    pool_blocks blocks of block_size positions and all sharing ONE (batch,
+    nblk) block table tensor, nblk = ceil(max_len / block_size); recurrent
+    states keep their per-row layout."""
     dev = resolve_device(device)
-    if paged is None:
-        return [init_kv_cache(batch, cfg.n_kv_heads, max_len, cfg.hd,
-                              device=dev, dtype=dtype,
-                              quantized=cfg.kv_quant)
-                for _ in range(cfg.n_layers)]
-    pool_blocks, block_size = paged
-    table = striped_table(batch, -(-max_len // block_size), pool_blocks,
-                          device=dev)
-    return [init_paged_kv_cache(cfg.n_kv_heads, pool_blocks, block_size,
-                                cfg.hd, table, dtype=dtype,
-                                quantized=cfg.kv_quant)
-            for _ in range(cfg.n_layers)]
+    table = None
+    if paged is not None:
+        pool_blocks, block_size = paged
+        table = striped_table(batch, -(-max_len // block_size), pool_blocks,
+                              device=dev)
+    caches = []
+    for kind in cfg.block_kinds():
+        if kind in RECURRENT_KINDS:
+            caches.append(_recurrent_cache(kind, cfg, batch, dev))
+        elif table is None:
+            caches.append(init_kv_cache(batch, cfg.n_kv_heads, max_len,
+                                        cfg.hd, device=dev, dtype=dtype,
+                                        quantized=cfg.kv_quant))
+        else:
+            caches.append(init_paged_kv_cache(
+                cfg.n_kv_heads, pool_blocks, block_size, cfg.hd, table,
+                dtype=dtype, quantized=cfg.kv_quant))
+    return caches
 
 
-_CACHE_TYPES = (KVCache, QuantKVCache) + PAGED_TYPES
+_KV_TYPES = (KVCache, QuantKVCache) + PAGED_TYPES
+
+
+def kv_caches(caches: List) -> List:
+    """The attention layers' caches of a cache list, in layer order."""
+    return [c for c in caches if isinstance(c, _KV_TYPES)]
+
+
+def _check_cache(c) -> None:
+    if not isinstance(c, _KV_TYPES + ssm.RECURRENT_TYPES):
+        raise TypeError(f"not a KV cache or a recurrent state: "
+                        f"{type(c).__name__}")
+
+
+def _reinit_rows(c, mask: torch.Tensor) -> None:
+    """Rebind a recurrent cache's fields with the rows under `mask` (B,)
+    back at their initial values (`ssm.cache_init_values`)."""
+    values = ssm.cache_init_values(c)
+    mask = mask.to(device=getattr(c, next(iter(values))).device,
+                   dtype=torch.bool)
+    for name, value in values.items():
+        old = getattr(c, name)
+        setattr(c, name, ssm.where_rows(
+            mask, torch.full((), value, dtype=old.dtype, device=old.device),
+            old))
 
 
 def reset_slots(caches: List, slot_mask: torch.Tensor,
@@ -433,10 +576,14 @@ def reset_slots(caches: List, slot_mask: torch.Tensor,
     batching. Stale K/V sit beyond the new causal frontier, so attention
     never sees them, and each position is overwritten before the frontier
     reaches it. new_pos lets the paged engine start a row that shares a
-    prompt prefix at the shared-token count."""
+    prompt prefix at the shared-token count. A recurrent state's rows go
+    back to their initial values (zeros; the sLSTM stabilizer to
+    `ssm.SLSTM_M_INIT`)."""
     for c in caches:
-        if not isinstance(c, _CACHE_TYPES):
-            raise TypeError(f"not a KV cache: {type(c).__name__}")
+        _check_cache(c)
+        if isinstance(c, ssm.RECURRENT_TYPES):
+            _reinit_rows(c, slot_mask)
+            continue
         to = torch.zeros_like(c.pos) if new_pos is None \
             else new_pos.to(c.pos.dtype)
         c.pos = torch.where(slot_mask, to, c.pos)
@@ -459,10 +606,13 @@ def scrub_slots(caches: List, slot_mask: torch.Tensor) -> List:
     A paged cache scrubs every physical block that a scrubbed row's table
     row names, blocks shared with other rows included (a NaN in a shared
     block must not survive into another row's attention; the engine
-    quarantines the rows that share them). No host sync."""
+    quarantines the rows that share them). A recurrent state's rows go
+    back to their initial values, as in `reset_slots`. No host sync."""
     for c in caches:
-        if not isinstance(c, _CACHE_TYPES):
-            raise TypeError(f"not a KV cache: {type(c).__name__}")
+        _check_cache(c)
+        if isinstance(c, ssm.RECURRENT_TYPES):
+            _reinit_rows(c, slot_mask)
+            continue
         mask = slot_mask.to(device=c.pos.device, dtype=torch.bool)
         if isinstance(c, PAGED_TYPES):
             names = pool_fields(c)
@@ -486,18 +636,22 @@ def scrub_slots(caches: List, slot_mask: torch.Tensor) -> List:
 
 
 def _paged(caches: List) -> List:
-    for c in caches:
+    """The attention layers' paged caches (recurrent states have no block
+    pool); TypeError on a flat KV cache."""
+    layers = kv_caches(caches)
+    for c in layers:
         if not isinstance(c, PAGED_TYPES):
             raise TypeError(f"not a paged KV cache: {type(c).__name__}")
-    return caches
+    return layers
 
 
 def set_block_tables(caches: List, table: torch.Tensor) -> List:
     """Install a (B, nblk) block table, in place, into the one table tensor
     every paged cache layer shares (`init_caches` and
     `bridge.caches_from_jax` both build them so)."""
-    shared = _paged(caches)[0].table
-    if any(c.table is not shared for c in caches):
+    layers = _paged(caches)
+    shared = layers[0].table
+    if any(c.table is not shared for c in layers):
         raise ValueError("the paged cache layers do not share one table")
     shared.copy_(table)
     return caches
@@ -518,7 +672,7 @@ def copy_pool_blocks(caches: List, src: Sequence[int],
         raise ValueError(f"{len(src)} sources for {len(dst)} destinations")
     if not len(src):
         return caches
-    dev = caches[0].pos.device
+    dev = kv_caches(caches)[0].pos.device
     s = torch.as_tensor(src, dtype=torch.long, device=dev)
     d = torch.as_tensor(dst, dtype=torch.long, device=dev)
     for c in _paged(caches):
@@ -530,7 +684,7 @@ def copy_pool_blocks(caches: List, src: Sequence[int],
 @torch.no_grad()
 def gather_pool_blocks(caches: List, ids: torch.Tensor) -> dict:
     """Read physical pool blocks `ids` ((C,) int) out of every paged cache
-    layer: {pool name: (n_layers, C, Hkv, bs, X)} new tensors on the
+    layer: {pool name: (n_kv_layers, C, Hkv, bs, X)} new tensors on the
     caches' device (the reference's stacked-segment layout).
     `write_pool_blocks` is the exact inverse: the device half of KV
     swap-out, run at the scheduler boundary, never inside the step."""

@@ -11,6 +11,16 @@ admitted rows advance by their true token count, so pad keys stay beyond
 every row's causal frontier. There are exactly two launch widths: 1 and
 `prefill_chunk`. Greedy outputs are identical to one-shot admission.
 
+A model with recurrent blocks (zamba2's Mamba2 layers, xlstm's mLSTM and
+sLSTM layers) advances its states one token a launch, so its engine runs
+in MERGED mode, as does any engine with `prefill_chunk == 1`: ONE l=1
+launch a step, in which prefilling rows feed their next prompt token and
+decoding rows their last sampled one (`EngineStats.prefill_token_steps`
+counts the steps in which no row decoded). The paged block pool is
+refused for such a model (ROADMAP C: the reference's paged engine starts
+a prefix-hit row past the shared tokens, which then never pass through
+its recurrent state).
+
 Each launch is ONE step program: `decode_step` plus a fused per-row
 numeric-health reduction (all logits finite). The gather of each row's last
 valid position and the argmax run on the device; only (slots,) int32
@@ -144,6 +154,8 @@ class Request:
 class EngineStats:
     """Model-invocation accounting."""
     prefill_chunk_calls: int = 0      # chunk-shaped batched prefill launches
+    prefill_token_steps: int = 0      # merged l=1 launches with no decoding
+    #                                   row (recurrent models, chunk 1)
     prefill_tokens: int = 0           # valid prompt tokens prefilled
     decode_steps: int = 0             # batch decode launches
     generated_tokens: int = 0
@@ -160,7 +172,8 @@ class EngineStats:
 
     @property
     def model_calls(self) -> int:
-        return self.prefill_chunk_calls + self.decode_steps
+        return self.prefill_chunk_calls + self.prefill_token_steps \
+            + self.decode_steps
 
 
 class ServingEngine:
@@ -202,6 +215,8 @@ class ServingEngine:
 
         prefill_chunk: tokens a new prompt advances per admission launch
         (clamped to max_len). Greedy outputs are identical for any chunk.
+        A model with recurrent blocks ignores it: its engine runs merged
+        l=1 launches (as does a chunk of 1).
 
         max_queue: bound on the admission queue; beyond it `submit()`
         REJECTS (returns False) instead of queueing. None = unbounded.
@@ -227,12 +242,20 @@ class ServingEngine:
         byte-identically when re-admitted). 1.0 reclaims only when a
         reservation cannot be met at all; below it the engine keeps
         pool x (1 - watermark) blocks of headroom. With equal priorities
-        the watermark only drives registry eviction."""
+        the watermark only drives registry eviction. A model with
+        recurrent blocks cannot be served paged: ValueError."""
         if weight_format not in (None, "none"):
             model = T.resident_view(model, weight_format)
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk ({prefill_chunk}) must be >= 1")
+        # recurrent states advance one token a launch: the merged path
+        self._recurrent = T.has_recurrent(cfg)
         self._paged = bool(paged)
+        if self._paged and self._recurrent:
+            raise ValueError(
+                f"{cfg.name}: paged serving of a model with recurrent "
+                "blocks is not supported (ROADMAP C: a prefix hit would "
+                "start the row past tokens its recurrent state never saw)")
         if self._paged:
             self._pg_init(slots, max_len, block_size, pool_blocks,
                           swap_watermark)
@@ -281,6 +304,11 @@ class ServingEngine:
         return api.policy(self.policy) if self.policy is not None \
             else contextlib.nullcontext()
 
+    def _merged_mode(self) -> bool:
+        """Recurrent models (and chunk-1 engines) advance prefill one token
+        a launch: prefill and decode share one l=1 launch a step."""
+        return self._recurrent or self.prefill_chunk == 1
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
@@ -316,9 +344,12 @@ class ServingEngine:
         the demote-and-retry recovery, and logits poison. Returns (logits,
         health) on the device.
 
-        On a failure the rows' positions are put back (the layers before
-        the failing op already advanced them; the K/V they wrote lie past
-        the restored frontiers, where the retry writes them again). A
+        On a failure the caches' rebound fields are put back: the KV
+        positions (the layers before the failing op already advanced them;
+        the K/V they wrote lie past the restored frontiers, where the retry
+        writes them again) and the recurrent states (each step binds new
+        tensors, so the old ones are intact and the retry does not apply
+        the token twice). A
         `KernelLaunchError`, the fault plans' launch failure, then demotes
         the policy to the reference route and retries the SAME step once;
         it propagates with no route left or on the retry. Any other error
@@ -338,7 +369,7 @@ class ServingEngine:
                 else:
                     f.tripped = True
                     raise_fault = f
-        saved_pos = [c.pos for c in self.caches]
+        saved = [_cache_refs(c) for c in self.caches]
         for attempt in (0, 1):
             try:
                 if raise_fault is not None and attempt == 0:
@@ -353,8 +384,9 @@ class ServingEngine:
                     logits, health = self._step_program(toks, lens)
                 break
             except Exception as err:
-                for c, pos in zip(self.caches, saved_pos):
-                    c.pos = pos
+                for c, refs in zip(self.caches, saved):
+                    for name, t in refs.items():
+                        setattr(c, name, t)
                 if attempt == 1 or not isinstance(
                         err, faultlib.KernelLaunchError) \
                         or not self._demote(err):
@@ -846,7 +878,7 @@ class ServingEngine:
         self._swap_entries[req.rid] = {
             "kept": kept, "js": priv_j, "hids": hids,
             "total": len(self._pg_rows[slot]),
-            "pos": int(self.caches[0].pos[slot]),
+            "pos": int(T.kv_caches(self.caches)[0].pos[slot]),
             "prefilling": bool(self._prefilling[slot]),
             "prefill_off": int(self._prefill_off[slot]),
             "remaining": int(self._remaining[slot]),
@@ -948,9 +980,11 @@ class ServingEngine:
 
     def _pg_block_layout(self) -> dict:
         """{pool name: (shape, dtype tag)} of one host-stored block of this
-        engine's caches: the layout a snapshot's swap store must match."""
-        c = self.caches[0]
-        return {name: ((self.cfg.n_layers, 1) + tuple(pool.shape[1:]),
+        engine's caches (one slab a KV layer): the layout a snapshot's swap
+        store must match."""
+        layers = T.kv_caches(self.caches)
+        c = layers[0]
+        return {name: ((len(layers), 1) + tuple(pool.shape[1:]),
                        str(pool.dtype).replace("torch.", ""))
                 for name in T.pool_fields(c)
                 for pool in (getattr(c, name),)}
@@ -1212,13 +1246,59 @@ class ServingEngine:
             if self._slot_req[s] is not None:
                 self._emit(int(s), int(nxt[s]), newly)
 
+    def _merged_step(self, newly: List[Request]):
+        """Merged mode: ONE l=1 launch advances every occupied row —
+        prefilling rows feed their next prompt token, decoding rows their
+        last sampled one — and its health is read for every row. Counted
+        as a decode step when any row decoded, else as a prefill token
+        step."""
+        toks = np.full((self.slots, 1), PAD, np.int32)
+        lens = np.zeros(self.slots, np.int32)
+        consumed = np.zeros(self.slots, bool)
+        n_prefill = n_decode = 0
+        for s, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            lens[s] = 1
+            if self._prefilling[s]:
+                toks[s, 0] = r.prompt[int(self._prefill_off[s])]
+                consumed[s] = self._prefill_off[s] + 1 >= len(r.prompt)
+                n_prefill += 1
+            else:
+                toks[s, 0] = self._last[s, 0]
+                consumed[s] = True
+                n_decode += 1
+        logits, health = self._launch(self._tensor(toks), self._tensor(lens),
+                                      consumed)
+        if n_decode:
+            self.stats.decode_steps += 1
+        else:
+            self.stats.prefill_token_steps += 1
+        self.stats.prefill_tokens += n_prefill
+        nxt, ok = self._greedy(logits[:, 0], health)
+        bad = self._occupied() & ~ok
+        if bad.any():
+            self._quarantine(np.flatnonzero(bad), newly)
+        for s in range(self.slots):
+            if self._slot_req[s] is None or bad[s]:
+                continue
+            if self._prefilling[s]:
+                self._prefill_off[s] += 1
+                if self._prefill_off[s] < len(self._slot_req[s].prompt):
+                    continue
+                self._prefilling[s] = False
+                if self._paged:
+                    self._pg_register(s)
+            self._emit(s, int(nxt[s]), newly)
+
     # --------------------------------------------------------------- driving
     def step(self) -> List[Request]:
         """Admit into free slots, then advance every in-flight request once:
         one chunk-prefill launch for admitting rows (when any), then one
-        batched decode launch for generating rows (when any). Returns the
-        requests that finished during this step (TIMEOUT and FAILED ones
-        included). The step counter advances on every call, idle or not."""
+        batched decode launch for generating rows (when any); in merged
+        mode one l=1 launch for all of them. Returns the requests that
+        finished during this step (TIMEOUT and FAILED ones included). The
+        step counter advances on every call, idle or not."""
         newly: List[Request] = []
         plan = self._fault_plan
         if plan is not None:
@@ -1228,9 +1308,13 @@ class ServingEngine:
         if self._has_deadlines:
             self._expire_deadlines(newly)
         self._admit(newly)
-        if self._prefilling.any():
-            self._prefill_chunk_step(newly)
-        self._decode_launch(newly)
+        if self._merged_mode():
+            if self._occupied().any():
+                self._merged_step(newly)
+        else:
+            if self._prefilling.any():
+                self._prefill_chunk_step(newly)
+            self._decode_launch(newly)
         self._step_no += 1
         return newly
 
@@ -1253,11 +1337,11 @@ class ServingEngine:
 
     def warmup(self) -> "ServingEngine":
         """Build the kernels and make one idle launch of each width (the
-        chunk and 1) with every row at lengths == 0 — a bitwise no-op on
-        the caches — so the first request pays no build or first-launch
-        cost. Returns self."""
+        chunk and 1; 1 alone in merged mode) with every row at lengths == 0
+        — a bitwise no-op on the caches — so the first request pays no
+        build or first-launch cost. Returns self."""
         zeros = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
-        for w in (self.prefill_chunk, 1):
+        for w in (1,) if self._merged_mode() else (self.prefill_chunk, 1):
             tok = torch.zeros((self.slots, w), dtype=torch.int32,
                               device=self.device)
             self._step_program(tok, zeros)
@@ -1279,6 +1363,7 @@ class ServingEngine:
             tree["params"] = self.model.state_dict()
 
         extra = {"engine": {
+            "cache_kinds": _cache_kinds(self.caches),
             "step_no": int(self._step_no),
             "include_params": include_params,
             "last": self._last.tolist(),
@@ -1325,7 +1410,9 @@ class ServingEngine:
     @torch.no_grad()
     def restore(self, ckpt_dir, step: Optional[int] = None) -> int:
         """Load a `snapshot()` into THIS engine: same config, slots,
-        max_len and cache layout, or ValueError before anything changes.
+        max_len and cache layout (the kinds of the layers' caches, KV or
+        recurrent, and their shapes), or ValueError before anything
+        changes.
         The cache tensors (and with a params snapshot the model's) are
         written in place, never rebound. In-flight generation resumes
         byte-identically: caches, positions, last tokens and the replay
@@ -1338,9 +1425,16 @@ class ServingEngine:
             tree, extra, got = store.restore(
                 ckpt_dir, {"caches": self.caches}, step=step)
         except KeyError as err:
-            raise ValueError(f"snapshot does not fit this engine's cache "
-                             f"layout: {err}") from None
+            raise ValueError(
+                f"snapshot does not fit this engine's cache layout "
+                f"({_kinds_text(_cache_kinds(self.caches))}): {err}") \
+                from None
         eng = extra["engine"]
+        kinds = _cache_kinds(self.caches)
+        if eng["cache_kinds"] != kinds:
+            raise ValueError(
+                f"snapshot caches ({_kinds_text(eng['cache_kinds'])}) do "
+                f"not fit this engine's ({_kinds_text(kinds)})")
         if len(eng["last"]) != self.slots:
             raise ValueError(f"snapshot has {len(eng['last'])} slots, "
                              f"engine has {self.slots}")
@@ -1435,12 +1529,14 @@ class ServingEngine:
                 quantized=self.cfg.kv_quant)
 
     def prefill_route(self) -> str:
-        """Attention impl the engine's admission chunks dispatch to:
+        """Attention impl the engine's admission prefill dispatches to:
         "cuda-prefill" (varlen flash-prefill kernel; any chunk > 1),
-        "cuda-decode" (chunk == 1), or "ref"."""
+        "cuda-decode" (merged mode, whose prefill is l=1 launches), or
+        "ref"."""
+        lq = 1 if self._merged_mode() else self.prefill_chunk
         with self._policy_ctx():
             return api.ops.attention_route(
-                lq=self.prefill_chunk, lk=self.max_len, causal=True,
+                lq=lq, lk=self.max_len, causal=True,
                 offset_ndim=1, quantized=self.cfg.kv_quant)
 
     def occupancy(self) -> List[Optional[dict]]:
@@ -1455,6 +1551,22 @@ class ServingEngine:
         """Fraction of slots currently serving a request."""
         busy = sum(r is not None for r in self._slot_req)
         return busy / self.slots if self.slots else 0.0
+
+
+def _cache_kinds(caches) -> List[str]:
+    return [type(c).__name__ for c in caches]
+
+
+def _kinds_text(kinds: List[str]) -> str:
+    """A '4 x MambaCache, 2 x KVCache'-style summary of cache kinds."""
+    return ", ".join(f"{kinds.count(k)} x {k}" for k in dict.fromkeys(kinds))
+
+
+def _cache_refs(c) -> dict:
+    """{field: tensor} of a cache: the references a launch rebinds (a KV
+    cache's pos, a recurrent state's fields; the rest are written in place
+    and come back as the same objects)."""
+    return {f.name: getattr(c, f.name) for f in dataclasses.fields(c)}
 
 
 def _req_state(r: Request) -> dict:
@@ -1482,7 +1594,9 @@ class _InputProbe:
     """The resident engine's health probe over one model. Inside `with`,
     each attention output (o) and MLP output projection (down, or a GELU
     MLP's fc2) writes the per-row sum of its input into one (points,
-    slots) float32 buffer, one reduction launch each; `finite()` then
+    slots) float32 buffer, one reduction launch each, a point per
+    invocation (zamba2's shared block runs at every shared position, so
+    its two projections record there each time); `finite()` then
     gives (slots,) True where every sum is finite. No other check sees
     these inputs: at a resident Linear the activation quantizer codes a
     NaN or inf as a finite value (the reference's `quantize_scaled` rule,
@@ -1497,6 +1611,13 @@ class _InputProbe:
                      for name, m in model.named_modules()
                      if isinstance(m, (Attention, MLP))
                      and "moe" not in name.split(".")]
+        # invocations a launch: each probed module once per layer holding it
+        probed = {id(m) for m in self.mods}
+        self.points = sum(
+            1 for layer in model.layers for m in layer.modules()
+            if isinstance(m, (Attention, MLP))
+            and id(m.o if isinstance(m, Attention) else m.out_proj)
+            in probed)
         self.buf: Optional[torch.Tensor] = None
 
     def __enter__(self):
@@ -1512,7 +1633,7 @@ class _InputProbe:
     def _record(self, mod, args):
         x = args[0]
         if self.buf is None:
-            self.buf = torch.empty((len(self.mods), x.shape[0]),
+            self.buf = torch.empty((self.points, x.shape[0]),
                                    dtype=torch.float32, device=x.device)
         torch.sum(x, tuple(range(1, x.dim())), dtype=torch.float32,
                   out=self.buf[self.n])

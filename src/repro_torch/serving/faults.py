@@ -220,15 +220,20 @@ def poison_logits(logits: torch.Tensor, slot: int,
 def poison_caches(caches: List, slot: int, value: float = NAN) -> List:
     """Corrupt one slot's cache in every layer, in place: its K at position
     0 (bf16 values, or the f32 K scales of an int8 cache), which every
-    later query of the row reads. Paged caches are poisoned through the
-    block table: position 0 of the slot's first mapped block, so a
-    prefix-shared block poisons every row that maps it — what the engine's
-    transitive quarantine contains. The non-finite value reaches the row's
-    logits at its next launch that reads them, where the engine's health
-    flag trips."""
+    later query of the row reads, or every field of a recurrent state's
+    row. Paged caches are poisoned through the block table: position 0 of
+    the slot's first mapped block, so a prefix-shared block poisons every
+    row that maps it — what the engine's transitive quarantine contains.
+    The non-finite value reaches the row's logits at its next launch that
+    reads them, where the engine's health flag trips."""
     from ..models.attention import (KVCache, PagedKVCache, PagedQuantKVCache,
                                     QuantKVCache)
+    from ..models.ssm import RECURRENT_TYPES
     for c in caches:
+        if isinstance(c, RECURRENT_TYPES):
+            for f in dataclasses.fields(c):
+                getattr(c, f.name)[slot] = value
+            continue
         if isinstance(c, KVCache):
             c.k[slot, :, 0, :] = value
         elif isinstance(c, QuantKVCache):

@@ -1352,3 +1352,123 @@ def test_engine_faults_and_preemption_on_card(dev):
     st = eng.pool_stats()
     assert got == want and st["preemptions"] >= 1 and st["swap_ins"] >= 1
     assert st["swap_bytes_in"] == st["swap_bytes_out"] > 0
+
+
+# ================================== zamba2's attention shapes (D = 80)
+# 32 heads of 80 (MHA: Hq = Hkv), a 1024-position cache: the only config
+# the port serves whose head_dim is neither 64 nor 128. A bf16 row of 80
+# is 160 bytes (a multiple of the kernels' 16-byte copies), 20 lanes of 4
+# head dims are live, and the MMA k-steps run 80 / 16 = 5.
+ZAMBA_D, ZAMBA_H, ZAMBA_LK = 80, 32, 1024
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+def test_decode_kernels_at_zamba2_head_dim(dev, kv):
+    """B1 (bf16 / f32 cache) and B2 (int8) at 8 rows of one query: within
+    1e-4 of the plain version; the int8 kernel equals the kernel on the
+    dequantized K/V bitwise."""
+    q, k, v = _data(dev, 80, 8, ZAMBA_H, ZAMBA_H, 1, ZAMBA_LK, ZAMBA_D)
+    pos = torch.tensor([0, 1, 127, 128, 500, 777, 1022, 1023],
+                       dtype=torch.int32, device=dev)
+    flat, kern, _ = _decode_forms(k, v, kv)
+    n = kern.launches
+    got = kern(q, *flat, pos=pos)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 1
+    if kv == "int8":
+        deq = (dequant(flat[0], flat[1], torch.float32),
+               dequant(flat[2], flat[3], torch.float32))
+        assert torch.equal(got, flash_decode(q, *deq, pos=pos))
+        _close(got, flash_decode_quant_plain(q, *flat, pos=pos))
+    else:
+        _close(got, flash_decode_plain(q, *flat, pos=pos))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_full_attention_kernel_at_zamba2_head_dim(dev, kv_dtype, causal):
+    """B8 over a 1024-token sequence of zamba2's heads: within 1e-4 of the
+    plain version, no NaN."""
+    q, k, v = _data(dev, 81, 1, ZAMBA_H, ZAMBA_H, ZAMBA_LK, ZAMBA_LK,
+                    ZAMBA_D)
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    got = flash_attention(q, k, v, causal=causal)
+    assert not got.isnan().any()
+    _close(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+class _MarginEngine(ServingEngine):
+    """Records each emitted token's top-1 / top-2 logit margin."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.margins, self._now = {}, None
+
+    def _greedy(self, rows, health):
+        top = rows.topk(2, dim=-1).values
+        self._now = (top[:, 0] - top[:, 1]).cpu().numpy()
+        return super()._greedy(rows, health)
+
+    def _emit(self, s, tok, newly):
+        rid = self._slot_req[s].rid
+        self.margins.setdefault(rid, []).append(float(self._now[s]))
+        super()._emit(s, tok, newly)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_zamba2_merged_engine_on_card_matches_ref_in_lockstep(dev,
+                                                              kv_quant):
+    """zamba2 at full width over 12 layers (10 Mamba2, the shared block
+    twice): the merged engine's kernel route, with a ref-route engine put
+    in its state before every step, emits the ref engine's token at every
+    step but near-ties (margin <= 1e-3). flash_decode launches once per
+    shared-block invocation of each model call, no chunk launch is made,
+    and the ref route launches no kernel."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("zamba2_2p7b"), n_layers=12,
+                              kv_quant=kv_quant)
+    model = init_params(cfg, seed=0)
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(1, cfg.vocab, n).astype(np.int32)
+               for n in (3, 40, 17, 9)]
+    geo = dict(slots=2, max_len=128)
+    eng = ServingEngine(cfg, model, **geo)
+    ref = _MarginEngine(cfg, model, **geo,
+                        policy=api.ExecutionPolicy(backend="ref"))
+    for e in (eng, ref):
+        for rid, p in enumerate(prompts):
+            e.submit(Request(rid, p, max_new_tokens=8))
+    kern = flash_decode_quant if kv_quant else flash_decode
+    for k in KERNELS:
+        k.launches = 0
+    compared = 0
+    while eng.pending():
+        for dc, sc in zip(ref.caches, eng.caches):
+            for f in dataclasses.fields(sc):
+                setattr(dc, f.name, getattr(sc, f.name).clone())
+        ref._last[:] = eng._last
+        before = {r.rid: len(r.out_tokens) for r in eng._slot_req if r}
+        launched = kern.launches
+        eng.step()
+        assert kern.launches - launched == \
+            cfg.block_kinds().count("shared_attn")
+        launched = sum(k.launches for k in KERNELS)
+        ref.step()
+        assert sum(k.launches for k in KERNELS) == launched == kern.launches
+        for rid, n in before.items():
+            got = next(r for r in [*eng.finished, *filter(None,
+                                                          eng._slot_req)]
+                       if r.rid == rid).out_tokens[n:]
+            want = next(r for r in [*ref.finished, *filter(None,
+                                                           ref._slot_req)]
+                        if r.rid == rid).out_tokens[n:]
+            assert len(got) == len(want)
+            for i, (a, b) in enumerate(zip(got, want)):
+                if ref.margins[rid][n + i] > 1e-3:
+                    assert a == b, (rid, n + i)
+                    compared += 1
+    assert not ref.pending() and compared > 20
+    st = eng.stats
+    assert st.prefill_chunk_calls == 0
+    assert kern.launches == 2 * st.model_calls
+    assert st.quarantines == ref.stats.quarantines == 0

@@ -380,9 +380,9 @@ def test_resident_int8_matches_jax_resident_engine(arch, port_models):
 
 # ====================================================== config coverage
 def test_every_ported_arch_builds():
-    """`get_config` / `get_smoke` for all eight archs; `Transformer`
+    """`get_config` / `get_smoke` for all ten archs; `Transformer`
     builds each SMOKE config with the reference's layer kinds."""
-    assert len(ARCH_IDS) == 8
+    assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         full, smoke = get_config(arch), get_smoke(arch)
         assert full.family == smoke.family
@@ -392,11 +392,24 @@ def test_every_ported_arch_builds():
             jax_smoke(arch).block_kinds()
 
 
-@pytest.mark.parametrize("arch", ["zamba2_2p7b", "xlstm_1p3b",
-                                  "whisper_tiny", "internvl2_76b"])
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "xlstm_1p3b"])
+def test_recurrent_archs_now_build_with_the_reference_block_kinds(arch):
+    """The hybrid and recurrent families (A7 step 4), refused before, now
+    build from the reference's own SMOKE config (its fields copied over),
+    with the reference's layer kinds, and are in the registry."""
+    jcfg = jax_smoke(arch)
+    fields = {f.name for f in dataclasses.fields(ModelConfig)} - {"quant"}
+    cfg = ModelConfig(**{f: getattr(jcfg, f) for f in fields})
+    assert arch in ARCH_IDS and cfg == get_smoke(arch)
+    model = init_params(cfg, device="cpu")
+    assert [b.kind for b in model.layers] == jcfg.block_kinds()
+    assert cfg.segments() == jcfg.segments()
+
+
+@pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_76b"])
 def test_unported_archs_raise_naming_a7(arch):
-    """The families the port does not run yet (hybrid, ssm, audio, vlm)
-    refuse to build, naming ROADMAP A7, and are not in the registry."""
+    """The families the port does not run yet (audio, vlm) refuse to
+    build, naming ROADMAP A7, and are not in the registry."""
     jcfg = jax_smoke(arch)
     fields = {f.name for f in dataclasses.fields(ModelConfig)} - {"quant"}
     cfg = ModelConfig(**{f: getattr(jcfg, f) for f in fields})

@@ -186,6 +186,6 @@ def test_module_default_device_needs_a_card(name):
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(get_smoke("llama2_7b"), family="ssm")
+    cfg = dataclasses.replace(get_smoke("llama2_7b"), family="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(cfg, device="cpu")
