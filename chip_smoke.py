@@ -186,7 +186,7 @@ of JAX or of the JAX package `repro`. Phases:
    seven Linears; the Mamba2 mixers stay dense, as in the reference), and
    xlstm_1p3b CONFIG (48 layers: 42 mLSTM, 6 sLSTM, d_model 2048, mLSTM
    heads of 1024 with a 1024 x 1025 state; 3.61 B), each as a phase-5
-   variant on 8 prompts of 4-48 tokens, 32 new tokens each. First B1, B2
+   variant on 8 prompts of 4-24 tokens, 24 new tokens each. First B1, B2
    and B8 at zamba2's head_dim 80 against their plain versions (1e-4; B2
    bitwise equal to B1 on the dequantized K/V), timed beside their plain
    versions, SDPA and their bounds. Then per config a teacher-forced
@@ -196,6 +196,29 @@ of JAX or of the JAX package `repro`. Phases:
    of every model call (9), the AIO kernels 63 times a call when
    resident, and no chunk launch; xlstm no kernel. One merged step of each
    config is profiled. Prints the phase's wall time.
+5f. The frontend families, random f32 weights from seed 0: (a)
+   whisper_tiny CONFIG at full width and depth (4 encoder and 4 decoder
+   layers, d_model 384, 6 heads of 64, vocab 51,865), 8 slots, one random
+   1500-frame clip a slot (`frames=`, encoded once per engine), max_len
+   1024, chunk 32, 8 prompts of 4-64 tokens and 64 new tokens each, as
+   phase-5 variants: bf16 KV, int8 KV, bf16 KV at chunk 128 (its chunk
+   launches send the cross attention to B8, which must launch once a
+   decoder layer in each) and int4 resident (the encoder's and the cross
+   attention's Linears too: B10 then B5 on the 12,000 memory rows of each
+   step's cross k/v projections); first a teacher-forced `decode_step`
+   over 256 tokens against `forward(frames=)` (B8 causal and non-causal,
+   8 launches), max |dlogit| <= 1e-3 x max |logit|, and a paged engine
+   must be refused naming ROADMAP C. (b) internvl2_76b CONFIG at full
+   width over 4 of 80 layers (d_model 8192, 64/8 heads of 128, d_ff
+   28,672, vocab 128,256; 3.4 B parameters in the layers) as a bf16-KV
+   variant on phase 5d's dense mix, then `forward` over 1024 random patch
+   embeddings and 1024 tokens (2048 positions, B8 once a layer) against
+   the ref route within 1e-3 x max |logit|. (c) The kernels at the new
+   shapes against their plain versions, timed beside them, their library
+   call and their bound: B8 non-causal at (B 1, H 6, Lq 256, Lk 1500, D
+   64); B10 then B5 in int4 at M 12,000, K = N = 384 and at M 8, K
+   28,672, N 8192. One decode step of whisper and of internvl2 is
+   profiled. Prints the phase's wall time.
 6. Full-sequence path: the qwen2_1p5b CONFIG at full width and depth
    (phase 5's weights, seed 0), 4 random prompts of 1,920 tokens:
    `forward`, `launch.steps.make_prefill_step` and `loss_fn` (labels the
@@ -270,8 +293,9 @@ from repro_torch.models import (decode_step, forward,  # noqa: E402
                                 init_caches, init_params, loss_fn,
                                 quantize_params)
 from repro_torch.models.attention import _q8  # noqa: E402
+from repro_torch.models.layers import Linear  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    RECURRENT_KINDS, has_recurrent, kv_caches)
+    RECURRENT_KINDS, encode, has_recurrent, kv_caches)
 from repro_torch.models.moe import MoE, expert_capacity  # noqa: E402
 from repro_torch.serving import (FaultPlan, Request,  # noqa: E402
                                  ServingEngine, drive_with_plan)
@@ -1505,12 +1529,15 @@ def compare(label, got, ref, limit=None):
 
 
 def run_variant(label, cfg, model, prompts, max_new, card, *,
-                resident=None, geo=None, profile_at=(6, 45)):
+                resident=None, geo=None, profile_at=(6, 45), also=()):
     """One engine variant: the free-running pass of the kernel engine
     alone (launches, tokens/s, step times, peak memory), then the checked
     pass beside two comparison engines. Returns the launch counts of the
-    kernels on the variant's path. `geo`: the engine's slots, max_len and
-    prefill chunk (phase 5's by default); `profile_at`: the checked pass's
+    kernels on the variant's path. `geo`: the engine's keywords, slots,
+    max_len, prefill chunk and (an encoder-decoder model) frames (phase
+    5's by default); `also`: kernels beside the attention (and resident
+    AIO) kernels that must launch on the path; `profile_at`: the checked
+    pass's
     steps to profile (phase 5's mix: at step 6 the 1000-token prompt
     admits while others decode; at step 45 every prompt is in, decode
     only). An MoE config's comparison engines follow the kernel engine's
@@ -1546,17 +1573,22 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
             and n_attn and not (merged and "prefill" in k.__name__)]
     if resident:
         path += [k.__name__ for k in AIO_KERNELS]
+    path += list(also)
     st = eng.stats
     check(all(counts[n] > 0 for n in path),
           f"{label}: a kernel of the path never launched: {counts}")
     check(not any(counts[k.__name__] for k in PAGED_KERNELS),
           f"{label}: a paged kernel launched on the flat path: {counts}")
-    per_call = 7 * n_attn * st.model_calls
     if resident:
+        # resident Linears a model call runs: each layer position's (a
+        # shared block at each of its positions; the encoder ran once, at
+        # the engine's construction)
+        n_lin = sum(isinstance(m, Linear) and m.fmt is not None
+                    for layer in model.layers for m in layer.modules())
+        per_call = n_lin * st.model_calls
         check(counts["aio_matmul"] == counts["aio_quant"] == per_call,
-              f"{label}: {counts} AIO launches, want {per_call} (7 Linears "
-              f"x {n_attn} attention layers x {st.model_calls} model "
-              "calls)")
+              f"{label}: {counts} AIO launches, want {per_call} ({n_lin} "
+              f"resident Linears a call x {st.model_calls} model calls)")
     if merged:
         others = {n: c for n, c in counts.items() if c and n not in path}
         check(st.prefill_chunk_calls == 0 and not others and (
@@ -2162,38 +2194,46 @@ def families_phase(dev, card):
 
 
 # --------------------------------------- recurrent and hybrid (5e)
-# the merged engine makes one launch a token, so the longest prompt sets
-# the step count (48 + 32 steps a pass; the mix 16-256 cut to about a
-# fifth, which kept the phase near 150 s: at 256 it took 463 s)
-RECURRENT_PLENS = [4, 12, 24, 48, 8, 40, 16, 32]
+# the merged engine makes one launch a token, so the longest prompt and
+# the new tokens set the step count: 24 + 24 steps a pass (the mix 16-256
+# took 463 s; cut to 4-48 and 32 new tokens, 80 steps, 190 s; cut again to
+# make room for phase 5f)
+RECURRENT_PLENS = [4, 12, 24, 16, 8, 20, 6, 10]
+RECURRENT_NEW = 24
+# the decode kernel rows at D 80 keep the positions of the 4-48 mix
+ZAMBA_ROW_POS = [4, 12, 24, 48, 8, 40, 16, 32]
 RECURRENT_GEO = dict(slots=8, max_len=1024)
 TEACHER_L = 256
 TEACHER_TOL = 2e-3                 # the reference test's tolerance
 
 
-def teacher_forced(label, cfg, model, dev):
+def teacher_forced(label, cfg, model, dev, frames=None, tol=TEACHER_TOL):
     """`decode_step` token by token over TEACHER_L tokens (one row, f32
     caches) against `forward` on the same tokens: the step recurrence
-    against the chunked one (and zamba2's flash_decode against B8) at full
-    width. Returns max |dlogit| / max |logit|."""
+    against the chunked one (and the decode kernel against B8) at full
+    width; with `frames` (1, T, d_model), both cross-attend their encoding
+    (`forward` encodes them, the steps take `encode`'s memory). Returns
+    max |dlogit| / max |logit|, which must stay within `tol`."""
     rng = np.random.RandomState(11)
     toks = torch.from_numpy(rng.randint(1, cfg.vocab, (1, TEACHER_L))).to(
         dev)
     ts = time.perf_counter()
-    full, _ = forward(model, toks)
+    full, _ = forward(model, toks, frames=frames)
+    memory = None if frames is None else encode(model, frames)
     caches = init_caches(cfg, 1, TEACHER_L, device=dev, dtype=torch.float32)
     worst = torch.zeros((), device=dev)
     for t in range(TEACHER_L):
-        step, _ = decode_step(model, caches, toks[:, t:t + 1])
+        step, _ = decode_step(model, caches, toks[:, t:t + 1],
+                              memory=memory)
         worst = torch.maximum(worst, (step[:, 0] - full[:, t]).abs().max())
     worst = worst.item()
     rel = worst / full.abs().max().item()
     print(f"  [{label}] teacher-forced decode_step over {TEACHER_L} tokens "
           f"(f32 caches) vs forward: max |dlogit| {worst:.3e} = {rel:.2e} "
           f"of max |logit| {full.abs().max().item():.3f} (bound "
-          f"{TEACHER_TOL}); {time.perf_counter() - ts:.1f} s", flush=True)
-    check(rel <= TEACHER_TOL, f"{label}: teacher-forced decode is {rel} of "
-          f"max |logit| from forward, above {TEACHER_TOL}")
+          f"{tol}); {time.perf_counter() - ts:.1f} s", flush=True)
+    check(rel <= tol, f"{label}: teacher-forced decode is {rel} of "
+          f"max |logit| from forward, above {tol}")
     del full, caches
     torch.cuda.empty_cache()
     return rel
@@ -2204,14 +2244,14 @@ def zamba2_kernel_rows(dev, card):
     served head_dim beside 64 and 128: held against the plain versions
     (max |diff| <= 1e-4; B2 bitwise equal to B1 on the dequantized K/V),
     then timed beside their plain versions, SDPA and their bounds. Decode:
-    8 rows of one query over a 1024-position cache at the phase's prompt
-    lengths (its mid-stream positions); B8: one row of TEACHER_L tokens,
-    the teacher-forced forward's shape. Returns the max |diff| per
-    kernel."""
+    8 rows of one query over a 1024-position cache at positions 4-48
+    (mid-stream positions of an earlier, longer mix); B8: one row of
+    TEACHER_L tokens, the teacher-forced forward's shape. Returns the max
+    |diff| per kernel."""
     cfg = get_config("zamba2_2p7b")
     h, d, lk = cfg.n_heads, cfg.hd, RECURRENT_GEO["max_len"]
     cases = [make_case(dev, 90 + i, b=RECURRENT_GEO["slots"], hq=h, hkv=h,
-                       lq=1, lk=lk, pos=RECURRENT_PLENS, d=d)
+                       lq=1, lk=lk, pos=ZAMBA_ROW_POS, d=d)
              for i in range(3)]          # 3 x 84 MB of bf16 K/V: > 50 MB L2
     errs = {}
     for name in ("flash_decode", "flash_decode_quant"):
@@ -2228,7 +2268,7 @@ def zamba2_kernel_rows(dev, card):
         lib_ms = cuda_ms([library_call(name, c) for c in cases], 12)
         bound_ms, bound_by = bound(name, cases[0])
         print(f"  {name} B={RECURRENT_GEO['slots']} Hq=Hkv={h} D={d} "
-              f"Lk={lk} at positions {RECURRENT_PLENS}: max|diff| "
+              f"Lk={lk} at positions {ZAMBA_ROW_POS}: max|diff| "
               f"{err:.3e}; kernel {ms:.4f}  plain {plain_ms:.4f}  library "
               f"{lib_ms:.4f}  bound {bound_ms:.4f} ({bound_by}; "
               f"{100 * bound_ms / ms:.1f}% of it){decode_split_text(cases[0])}"
@@ -2265,10 +2305,10 @@ def recurrent_phase(dev, card):
     t_phase = time.perf_counter()
     errs = zamba2_kernel_rows(dev, card)
     launches = {}
-    cases = [("zamba2_2p7b", [("zamba2 bf16-KV", False, None, (30,)),
+    cases = [("zamba2_2p7b", [("zamba2 bf16-KV", False, None, (16,)),
                               ("zamba2 int8-KV", True, None, ()),
                               ("zamba2 int4-resident", False, "int4", ())]),
-             ("xlstm_1p3b", [("xlstm", False, None, (30,))])]
+             ("xlstm_1p3b", [("xlstm", False, None, (16,))])]
     for arch, variants in cases:
         t0 = time.perf_counter()
         cfg = get_config(arch)
@@ -2285,13 +2325,14 @@ def recurrent_phase(dev, card):
               f"{cfg.vocab}; {n_params / 1e9:.3f} B f32 "
               f"params ({4 * n_params / 1e9:.1f} GB) in "
               f"{time.perf_counter() - t0:.1f}s; prompts {RECURRENT_PLENS}, "
-              f"{MAX_NEW} new tokens each", flush=True)
+              f"{RECURRENT_NEW} new tokens each", flush=True)
         teacher_forced(arch, cfg, model, dev)
         prompts = family_prompts(cfg.vocab, RECURRENT_PLENS, seed=3)
         for label, kv_quant, resident, profile_at in variants:
             t1 = time.perf_counter()
             vcfg = dataclasses.replace(cfg, kv_quant=kv_quant)
-            counts, _, _ = run_variant(label, vcfg, model, prompts, MAX_NEW,
+            counts, _, _ = run_variant(label, vcfg, model, prompts,
+                                       RECURRENT_NEW,
                                        card, resident=resident,
                                        geo=RECURRENT_GEO,
                                        profile_at=profile_at)
@@ -2302,6 +2343,264 @@ def recurrent_phase(dev, card):
         del model
         torch.cuda.empty_cache()
     print(f"  phase 5e: {time.perf_counter() - t_phase:.1f} s wall; {card}",
+          flush=True)
+    return launches, errs
+
+
+# ------------------------------------------------ the frontends (5f)
+# whisper-tiny: 8 slots, one random 1500-frame clip each; prompts of 4-64
+# tokens (start-of-transcript tokens and earlier text), 64 new tokens each
+WHISPER_PLENS = [4, 12, 24, 64, 8, 40, 16, 32]
+WHISPER_NEW = 64
+WHISPER_GEO = dict(slots=8, max_len=1024, prefill_chunk=W)
+WHISPER_TOL = 1e-3                 # teacher-forced max |dlogit| / max|logit|
+INTERNVL_LAYERS = 4                # of 80: 3.4 B f32 parameters in them
+PATCHES = 1024                     # internvl2's patch embeddings a sample
+
+
+def frontend_kernel_rows(dev, card):
+    """The kernels at the frontend families' new shapes, each held against
+    its plain version, then timed beside it, its library call and its
+    bound: B8 non-causal at whisper's cross attention of a 256-token
+    forward (B 1, H 6, Lq 256, Lk 1500, D 64); B10 then B5 in int4 at
+    whisper's resident cross k/v projection of 8 slots x 1500 frames (M
+    12,000, K = N = 384) and at internvl2's down projection in a decode
+    step (M 8, K 28,672, N 8192). Returns the max |diff| per kernel."""
+    wcfg = get_config("whisper_tiny")
+    h, d, t = wcfg.n_heads, wcfg.hd, wcfg.frontend_len
+    full = [full_case(dev, 97 + i, b=1, hq=h, hkv=h, lq=TEACHER_L, lk=t, d=d)
+            for i in range(8)]
+    got = flash_attention(*full[0], causal=False)
+    err = (got - flash_attention_plain(*full[0], causal=False)).abs().max()
+    err = err.item()
+    check(err <= TOL and not got.isnan().any(), f"flash_attention "
+          f"non-causal at Lk {t}: max |diff| {err} above {TOL} or NaN")
+    errs = {"flash_attention": err}
+    ms = cuda_ms([functools.partial(flash_attention, *c, causal=False)
+                  for c in full], 40)
+    plain_ms = cuda_ms([functools.partial(flash_attention_plain, *c,
+                                          causal=False) for c in full], 10)
+    lib_ms = cuda_ms([functools.partial(F.scaled_dot_product_attention, *c)
+                      for c in full], 40)
+    bound_ms, bound_by = full_bound(1, h, h, TEACHER_L, t, d, mmas=6,
+                                    causal=False)
+    print(f"  flash_attention B=1 H={h} D={d} Lq={TEACHER_L} Lk={t} "
+          f"non-causal f32: max|diff| {err:.3e}; kernel {ms:.4f}  plain "
+          f"{plain_ms:.4f}  SDPA {lib_ms:.4f}  bound {bound_ms:.4f} "
+          f"({bound_by}, MMA mix; {100 * bound_ms / ms:.1f}% of it); {card}",
+          flush=True)
+    del full
+    vcfg = get_config("internvl2_76b")
+    shapes = [("whisper cross k/v, 8 slots x 1500 frames",
+               WHISPER_GEO["slots"] * t, wcfg.d_model, wcfg.d_model),
+              ("internvl2 down projection, 8 rows", 8, vcfg.d_ff,
+               vcfg.d_model)]
+    errs["aio_matmul"] = errs["aio_quant"] = 0.0
+    for name, m, k, n in shapes:
+        g = torch.Generator(device=dev).manual_seed(m + k)
+        x = torch.randn(m, k, generator=g, device=dev)
+        codes, scale = aio_quant(x, fmt_name="int4", floor=FM.FLT_MIN)
+        want = aio_quant_plain(x, fmt_name="int4", floor=FM.FLT_MIN)
+        check(torch.equal(codes, want[0]) and torch.equal(scale, want[1]),
+              f"aio_quant int4 M={m} N={k}: codes or scales differ from "
+              "the plain version")
+        _, w, _, ws = gemm_case(dev, "int4", 8, k, n, seed=k + n)
+        got = aio_matmul(codes, w, scale, ws, mode="int4")
+        check(torch.equal(got, aio_matmul_plain(codes, w, scale, ws,
+                                                mode="int4")),
+              f"aio_matmul int4 M={m} K={k} N={n}: not bitwise equal to "
+              "the plain version")
+        del got, x
+        # operand copies past the 50 MB L2 (x and w together)
+        n_copies = max(2, -(-100_000_000 // (m * k + (k + 1) // 2 * n)))
+        copies = [(torch.randint(-8, 8, (m, k), generator=g, device=dev,
+                                 dtype=torch.int8),
+                   torch.randint(-128, 128, ((k + 1) // 2, n), generator=g,
+                                 device=dev, dtype=torch.int8),
+                   torch.full((m, 1), 2.0 ** -7, device=dev),
+                   torch.full((1, n), 2.0 ** -7, device=dev))
+                  for _ in range(n_copies)]
+        ms = cuda_ms([functools.partial(aio_matmul, *c, mode="int4")
+                      for c in copies], 20)
+        plain_ms = cuda_ms([functools.partial(aio_matmul_plain, *c,
+                                              mode="int4")
+                            for c in copies], 4)
+        dec = [decoded_bf16("int4", c[0], c[1]) for c in copies]
+        lib_ms = cuda_ms([functools.partial(torch.matmul, *dd)
+                          for dd in dec], 20)
+        lib_txt = f"matmul(bf16) {lib_ms:.4f}"
+        if m > 16:
+            ints = [(dd[0].to(torch.int8), dd[1].to(torch.int8))
+                    for dd in dec]
+            int_ms = cuda_ms([functools.partial(torch._int_mm, *i)
+                              for i in ints], 20)
+            lib_txt += f"  _int_mm {int_ms:.4f}"
+            del ints
+        bound_ms, bound_by = gemm_bound("int4", m, k, n)
+        print(f"  aio_matmul int4 M={m} K={k} N={n} ({name}): bitwise; "
+              f"kernel {ms:.4f}  plain {plain_ms:.4f}  {lib_txt}  bound "
+              f"{bound_ms:.5f} ({bound_by}; {100 * bound_ms / ms:.1f}% of "
+              f"it); {card}", flush=True)
+        del copies, dec
+        xs = quant_timing_copies(dev, m, k)
+        ms = cuda_ms([functools.partial(aio_quant, x_, fmt_name="int4",
+                                        floor=FM.FLT_MIN) for x_ in xs], 40)
+        plain_ms = cuda_ms([functools.partial(aio_quant_plain, x_,
+                                              fmt_name="int4",
+                                              floor=FM.FLT_MIN)
+                            for x_ in xs], 6)
+        t_bytes = (5 * m * k + 4 * m) / HBM_BYTES_PER_S
+        t_ops = 2 * m * k / F32_FLOPS_PER_S
+        qbound = 1e3 * max(t_bytes, t_ops)
+        p = quant_plan(m, k)
+        print(f"  aio_quant  int4 M={m} N={k}: bitwise; kernel {ms:.4f}  "
+              f"plain {plain_ms:.4f}  library none  bound {qbound:.5f} "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}; "
+              f"{100 * qbound / ms:.1f}% of it; 8 input copies)  plan "
+              f"cluster {p.cluster} x {p.threads} threads x {p.vals} "
+              f"values; {card}", flush=True)
+        del xs
+    torch.cuda.empty_cache()
+    return errs
+
+
+def whisper_part(dev, card, launches):
+    """Phase 5f (a): whisper-tiny CONFIG at full width and depth."""
+    cfg = get_config("whisper_tiny")
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn(WHISPER_GEO["slots"], cfg.frontend_len,
+                         cfg.d_model, generator=g, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  [whisper_tiny] {cfg.name}: {cfg.encoder_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.frontend_len} frames a slot; "
+          f"{n_params / 1e6:.1f} M f32 params in "
+          f"{time.perf_counter() - t0:.1f}s; prompts {WHISPER_PLENS}, "
+          f"{WHISPER_NEW} new tokens each", flush=True)
+    try:
+        ServingEngine(cfg, model, frames=frames, paged=True, **WHISPER_GEO)
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    check(refused is not None and "ROADMAP C" in refused,
+          f"whisper: the paged engine was not refused naming ROADMAP C "
+          f"({refused})")
+    print(f"  [whisper_tiny] paged engine refused: {refused}", flush=True)
+    before = flash_attention.launches
+    teacher_forced("whisper_tiny", cfg, model, dev, frames=frames[:1],
+                   tol=WHISPER_TOL)
+    n_full = flash_attention.launches - before
+    check(n_full == 2 * cfg.n_layers, f"whisper forward at L {TEACHER_L}: "
+          f"{n_full} B8 launches, want {2 * cfg.n_layers} (causal self and "
+          "non-causal cross attention a decoder layer)")
+    prompts = family_prompts(cfg.vocab, WHISPER_PLENS, seed=4)
+    geo = dict(WHISPER_GEO, frames=frames)
+    # the resident variant last: it converts the weights in place
+    variants = [("whisper bf16-KV", False, None, geo, (), (10,)),
+                ("whisper int8-KV", True, None, geo, (), ()),
+                ("whisper bf16-KV chunk 128", False, None,
+                 dict(geo, prefill_chunk=128), ("flash_attention",), ()),
+                ("whisper int4-resident", False, "int4", geo, (), (10,))]
+    for label, kv_quant, resident, vgeo, also, profile_at in variants:
+        t1 = time.perf_counter()
+        vcfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+        counts, _, _ = run_variant(label, vcfg, model, prompts, WHISPER_NEW,
+                                   card, resident=resident, geo=vgeo,
+                                   profile_at=profile_at, also=also)
+        if also:
+            # the cross attention of each decoder layer in each chunk launch
+            n_full = counts["flash_attention"]
+            check(n_full % cfg.n_layers == 0, f"{label}: {n_full} B8 "
+                  f"launches, not a multiple of {cfg.n_layers} layers")
+            print(f"  [{label}] cross attention on B8 in "
+                  f"{n_full // cfg.n_layers} chunk launches "
+                  f"({cfg.n_layers} a launch)", flush=True)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"  [{label}] {time.perf_counter() - t1:.1f} s", flush=True)
+    del model, frames
+    torch.cuda.empty_cache()
+
+
+def internvl_part(dev, card, launches):
+    """Phase 5f (b): internvl2-76b CONFIG over INTERNVL_LAYERS layers."""
+    cfg = dataclasses.replace(get_config("internvl2_76b"),
+                              n_layers=INTERNVL_LAYERS)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = family_prompts(cfg.vocab, DENSE_PLENS, seed=2)
+    print(f"  [internvl2 x{INTERNVL_LAYERS}] {cfg.name}: {cfg.n_layers} of "
+          f"80 layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}; {n_params / 1e9:.3f} B f32 params "
+          f"({4 * n_params / 1e9:.1f} GB) in {time.perf_counter() - t0:.1f}"
+          f"s; prompts {DENSE_PLENS}, {MAX_NEW} new tokens each",
+          flush=True)
+    label = f"internvl2 x{INTERNVL_LAYERS}"
+    counts, _, _ = run_variant(label, cfg, model, prompts, MAX_NEW, card,
+                               geo=DENSE_GEO, profile_at=(45,))
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    # scoring with the patch embeddings prepended: 2048 positions, every
+    # layer's attention on B8; against the ref route
+    g = torch.Generator(device=dev).manual_seed(1)
+    patches = torch.randn(1, PATCHES, cfg.d_model, generator=g, device=dev)
+    rng = np.random.RandomState(12)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab, (1, PATCHES))).to(dev)
+    route = api.ops.attention_route(lq=2 * PATCHES, lk=2 * PATCHES)
+    check(route == "cuda", f"internvl2 forward routes to {route}")
+    before = flash_attention.launches
+    ts = time.perf_counter()
+    logits, _ = forward(model, toks, prefix_embeds=patches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    n_full = flash_attention.launches - before
+    check(n_full == cfg.n_layers, f"{label} forward: {n_full} B8 launches, "
+          f"want {cfg.n_layers}")
+    check(logits.shape == (1, PATCHES, cfg.vocab), f"{label} forward: "
+          f"logits {tuple(logits.shape)}, want the tokens' positions only")
+    with api.policy(backend="ref"):
+        ref_logits, _ = forward(model, toks, prefix_embeds=patches)
+    torch.cuda.synchronize()
+    check(flash_attention.launches == before + n_full,
+          "the ref route launched B8")
+    diff = (logits - ref_logits).abs().max().item()
+    scale = ref_logits.abs().max().item()
+    finite = bool(torch.isfinite(logits).all())
+    print(f"  [{label}] forward over {PATCHES} patch embeddings + {PATCHES} "
+          f"tokens: {1e3 * wall:.1f} ms wall, B8 {n_full} launches; vs the "
+          f"ref route max|dlogit| {diff:.3e} ({diff / scale:.2e} of "
+          f"max|logit| {scale:.2f}); {card}", flush=True)
+    check(finite and diff <= LOGIT_TOL * scale, f"{label} forward: max "
+          f"|dlogit| {diff} above {LOGIT_TOL} x {scale} (or not finite)")
+    launches["flash_attention"] = launches.get("flash_attention", 0) + n_full
+    del model, logits, ref_logits
+    torch.cuda.empty_cache()
+
+
+def frontends_phase(dev, card):
+    """Phase 5f: the frontend families, whisper-tiny (audio encoder and
+    cross attention) at full width and depth and internvl2-76b over
+    INTERNVL_LAYERS layers (patch embeddings prepended), served by the
+    kernel engine and checked as phase 5 checks its variants, then their
+    kernels at the new shapes. Returns the launch counts of the kernels on
+    their paths and the max |diff| of the kernel rows."""
+    phase("5f. frontends: whisper_tiny CONFIG (bf16 KV, int8 KV, chunk "
+          "128, int4 resident; 8 slots, 1500 frames a slot) and "
+          f"internvl2_76b CONFIG over {INTERNVL_LAYERS} layers; f32 weights "
+          "(seed 0)")
+    t_phase = time.perf_counter()
+    launches = {}
+    whisper_part(dev, card, launches)
+    internvl_part(dev, card, launches)
+    errs = frontend_kernel_rows(dev, card)
+    print(f"  phase 5f: {time.perf_counter() - t_phase:.1f} s wall; {card}",
           flush=True)
     return launches, errs
 
@@ -2439,15 +2738,16 @@ def new_kernel_phase(dev):
     return errs
 
 
-def full_bound(b, hq, hkv, lq, lk, d, es=4, mmas=None):
-    """Least time (ms) of causal full-sequence attention: the f32 flops of
-    the kept (query, key) pairs over the f32 CUDA-core rate (the rate B3's
-    row uses), against q, k, v read once and the output written once over
-    the memory rate. With `mmas`, the same work at the kernel's own
-    instruction mix instead: each f32 product as that many bf16
-    tensor-core MMAs on three-term operands (6 for f32 K/V, 3 for bf16)
-    over the bf16 tensor rate."""
-    pairs = b * hq * sum(min(i + 1, lk) for i in range(lq))
+def full_bound(b, hq, hkv, lq, lk, d, es=4, mmas=None, causal=True):
+    """Least time (ms) of full-sequence attention (causal: query i at
+    position i): the f32 flops of the kept (query, key) pairs over the f32
+    CUDA-core rate (the rate B3's row uses), against q, k, v read once and
+    the output written once over the memory rate. With `mmas`, the same
+    work at the kernel's own instruction mix instead: each f32 product as
+    that many bf16 tensor-core MMAs on three-term operands (6 for f32 K/V,
+    3 for bf16) over the bf16 tensor rate."""
+    pairs = b * hq * (sum(min(i + 1, lk) for i in range(lq)) if causal
+                      else lq * lk)
     t_ops = pairs * d * 4 / F32_FLOPS_PER_S
     if mmas is not None:
         t_ops = pairs * d * 4 * mmas / BF16_FLOPS_PER_S
@@ -2785,7 +3085,13 @@ def main() -> int:
         launches[kname] += n
     for kname, err in d80_errs.items():
         errs[kname] = max(errs[kname], err)
-    launches.update(fullseq_phase(dev, smi))
+    frontend_launches, frontend_errs = frontends_phase(dev, smi)
+    for kname, n in frontend_launches.items():
+        launches[kname] += n
+    for kname, err in frontend_errs.items():
+        errs[kname] = max(errs[kname], err)
+    for kname, n in fullseq_phase(dev, smi).items():
+        launches[kname] += n
     launches.update(morphable_phase(dev))
     phase("8. summary")
     demotions = [w for w in WARNINGS if DEMOTED in w]

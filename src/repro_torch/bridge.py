@@ -9,7 +9,9 @@ unit's j-th kind (gemma2: ``0_dense_local`` and ``1_dense_global``, layers
 weight copy for every invocation — while its caches are, one KV cache an
 invocation). The port keeps one block per layer, in layer order
 (`ModelConfig.segments`; zamba2's shared block is one module at each of
-its positions). These
+its positions). The audio family's encoder params (``params["encoder"]``,
+stacked (encoder_layers, ...)) become the `encoder` ModuleList, each
+decoder layer's ``xattn`` and ``lnx`` its CrossAttention and norm. These
 functions take the JAX pytrees with every leaf already converted to numpy
 (``jax.tree.map(np.asarray, tree)``) — so this module imports no JAX — and
 unstack them into the port's layout, keeping the tied embedding tied. A
@@ -132,12 +134,36 @@ def params_from_jax(np_params, cfg: ModelConfig,
             if hasattr(mod, name):
                 linear(getattr(mod, name), p[name], i)
 
+    def attention_block(block, p, i):
+        """A DenseBlock (the encoder's too) or an EncDecBlock."""
+        for name in ("ln1", "lnx", "ln2", "pn1", "pn2"):
+            if getattr(block, name, None) is not None:
+                _norm(getattr(block, name), p[name], i)
+        for att in ("attn", "xattn"):
+            if hasattr(block, att):
+                for name in ("q", "k", "v", "o"):
+                    linear(getattr(getattr(block, att), name),
+                           p[att][name], i)
+        moe = getattr(block, "moe", None)
+        if moe is not None:
+            linear(moe.router, p["moe"]["router"], i)
+            for name in ("gate", "up", "down"):
+                _put(getattr(moe, name), p["moe"][name][i])
+            if moe.shared is not None:
+                mlp(moe.shared, p["moe"]["shared"], i)
+        else:
+            mlp(block.mlp, p["mlp"], i)
+
     _put(model.embed.table, np_params["embed"]["table"])
     _norm(model.final_norm, np_params["final_norm"])
     if model.lm_head is not None:
         _put(model.lm_head.w, np_params["lm_head"]["w"])
     if model.pos is not None:
         _put(model.pos, np_params["pos"])
+    if model.encoder is not None:
+        for i, block in enumerate(model.encoder):
+            attention_block(block, np_params["encoder"], i)
+        _norm(model.enc_norm, np_params["enc_norm"])
     done = set()
     for block, (p, i) in zip(model.layers, layers):
         if id(block) in done:             # the shared block, set once
@@ -146,21 +172,8 @@ def params_from_jax(np_params, cfg: ModelConfig,
         if block.kind in RECURRENT_KINDS:
             _norm(block.ln, p["ln"], i)
             mixer_from_jax(block.mixer, p[block.kind], i, device)
-            continue
-        for name in ("ln1", "ln2", "pn1", "pn2"):
-            if getattr(block, name) is not None:
-                _norm(getattr(block, name), p[name], i)
-        for name in ("q", "k", "v", "o"):
-            linear(getattr(block.attn, name), p["attn"][name], i)
-        if block.moe is not None:
-            moe = block.moe
-            linear(moe.router, p["moe"]["router"], i)
-            for name in ("gate", "up", "down"):
-                _put(getattr(moe, name), p["moe"][name][i])
-            if moe.shared is not None:
-                mlp(moe.shared, p["moe"]["shared"], i)
         else:
-            mlp(block.mlp, p["mlp"], i)
+            attention_block(block, p, i)
     return model
 
 

@@ -1,6 +1,7 @@
-"""The architecture registry of the port: the configs whose model family is
-ported (the dense llama family, olmo, gpt2, internlm2, gemma2, the MoE
-family, the hybrid zamba2 and the recurrent xlstm). Each arch module
+"""The architecture registry of the port: the reference's twelve configs
+(the dense llama family, olmo, gpt2, internlm2, gemma2, the MoE family,
+the hybrid zamba2, the recurrent xlstm, the encoder-decoder whisper and
+the vision-language internvl2). Each arch module
 exports CONFIG (full, paper-exact widths) and SMOKE (reduced, same family
 and features, CPU-sized), as data against the port's own ModelConfig."""
 from __future__ import annotations
@@ -11,7 +12,7 @@ __all__ = ["ARCH_IDS", "get_arch", "get_config", "get_smoke"]
 
 ARCH_IDS = ["qwen2_1p5b", "llama2_7b", "internlm2_20b", "olmo_1b",
             "gpt2_small", "gemma2_27b", "olmoe_1b_7b", "kimi_k2",
-            "zamba2_2p7b", "xlstm_1p3b"]
+            "zamba2_2p7b", "xlstm_1p3b", "whisper_tiny", "internvl2_76b"]
 
 
 def get_arch(arch_id: str):

@@ -20,12 +20,16 @@ __all__ = ["make_prefill_step"]
 
 def make_prefill_step(cfg: T.ModelConfig) -> Callable:
     """A step (model, batch) -> next-token ids (B,) (greedy: the argmax of
-    the last position's logits); batch["tokens"] is (B, L)."""
+    the last position's logits); batch["tokens"] is (B, L), and the
+    optional batch["patch_embeds"] and batch["frames"] go to `forward` as
+    its prefix_embeds and frames."""
     def prefill_step(model: T.Transformer,
                      batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         if model.cfg != cfg:
             raise ValueError(f"the step was made for {cfg.name}, the model "
                              f"is {model.cfg.name}")
-        logits, _ = T.forward(model, batch["tokens"])
+        logits, _ = T.forward(model, batch["tokens"],
+                              prefix_embeds=batch.get("patch_embeds"),
+                              frames=batch.get("frames"))
         return torch.argmax(logits[:, -1], dim=-1)
     return prefill_step

@@ -1,6 +1,7 @@
 """GQA attention block with a KV cache: QKV bias (qwen2), logit softcap
 and sliding window, the int8 KV cache format, and the paged block-pool
-layout of both.
+layout of both; and the encoder-decoder cross attention (whisper), which
+has neither RoPE nor a cache.
 
 The caches are updated IN PLACE: each step writes its new K/V into the
 preallocated (B, Hkv, max_len, D) buffers, or into the (P, Hkv, bs, D)
@@ -24,7 +25,8 @@ from .layers import Linear, QuantPolicy, rope
 __all__ = ["KVCache", "QuantKVCache", "PagedKVCache", "PagedQuantKVCache",
            "PAGED_TYPES", "init_kv_cache", "init_paged_kv_cache",
            "paged_kv_cache", "striped_table", "pool_fields",
-           "pool_block_values", "store_pool_blocks", "Attention"]
+           "pool_block_values", "store_pool_blocks", "Attention",
+           "CrossAttention"]
 
 
 @dataclasses.dataclass
@@ -352,4 +354,31 @@ class Attention(nn.Module):
                                self.softcap, lengths=lengths)
         cache.pos = start + (l if lengths is None
                              else lengths.to(start.dtype))
+        return self.o(_merge_heads(out))
+
+
+class CrossAttention(nn.Module):
+    """Encoder-decoder cross attention (whisper's decoder): q from x, k and
+    v from the encoder's `memory` (B, T, d_model), recomputed every call
+    (no cache, as in the reference), no RoPE; non-causal, so the call goes
+    where `attention_route` sends it (the full-sequence kernel for a
+    128-aligned query, the `ref` route otherwise)."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+                 *, gen=None, device="cuda", dtype=torch.float32,
+                 policy: QuantPolicy = QuantPolicy()):
+        super().__init__()
+        kw = dict(gen=gen, device=resolve_device(device), dtype=dtype,
+                  policy=policy)
+        self.q = Linear(d_model, n_heads * head_dim, **kw)
+        self.k = Linear(d_model, n_kv * head_dim, **kw)
+        self.v = Linear(d_model, n_kv * head_dim, **kw)
+        self.o = Linear(n_heads * head_dim, d_model, **kw)
+        self.n_heads, self.n_kv = n_heads, n_kv
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        q = _split_heads(self.q(x), self.n_heads)
+        k = _split_heads(self.k(memory), self.n_kv)
+        v = _split_heads(self.v(memory), self.n_kv)
+        out = aio_ops.attention(q, k, v, causal=False)
         return self.o(_merge_heads(out))

@@ -10,16 +10,21 @@ the MoE family (olmoe, kimi-k2: `moe.MoE` in place of the MLP, after
 `n_dense_layers` dense layers), the recurrent family (xlstm: mLSTM
 layers with an sLSTM every `slstm_every`-th) and the hybrid one (zamba2:
 Mamba2 layers with ONE shared attention+MLP block invoked every
-`attn_every`-th layer: one weight copy, a KV cache per invocation). The
+`attn_every`-th layer: one weight copy, a KV cache per invocation), the
+encoder-decoder one (whisper: an `encoder` stack of non-causal "enc"
+blocks over the audio frames, whose output `memory` every "encdec"
+decoder layer cross-attends after its causal self-attention) and the
+vision-language one (internvl2: a dense decoder; `forward` prepends
+patch embeddings to the token stream). The frontends themselves (the
+audio conv stem, the vision tower) are stubs in the reference too: the
+caller passes frame or patch embeddings of width d_model. The
 JAX package scans stacked segment params with `lax.scan`; here the layers
 are an `nn.ModuleList` in layer order (`ModelConfig.block_kinds`; the
 shared block sits at each of its positions, one module object), run in a
 Python loop, and the caches a list with one cache per layer: a KV cache,
 updated in place, or a recurrent state (`ssm.MambaCache`, `MLSTMCache`,
 `SLSTMCache`), whose fields each step rebinds to new tensors. A model
-with recurrent blocks decodes one token a row per `decode_step`. The
-encoder-decoder family and the frontends raise NotImplementedError
-(ROADMAP A7).
+with recurrent blocks decodes one token a row per `decode_step`.
 
 `quantize_params` makes the Linear weights resident in an AIO format, in
 place (the dense weights are freed, as the reference's donating launcher
@@ -49,7 +54,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..core import formats as F
-from .attention import (PAGED_TYPES, Attention, KVCache,
+from .attention import (PAGED_TYPES, Attention, CrossAttention, KVCache,
                         QuantKVCache, init_kv_cache, init_paged_kv_cache,
                         pool_block_values, pool_fields, store_pool_blocks,
                         striped_table)
@@ -59,8 +64,8 @@ from .moe import MoE
 from . import ssm
 
 __all__ = ["ModelConfig", "Transformer", "DenseBlock", "RecurrentBlock",
-           "init_params",
-           "forward", "loss_fn", "decode_step", "init_caches",
+           "EncDecBlock", "init_params",
+           "forward", "encode", "loss_fn", "decode_step", "init_caches",
            "reset_slots", "scrub_slots",
            "set_block_tables", "copy_pool_blocks", "gather_pool_blocks",
            "write_pool_blocks", "kv_caches", "quantize_params",
@@ -119,11 +124,15 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def segments(self) -> List[Tuple[Tuple[str, ...], int]]:
-        """The reference's layer layout: (unit of block kinds, repeats)
-        pairs, for the layouts the port runs — dense, gemma2's alternating
-        local/global layers, MoE after `n_dense_layers` dense ones, zamba2's
-        Mamba2 layers with the shared attention block every `attn_every`-th,
-        and xlstm's mLSTM layers with an sLSTM every `slstm_every`-th."""
+        """The reference's layer layout of the decoder: (unit of block
+        kinds, repeats) pairs — dense, gemma2's alternating local/global
+        layers, MoE after `n_dense_layers` dense ones, zamba2's Mamba2
+        layers with the shared attention block every `attn_every`-th,
+        xlstm's mLSTM layers with an sLSTM every `slstm_every`-th, and the
+        audio family's "encdec" layers (its `encoder_layers` "enc" blocks
+        are the `encoder` stack, outside this layout)."""
+        if self.family == "audio":
+            return [(("encdec",), self.n_layers)]
         for every, kinds in ((self.attn_every, ("mamba", "shared_attn")),
                              (self.slstm_every, ("mlstm", "slstm"))):
             if every:
@@ -153,6 +162,7 @@ class ModelConfig:
 
 
 _MLP_KINDS = ("swiglu", "geglu", "gelu")
+_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
 
@@ -162,23 +172,27 @@ def has_recurrent(cfg: ModelConfig) -> bool:
     return any(k in RECURRENT_KINDS for k in cfg.block_kinds())
 
 
+def has_cross_attention(cfg: ModelConfig) -> bool:
+    """True for the encoder-decoder family: its decoder layers read the
+    encoder's memory, which belongs to a batch row (a serving slot)."""
+    return "encdec" in cfg.block_kinds()
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     unported = []
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+    if cfg.family not in _FAMILIES:
         unported.append(f"family {cfg.family!r}")
-    if cfg.encoder_layers or cfg.cross_attention:
-        unported.append("encoder-decoder")
-    if cfg.frontend:
-        unported.append(f"frontend {cfg.frontend!r}")
     if cfg.norm not in _NORMS:
         unported.append(f"norm {cfg.norm!r}")
     if cfg.mlp_kind not in _MLP_KINDS:
         unported.append(f"mlp {cfg.mlp_kind!r}")
     if unported:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not ported yet; the dense, "
-            "gemma2, MoE, hybrid and recurrent families are (see "
-            "ROADMAP.md, A7)")
+            f"{cfg.name}: {', '.join(unported)} not ported; the port runs "
+            f"the reference's families {_FAMILIES} (ROADMAP.md, A)")
+    if cfg.family == "audio" and cfg.encoder_layers < 1:
+        raise ValueError(f"{cfg.name}: an audio config needs an encoder "
+                         f"(encoder_layers {cfg.encoder_layers})")
 
 
 def _layer_window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -194,8 +208,9 @@ def _layer_window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 class DenseBlock(nn.Module):
     """Pre-norm block of one layer kind ("dense", "dense_local",
-    "dense_global", "moe", or zamba2's "shared_attn", a dense block whose
-    one instance serves every shared position): x + attn(ln1(x)), then +
+    "dense_global", "moe", zamba2's "shared_attn", a dense block whose
+    one instance serves every shared position, or the audio encoder's
+    "enc", whose attention is non-causal): x + attn(ln1(x)), then +
     ffn(ln2(x)), the
     ffn an `MLP` of `cfg.mlp_kind` or, for "moe", the `MoE` layer
     (attribute `moe`); optional post-norms (pn1/pn2) on each branch. The
@@ -208,6 +223,7 @@ class DenseBlock(nn.Module):
         d = cfg.d_model
         nkw = dict(device=device, dtype=dtype)
         self.kind = kind
+        self.causal = kind != "enc"
         self.ln1 = norm(cfg.norm, d, **nkw)
         self.attn = Attention(
             d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
@@ -234,7 +250,8 @@ class DenseBlock(nn.Module):
                 lengths: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Returns (x, the MoE aux loss or None)."""
-        h = self.attn(self.ln1(x), cache=cache, lengths=lengths)
+        h = self.attn(self.ln1(x), causal=self.causal, cache=cache,
+                      lengths=lengths)
         if self.pn1 is not None:
             h = self.pn1(h)
         x = x + h
@@ -246,6 +263,38 @@ class DenseBlock(nn.Module):
         if self.pn2 is not None:
             h = self.pn2(h)
         return x + h, aux
+
+
+class EncDecBlock(nn.Module):
+    """The audio decoder's layer ("encdec"): x + attn(ln1(x)), causal
+    self-attention over the layer's KV cache (RoPE, no bias, window or
+    softcap, as the reference's), then + xattn(lnx(x), memory), the
+    `CrossAttention` over the encoder's output, then + mlp(ln2(x))."""
+
+    kind = "encdec"
+
+    def __init__(self, cfg: ModelConfig, *, gen=None, device="cuda",
+                 dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        d = cfg.d_model
+        nkw = dict(device=device, dtype=dtype)
+        kw = dict(gen=gen, device=device, dtype=dtype, policy=cfg.quant)
+        self.ln1 = norm(cfg.norm, d, **nkw)
+        self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                              rope_theta=cfg.rope_theta, **kw)
+        self.lnx = norm(cfg.norm, d, **nkw)
+        self.xattn = CrossAttention(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                    **kw)
+        self.ln2 = norm(cfg.norm, d, **nkw)
+        self.mlp = MLP(d, cfg.d_ff, cfg.mlp_kind, **kw)
+
+    def forward(self, x: torch.Tensor, *, memory: torch.Tensor, cache=None,
+                lengths: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, None]:
+        x = x + self.attn(self.ln1(x), cache=cache, lengths=lengths)
+        x = x + self.xattn(self.lnx(x), memory)
+        return x + self.mlp(self.ln2(x)), None
 
 
 class RecurrentBlock(nn.Module):
@@ -298,9 +347,12 @@ class RecurrentBlock(nn.Module):
 class Transformer(nn.Module):
     """Embedding (+ a learned position table `pos` (max_seq, d_model) with
     cfg.learned_pos) -> one block per layer, of the kinds
-    `cfg.block_kinds()` (a DenseBlock, or a RecurrentBlock; zamba2's one
-    shared DenseBlock at each "shared_attn" position) -> final norm ->
-    unembedding (tied to the embedding table, or an lm_head Linear)."""
+    `cfg.block_kinds()` (a DenseBlock, a RecurrentBlock or an EncDecBlock;
+    zamba2's one shared DenseBlock at each "shared_attn" position) ->
+    final norm -> unembedding (tied to the embedding table, or an lm_head
+    Linear). The audio family also holds the `encoder`, a ModuleList of
+    `encoder_layers` "enc" DenseBlocks, and its `enc_norm` (None
+    elsewhere)."""
 
     def __init__(self, cfg: ModelConfig, *, gen=None, device="cuda",
                  dtype=torch.float32):
@@ -314,10 +366,19 @@ class Transformer(nn.Module):
         if cfg.learned_pos:
             self.pos = _normal((cfg.max_seq, cfg.d_model), 0.01, gen, device,
                                dtype)
+        self.encoder = self.enc_norm = None
+        if cfg.family == "audio":
+            self.encoder = nn.ModuleList(
+                DenseBlock(cfg, "enc", **kw)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = norm(cfg.norm, cfg.d_model, device=device,
+                                 dtype=dtype)
         blocks, shared_attn = [], None
         for kind in cfg.block_kinds():
             if kind in RECURRENT_KINDS:
                 blocks.append(RecurrentBlock(cfg, kind, **kw))
+            elif kind == "encdec":
+                blocks.append(EncDecBlock(cfg, **kw))
             elif kind == "shared_attn":
                 if shared_attn is None:
                     shared_attn = DenseBlock(cfg, kind, **kw)
@@ -423,24 +484,77 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     return Transformer(cfg, gen=gen, device=dev, dtype=dtype)
 
 
+def _sinusoid(length: int, d: int, *, device) -> torch.Tensor:
+    """The encoder's fixed (length, d) float32 position table: sin then
+    cos of pos / 10000^(i / (d/2)), i < d/2 (the reference's)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / (d // 2)))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
 @torch.no_grad()
-def forward(model: Transformer, tokens: torch.Tensor):
+def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
+    """The audio encoder over frame embeddings (B, T, d_model): frames +
+    the sinusoid positions, the non-causal "enc" blocks (RoPE at arange(T)
+    inside their attention, as the reference's uncached attention), then
+    `enc_norm` -> the cross-attention memory (B, T, d_model). The serving
+    engine runs it once, at construction."""
+    if model.encoder is None:
+        raise ValueError(f"{model.cfg.name} has no encoder")
+    if frames is None:
+        raise ValueError(f"{model.cfg.name}: the encoder needs frames "
+                         "(B, T, d_model)")
+    x = frames + _sinusoid(frames.shape[1], model.cfg.d_model,
+                           device=frames.device).to(frames.dtype)
+    for layer in model.encoder:
+        x, _ = layer(x)
+    return model.enc_norm(x)
+
+
+def _run_layers(model: Transformer, x: torch.Tensor, caches=None,
+                lengths=None, memory=None):
+    """x through every decoder layer (with its cache, when given);
+    returns (x, the summed MoE aux loss or None)."""
+    extra = {} if memory is None else {"memory": memory}
+    if model.encoder is not None and memory is None:
+        raise ValueError(f"{model.cfg.name}: the decoder needs the "
+                         "encoder's memory (frames=, or memory=)")
+    aux = None
+    for i, layer in enumerate(model.layers):
+        cache = None if caches is None else caches[i]
+        x, a = layer(x, cache=cache, lengths=lengths, **extra)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+@torch.no_grad()
+def forward(model: Transformer, tokens: torch.Tensor, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None):
     """Full-sequence forward. tokens: (B, L) -> (logits (B, L, V), aux).
     aux is the MoE auxiliary loss summed over the layers (zero without
-    MoE layers). Learned positions add pos[:L]; gemma scales the
-    embeddings by sqrt(d_model) here and not in `decode_step`, as the
-    reference does."""
+    MoE layers). prefix_embeds (B, P, d_model): the vision family's patch
+    embeddings, prepended to the token embeddings (their positions are
+    dropped before the unembedding); frames (B, T, d_model): the audio
+    family's encoder input (`encode`). Learned positions add pos[:P + L]
+    after the concatenation; gemma scales the embeddings by sqrt(d_model)
+    here and not in `decode_step`, as the reference does."""
     cfg = model.cfg
     x = model.embed(tokens)
+    memory = None if model.encoder is None else encode(model, frames)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], 1)
     if model.pos is not None:
         x = x + model.pos[:x.shape[1]]
     if cfg.name.startswith("gemma"):
         x = x * math.sqrt(cfg.d_model)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in model.layers:
-        x, a = layer(x)
-        if a is not None:
-            aux = aux + a
+    x, aux = _run_layers(model, x, memory=memory)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if prefix_embeds is not None:
+        x = x[:, prefix_embeds.shape[1]:]
     logits = model.unembed(model.final_norm(x))
     return logits, aux
 
@@ -450,9 +564,12 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
             aux_weight: float = 0.01):
     """Causal-LM cross entropy (+ aux_weight x the MoE aux loss), the
     reference's `loss_fn` as a value. batch: "tokens" (B, L) and "labels"
-    (B, L); labels < 0 (-100) mask a position out. Returns (loss + aux_weight
-    * aux, {"loss": loss, "aux": aux})."""
-    logits, aux = forward(model, batch["tokens"])
+    (B, L), optionally "frames" and "patch_embeds" (`forward`'s frames and
+    prefix_embeds); labels < 0 (-100) mask a position out. Returns (loss +
+    aux_weight * aux, {"loss": loss, "aux": aux})."""
+    logits, aux = forward(model, batch["tokens"],
+                          prefix_embeds=batch.get("patch_embeds"),
+                          frames=batch.get("frames"))
     labels = batch["labels"]
     mask = labels >= 0
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
@@ -466,8 +583,12 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def decode_step(model: Transformer, caches: List, tokens: torch.Tensor, *,
+                memory: Optional[torch.Tensor] = None,
                 lengths: Optional[torch.Tensor] = None):
     """One cached step. tokens: (B, l) -> (logits (B, l, V), caches).
+    memory: the audio family's encoder output (B, T, d_model) (`encode`),
+    which every decoder layer cross-attends; required there, unused
+    elsewhere.
 
     l is 1 for a decode step; a chunked prefill passes a right-padded
     (B, l) block with `lengths` (B,) marking each row's valid-token count —
@@ -490,8 +611,7 @@ def decode_step(model: Transformer, caches: List, tokens: torch.Tensor, *,
                + torch.arange(tokens.shape[1], device=x.device)).clamp(
                    0, model.pos.shape[0] - 1)
         x = x + model.pos[idx]
-    for layer, cache in zip(model.layers, caches):
-        x, _ = layer(x, cache=cache, lengths=lengths)
+    x, _ = _run_layers(model, x, caches, lengths, memory)
     return model.unembed(model.final_norm(x)), caches
 
 

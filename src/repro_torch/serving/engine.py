@@ -21,6 +21,15 @@ refused for such a model (ROADMAP C: the reference's paged engine starts
 a prefix-hit row past the shared tokens, which then never pass through
 its recurrent state).
 
+An encoder-decoder model (whisper) is served with `frames=`, one audio
+clip a SLOT: the engine encodes them once, at construction, and every
+launch's decoder layers cross-attend that memory, so a request hears the
+audio of the slot it lands in (a quarantine replay too, and a snapshot
+restored into an engine built with other frames), as in the reference.
+Its paged engine is refused too (ROADMAP C: from the second decoder layer
+on, a row's self-attention K/V depend on its slot's audio, so a prefix
+block written in one slot is not the prefix of another).
+
 Each launch is ONE step program: `decode_step` plus a fused per-row
 numeric-health reduction (all logits finite). The gather of each row's last
 valid position and the argmax run on the device; only (slots,) int32
@@ -105,7 +114,7 @@ import torch
 
 from .. import api
 from ..models import transformer as T
-from ..models.attention import Attention
+from ..models.attention import Attention, CrossAttention
 from ..models.layers import MLP
 from . import faults as faultlib
 from .swap import HostBlockStore
@@ -182,6 +191,7 @@ class ServingEngine:
     def __init__(self, cfg: T.ModelConfig, model: T.Transformer, *,
                  slots: int = 4, max_len: int = 512,
                  eos_id: Optional[int] = None,
+                 frames=None,
                  policy: Optional[api.ExecutionPolicy] = None,
                  weight_format: Optional[str] = None,
                  prefill_chunk: int = 32,
@@ -196,6 +206,12 @@ class ServingEngine:
         """model: the Transformer to serve; the engine runs on the device
         its weights live on (`init_params` puts them on the card unless
         asked for the CPU).
+
+        frames: (slots, T, d_model) audio frame embeddings (numpy or a
+        tensor), required for an encoder-decoder model and unused
+        otherwise: encoded once here, under the engine's policy and
+        weights (`transformer.encode`), into `self.memory`, which every
+        launch's decoder layers cross-attend, row s the audio of slot s.
 
         policy: the ExecutionPolicy every op of the engine dispatches
         under; one engine = one policy (a launch failure re-pins it to the
@@ -243,7 +259,8 @@ class ServingEngine:
         reservation cannot be met at all; below it the engine keeps
         pool x (1 - watermark) blocks of headroom. With equal priorities
         the watermark only drives registry eviction. A model with
-        recurrent blocks cannot be served paged: ValueError."""
+        recurrent blocks or cross attention cannot be served paged:
+        ValueError."""
         if weight_format not in (None, "none"):
             model = T.resident_view(model, weight_format)
         if prefill_chunk < 1:
@@ -256,6 +273,12 @@ class ServingEngine:
                 f"{cfg.name}: paged serving of a model with recurrent "
                 "blocks is not supported (ROADMAP C: a prefix hit would "
                 "start the row past tokens its recurrent state never saw)")
+        if self._paged and T.has_cross_attention(cfg):
+            raise ValueError(
+                f"{cfg.name}: paged serving of a model with cross attention "
+                "is not supported (ROADMAP C: a row's K/V past the first "
+                "decoder layer depend on its slot's audio, so a prefix "
+                "block another slot wrote is not this row's prefix)")
         if self._paged:
             self._pg_init(slots, max_len, block_size, pool_blocks,
                           swap_watermark)
@@ -274,6 +297,9 @@ class ServingEngine:
         self.max_replays = max_replays
         self.deadline_steps = deadline_steps
         self.ttl_s = ttl_s
+        self.memory = None
+        if model.encoder is not None:
+            self.memory = self._encode(frames)
         self.queue: Deque[Request] = deque()
         self.finished: List[Request] = []
         self.stats = EngineStats()
@@ -304,6 +330,19 @@ class ServingEngine:
         return api.policy(self.policy) if self.policy is not None \
             else contextlib.nullcontext()
 
+    def _encode(self, frames) -> torch.Tensor:
+        """The cross-attention memory of (slots, T, d_model) frames."""
+        if frames is None:
+            raise ValueError(f"{self.cfg.name}: an encoder-decoder model is "
+                             "served with frames= (slots, T, d_model)")
+        frames = torch.as_tensor(frames, dtype=torch.float32).to(self.device)
+        if frames.dim() != 3 or frames.shape[0] != self.slots \
+                or frames.shape[2] != self.cfg.d_model:
+            raise ValueError(f"frames {tuple(frames.shape)}: want (slots "
+                             f"{self.slots}, T, d_model {self.cfg.d_model})")
+        with self._policy_ctx():
+            return T.encode(self.model, frames)
+
     def _merged_mode(self) -> bool:
         """Recurrent models (and chunk-1 engines) advance prefill one token
         a launch: prefill and decode share one l=1 launch a step."""
@@ -325,7 +364,7 @@ class ServingEngine:
             probe = self._probe
         with self._policy_ctx(), probe or contextlib.nullcontext():
             logits, _ = T.decode_step(self.model, self.caches, tokens,
-                                      lengths=lengths)
+                                      memory=self.memory, lengths=lengths)
         health = torch.isfinite(logits).flatten(1).all(1)
         if probe is not None:
             health &= probe.finite()
@@ -1592,9 +1631,10 @@ def _req_rebuild(st: dict, now: float) -> Request:
 
 class _InputProbe:
     """The resident engine's health probe over one model. Inside `with`,
-    each attention output (o) and MLP output projection (down, or a GELU
-    MLP's fc2) writes the per-row sum of its input into one (points,
-    slots) float32 buffer, one reduction launch each, a point per
+    each decoder attention's output (o; self and cross attention) and MLP
+    output projection (down, or a GELU MLP's fc2) writes the per-row sum
+    of its input into one (points, slots) float32 buffer, one reduction
+    launch each, a point per
     invocation (zamba2's shared block runs at every shared position, so
     its two projections record there each time); `finite()` then
     gives (slots,) True where every sum is finite. No other check sees
@@ -1602,22 +1642,21 @@ class _InputProbe:
     NaN or inf as a finite value (the reference's `quantize_scaled` rule,
     ROADMAP C), while a NaN anywhere else rides the residual stream to the
     logits. An MoE layer is not probed: its Linears are never resident
-    (and its shared expert sees flattened tokens, not slots). The hooks
+    (and its shared expert sees flattened tokens, not slots); nor is the
+    audio encoder, which runs once, at the engine's construction. The hooks
     live only for the launch, so the model carries none between steps."""
 
     def __init__(self, model):
         self.model = model
-        self.mods = [m.o if isinstance(m, Attention) else m.out_proj
-                     for name, m in model.named_modules()
-                     if isinstance(m, (Attention, MLP))
+        self.mods = [_probe_point(m)
+                     for name, m in model.layers.named_modules()
+                     if isinstance(m, _PROBED)
                      and "moe" not in name.split(".")]
         # invocations a launch: each probed module once per layer holding it
         probed = {id(m) for m in self.mods}
         self.points = sum(
             1 for layer in model.layers for m in layer.modules()
-            if isinstance(m, (Attention, MLP))
-            and id(m.o if isinstance(m, Attention) else m.out_proj)
-            in probed)
+            if isinstance(m, _PROBED) and id(_probe_point(m)) in probed)
         self.buf: Optional[torch.Tensor] = None
 
     def __enter__(self):
@@ -1641,6 +1680,15 @@ class _InputProbe:
 
     def finite(self) -> torch.Tensor:
         return torch.isfinite(self.buf[:self.n].sum(0))
+
+
+_PROBED = (Attention, CrossAttention, MLP)
+
+
+def _probe_point(m):
+    """The Linear whose input `_InputProbe` sums: an attention's output
+    projection, an MLP's projection back to d_model."""
+    return m.out_proj if isinstance(m, MLP) else m.o
 
 
 def _dispatch_raiser(fault: faultlib.Fault):

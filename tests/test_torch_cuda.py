@@ -1472,3 +1472,51 @@ def test_zamba2_merged_engine_on_card_matches_ref_in_lockstep(dev,
     assert st.prefill_chunk_calls == 0
     assert kern.launches == 2 * st.model_calls
     assert st.quarantines == ref.stats.quarantines == 0
+
+
+# ================================= the frontend families' shapes (A7 step 5)
+# whisper-tiny's cross attention: 6 heads of 64 (MHA) over 1500 frames;
+# its resident cross k/v projections at 8 slots x 1500 frames; internvl2's
+# down projection
+WHISPER_H, WHISPER_D, WHISPER_FRAMES = 6, 64, 1500
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq", [(1, 256), (8, 128), (1, 77)])
+def test_full_attention_kernel_at_whisper_cross_shape(dev, kv_dtype, b, lq):
+    """B8 non-causal over whisper's 1500 frames (not a multiple of the key
+    tile: the tail is masked): a 256-token forward, a 128-token chunk of 8
+    slots and a ragged Lq, within 1e-4 of the plain version, no NaN."""
+    q, k, v = _data(dev, 83, b, WHISPER_H, WHISPER_H, lq, WHISPER_FRAMES,
+                    WHISPER_D)
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert not got.isnan().any()
+    _close(got, flash_attention_plain(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("mode", ["int4", "fp8a"])
+@pytest.mark.parametrize("m,k,n", [(12000, 384, 384), (8, 28672, 8192)])
+def test_gemm_and_quantizer_at_frontend_shapes(dev, mode, m, k, n):
+    """B10 then B5 as a resident Linear runs them: whisper's cross k/v
+    projection of 8 slots x 1500 frames (M 12,000, K = N = 384) and
+    internvl2's down projection (K 28,672, N 8192) at a decode step's 8
+    rows. The quantizer bitwise on the activations; the GEMM bitwise
+    (int4) or within rtol 2e-5, atol 2e-5 * max|plain| (fp8a)."""
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    x = torch.randn(m, k, generator=g, device=dev)
+    codes, scale = aio_quant(x, fmt_name=mode, floor=F.FLT_MIN)
+    want_codes, want_scale = aio_quant_plain(x, fmt_name=mode,
+                                             floor=F.FLT_MIN)
+    assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+    _, w, _, ws = _gemm_operands(dev, mode, 8, k, n, seed=k + n)
+    got = aio_matmul(codes, w, scale, ws, mode=mode)
+    want = aio_matmul_plain(codes, w, scale, ws, mode=mode)
+    if mode == "int4":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-5,
+                                   atol=2e-5 * want.abs().max().item())

@@ -17,8 +17,9 @@ non-trivial norm gains and biases so their mapping shows):
   both packages; on MoE configs the routes give different tokens, because
   a chunk's pad rows (0 on the kernel route, attention over stale cache
   on ref) compete for expert capacity;
-* every config the port does not run yet raises NotImplementedError
-  naming ROADMAP A7."""
+* every config of the reference builds in the port, the frontend families
+  (whisper, internvl2) too, with the reference's fields and layer kinds
+  (their parity: tests/test_torch_frontends.py)."""
 import dataclasses
 
 import jax
@@ -380,9 +381,9 @@ def test_resident_int8_matches_jax_resident_engine(arch, port_models):
 
 # ====================================================== config coverage
 def test_every_ported_arch_builds():
-    """`get_config` / `get_smoke` for all ten archs; `Transformer`
+    """`get_config` / `get_smoke` for all twelve archs; `Transformer`
     builds each SMOKE config with the reference's layer kinds."""
-    assert len(ARCH_IDS) == 10
+    assert len(ARCH_IDS) == 12
     for arch in ARCH_IDS:
         full, smoke = get_config(arch), get_smoke(arch)
         assert full.family == smoke.family
@@ -407,12 +408,17 @@ def test_recurrent_archs_now_build_with_the_reference_block_kinds(arch):
 
 
 @pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_76b"])
-def test_unported_archs_raise_naming_a7(arch):
-    """The families the port does not run yet (audio, vlm) refuse to
-    build, naming ROADMAP A7, and are not in the registry."""
+def test_frontend_archs_now_build_with_the_reference_block_kinds(arch):
+    """The frontend families (A7 step 5: audio, vlm), refused before, now
+    build from the reference's own SMOKE config (its fields copied over),
+    with the reference's decoder layer kinds (whisper's "encdec", and its
+    encoder of `encoder_layers` "enc" blocks), and are in the registry."""
     jcfg = jax_smoke(arch)
     fields = {f.name for f in dataclasses.fields(ModelConfig)} - {"quant"}
     cfg = ModelConfig(**{f: getattr(jcfg, f) for f in fields})
-    assert arch not in ARCH_IDS
-    with pytest.raises(NotImplementedError, match="A7"):
-        init_params(cfg, device="cpu")
+    assert arch in ARCH_IDS and cfg == get_smoke(arch)
+    model = init_params(cfg, device="cpu")
+    assert [b.kind for b in model.layers] == jcfg.block_kinds()
+    assert cfg.segments() == jcfg.segments()
+    enc = [] if model.encoder is None else [b.kind for b in model.encoder]
+    assert enc == ["enc"] * jcfg.encoder_layers
