@@ -54,6 +54,18 @@ of JAX or of the JAX package `repro`. Phases:
    them the padded output columns exactly 0. The depthwise conv (B11) at
    1x1, 3x3, 5x5, 7x7 and 9x9 and at 3x5 and 7x1, odd H and W, C = 3, 24,
    40, 130, 576, f32 and bf16: bitwise.
+3e. The AIO GEMM (B5) against the paper's multiplier model
+   (`core/aio_mac.py`), bit for bit: one launch a mode computes an outer
+   product of single products (x holds M codes at k = 0, w holds N codes,
+   every other k position a zero code, scales 1;
+   `kernels/aio_matmul/oracle.py`): every fp8a x fp8a and fp8b x fp8b
+   code pair equal to `aio_fp_multiply(a, b, f, f, BF16)` decoded, every
+   int8 pair (256 x 256) and int4 pair (16 x 16) to `aio_int_multiply`,
+   and 65,536 random bf16 pairs, RNE-rounded to bf16, to
+   `aio_fp_multiply(..., BF16)`; a zero product compares as +0 (the K-long
+   sum's sign). Prints each mode's mismatches, and those among the pairs
+   with a subnormal operand; any mismatch fails. These launches are not
+   counted as the main path's.
 4. Timing: CUDA-event time per launch of each kernel, its plain version and
    one PyTorch library call computing the same function (timed only here),
    beside the least time the card could take: the larger of the bytes the
@@ -219,6 +231,34 @@ of JAX or of the JAX package `repro`. Phases:
    64); B10 then B5 in int4 at M 12,000, K = N = 384 and at M 8, K
    28,672, N 8192. One decode step of whisper and of internvl2 is
    profiled. Prints the phase's wall time.
+5g. Multi-tenant serving: `MorphableScheduler()` on the card's device grid
+   (1 x 1: the fused 128 x 128 plan of Fig 8-(h), both tenants in one
+   partition) with the serve launcher's two tenants, declared int8:
+   captioning on the olmoe_1b_7b CONFIG (full width and depth, seed 0)
+   and classification on the qwen2_1p5b CONFIG (full width and depth,
+   seed 1), their Linears resident in int8 (`quantize_params`; olmoe's
+   experts stay dense), ~29 GB together; 4 slots, max_len 256, chunk 32,
+   8 requests a tenant of 16-200 prompt tokens, 32 new tokens. (1) The
+   launcher's order: both engines built (routes cuda-decode /
+   cuda-prefill / resident-int8) and attached, then each served through
+   `sched.run`, one after the other; B1, B3, B5 and B10 must launch in
+   each tenant (counted as differences around its own steps; B5 and B10
+   once per resident Linear of each model call), and the scheduler's
+   `occupancy()` / `utilization()` read mid-flight must show the serving
+   tenant busy and the other idle. Prints each tenant's tok/s, step
+   medians and the peak memory. (2) Each tenant in lockstep against an
+   engine running the plain quantizer and GEMM (attention on its kernels;
+   olmoe's also following the expert dispatch): tokens equal to (1) and
+   to the comparison's but at near-ties, the quantizer's codes bitwise on
+   every row with bitwise equal inputs. (3) Interleaved: the same
+   requests on fresh engines, both tenants pending, `step()` alternating
+   between the engines until both drain: every token bitwise equal to
+   (1), the same launches, both tenants busy at once; one decode-only
+   step of each profiled. (4) `launch.serve.main(["--multi-tenant",
+   "--requests", "2", "--max-new", "4"])` (the SMOKE tenants), then a
+   single-tenant run with `--format int8 --backend ref` (no kernel
+   launch). No engine may quarantine a row or fail a request. Prints the
+   phase's wall time.
 6. Full-sequence path: the qwen2_1p5b CONFIG at full width and depth
    (phase 5's weights, seed 0), 4 random prompts of 1,920 tokens:
    `forward`, `launch.steps.make_prefill_step` and `loss_fn` (labels the
@@ -300,6 +340,10 @@ from repro_torch.models.moe import MoE, expert_capacity  # noqa: E402
 from repro_torch.serving import (FaultPlan, Request,  # noqa: E402
                                  ServingEngine, drive_with_plan)
 from repro_torch.serving.faults import Fault  # noqa: E402
+from repro_torch.kernels.aio_matmul.oracle import (  # noqa: E402
+    ORACLE_MODES, oracle_check)
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.tenancy import MorphableScheduler, Tenant  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
@@ -778,6 +822,27 @@ def paged_kernel_phase(dev):
                 errs[name] = max(errs.get(name, 0.0), err)
         del cases
     return errs
+
+
+def oracle_phase(dev):
+    """Phase 3e: the AIO GEMM against the paper's multiplier model
+    (`core/aio_mac.py`), bit for bit, one outer-product launch a mode
+    (`kernels/aio_matmul/oracle.py`). Its launches compare a kernel with
+    the model and are not the main path's."""
+    phase("3e. AIO GEMM vs the multiplier model core/aio_mac.py, bit for "
+          "bit (one outer-product launch a mode: every fp8 / int8 / int4 "
+          "code pair, 65,536 random bf16 pairs)")
+    for mode in ORACLE_MODES:
+        before = aio_matmul.launches
+        got = oracle_check(mode, dev)
+        check(aio_matmul.launches == before + 1, f"oracle {mode}: the GEMM "
+              "kernel did not launch once")
+        print(f"  {mode}: {got['mismatches']} of {got['pairs']} products "
+              f"differ from aio_mac; {got['subnormal_mismatches']} of the "
+              f"{got['subnormal_pairs']} pairs with a subnormal operand",
+              flush=True)
+        check(got["mismatches"] == 0, f"oracle {mode}: the GEMM kernel "
+              f"differs from the multiplier model: {got}")
 
 
 def timing_phase(dev):
@@ -2605,6 +2670,274 @@ def frontends_phase(dev, card):
     return launches, errs
 
 
+# ---------------------------------------------- multi-tenant serving (5g)
+# the serve launcher's two tenants (captioning olmoe_1b_7b, classification
+# qwen2_1p5b) at full width and depth, seeds 0 and 1, Linears resident in
+# int8 (olmoe's experts dense, as in the reference)
+TENANT_FORMAT = "int8"
+TENANT_GEO = dict(slots=4, max_len=256, prefill_chunk=W)
+TENANT_PLENS = [16, 200, 64, 137, 33, 180, 90, 24]
+TENANT_NEW = 32
+TENANT_OCC_STEP = 8                # decode steps before the mid-flight read
+TENANT_PROFILE_STEP = 12           # profile a decode-only step from here
+TENANT_KERNELS = (flash_decode, flash_prefill, aio_matmul, aio_quant)
+
+
+class TenantEngine(CodeEngine, RouteEngine):
+    """An MoE tenant's checked engine: its resident Linears' codes
+    followed as `CodeEngine` follows them, its expert dispatch as
+    `RouteEngine` follows it."""
+
+
+def occupancy_text(sched) -> str:
+    cells = {name: " ".join("--" if o is None else
+                            f"r{o['rid']}+{o['generated']}" for o in occ)
+             for name, occ in sched.occupancy().items()}
+    util = sched.utilization()
+    return "; ".join(f"{name} [{cells[name]}] util {util[name]:.2f}"
+                     for name in cells)
+
+
+def tenant_launches(fn, *args):
+    """fn(*args) and the launches of the tenant kernels it made, counted
+    as differences (the counters are module-global)."""
+    before = {k.__name__: k.launches for k in TENANT_KERNELS}
+    out = fn(*args)
+    return out, {k.__name__: k.launches - before[k.__name__]
+                 for k in TENANT_KERNELS}
+
+
+def serve_tenant(sched, name, eng, prompts, max_new):
+    """The launcher's loop for one tenant: submit, then step until it
+    drains, reading the scheduler's occupancy once mid-flight. Returns
+    (wall s, chunk-step ms, decode-step ms, the mid-flight reading)."""
+    submit_all(eng, prompts, max_new)
+    chunk_ms, decode_ms, seen = [], [], None
+    t0 = time.perf_counter()
+    while eng.pending():
+        calls = prefill_calls(eng)
+        ts = time.perf_counter()
+        eng.step()
+        dt = 1e3 * (time.perf_counter() - ts)
+        (chunk_ms if prefill_calls(eng) > calls else decode_ms).append(dt)
+        if seen is None and eng.stats.decode_steps >= TENANT_OCC_STEP:
+            seen = (occupancy_text(sched), sched.utilization())
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, chunk_ms, decode_ms, seen
+
+
+def drive_lockstep(eng, shadow, prompts, max_new):
+    """`shadow` put in eng's state before every step, then the same step."""
+    submit_all(eng, prompts, max_new)
+    submit_all(shadow, prompts, max_new)
+    while eng.pending():
+        copy_state(shadow, eng)
+        eng.step()
+        shadow.step()
+    check(not shadow.pending(), "a lockstep engine did not drain in step")
+
+
+def tenancy_phase(dev, card):
+    """Phase 5g: the multi-tenant path. Returns the launch counts of the
+    tenant kernels over the launcher-order pass (the main path)."""
+    phase(f"5g. multi-tenant: MorphableScheduler() on the card's grid, "
+          f"olmoe_1b_7b (captioning) and qwen2_1p5b (classification) "
+          f"CONFIG at full width and depth, Linears resident in "
+          f"{TENANT_FORMAT}; 4 slots, max_len 256, chunk 32, 8 requests a "
+          f"tenant, {TENANT_NEW} new tokens")
+    t_phase = time.perf_counter()
+    sched = MorphableScheduler()
+    parts = sched.reconfigure([
+        Tenant(name, weight_rows=rows, weight_cols=cols, fmt=TENANT_FORMAT)
+        for name, _, rows, cols in serve_launcher.TENANTS])
+    names = tuple(name for name, *_ in serve_launcher.TENANTS)
+    check(sched.plan.describe() == "128x128" and len(parts) == 1
+          and parts[0].tenants == names
+          and parts[0].mesh.devices.shape == (1, 1),
+          f"one card: want the fused 128x128 plan with both tenants in one "
+          f"partition, got {sched.plan.describe()} {parts}")
+    print(f"  fusion plan {sched.plan.describe()}; partitions "
+          f"{[(p.tenants, p.mesh.devices.shape) for p in parts]} on "
+          f"{parts[0].mesh.first()}", flush=True)
+
+    # the launcher's order: both models and engines built, engines attached
+    tenants = {}
+    for seed, (name, arch, *_) in enumerate(serve_launcher.TENANTS):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        model = init_params(cfg, seed=seed, device=dev)
+        quantize_params(model, TENANT_FORMAT)
+        eng = ServingEngine(cfg, model, **TENANT_GEO)
+        routes = (eng.decode_route(), eng.prefill_route(), eng.weight_route())
+        want = ("cuda-decode", "cuda-prefill", f"resident-{TENANT_FORMAT}")
+        check(routes == want, f"{name}: routes {routes}, want {want}")
+        eng.warmup()
+        sched.attach_engine(name, eng)
+        n_lin = sum(isinstance(m, Linear) and m.fmt is not None
+                    for layer in model.layers for m in layer.modules())
+        torch.cuda.synchronize()
+        print(f"  [{name}] {arch}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}"
+              + (f", {cfg.n_experts} experts top {cfg.top_k} (dense)"
+                 if cfg.n_experts else "")
+              + f"; {n_lin} resident Linears; built in "
+              f"{time.perf_counter() - t0:.1f}s; routes {routes}",
+              flush=True)
+        tenants[name] = dict(cfg=cfg, model=model, eng=eng, n_lin=n_lin,
+                             prompts=family_prompts(cfg.vocab, TENANT_PLENS,
+                                                    seed=3 + seed))
+    mem = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ALL_KERNELS:
+        k.launches = 0
+    served = {}
+    for name, t in tenants.items():
+        (wall, chunk_ms, decode_ms, seen), counts = tenant_launches(
+            sched.run, name, serve_tenant, sched, name, t["eng"],
+            t["prompts"], TENANT_NEW)
+        st = t["eng"].stats
+        t["counts"] = counts
+        check(all(counts.values()), f"{name}: a kernel of the path never "
+              f"launched: {counts}")
+        per_call = t["n_lin"] * st.model_calls
+        check(counts["aio_matmul"] == counts["aio_quant"] == per_call,
+              f"{name}: {counts} AIO launches, want {per_call}")
+        others = [k for k, u in seen[1].items() if k != name]
+        check(seen[1][name] > 0 and all(seen[1][k] == 0 for k in others),
+              f"{name}: mid-flight utilization {seen[1]}")
+        check_no_faults(name, t["eng"])
+        served[name] = tokens(t["eng"])
+        n_tok = st.generated_tokens
+        print(f"  [{name}] sched.run: {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.1f} tok/s; {len(chunk_ms)} chunk steps "
+              f"(median {np.median(chunk_ms):.2f} ms), {len(decode_ms)} "
+              f"decode-only steps (median {np.median(decode_ms):.2f} ms); "
+              f"launches {counts} ({t['n_lin']} AIO pairs a model call x "
+              f"{st.model_calls}); mid-flight: {seen[0]}", flush=True)
+    launches = {k.__name__: k.launches for k in TENANT_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  both tenants resident: {mem / 2**30:.2f} GiB allocated before "
+          f"serving, max_memory_allocated {peak / 2**30:.2f} GiB; final "
+          f"occupancy: {occupancy_text(sched)}; {card}", flush=True)
+
+    t_part = time.perf_counter()
+    print(f"  launcher order: {t_part - t_phase:.1f} s", flush=True)
+
+    # each tenant in lockstep against the plain quantizer and GEMM
+    for name, t in tenants.items():
+        cfg, model = t["cfg"], t["model"]
+        cls = TenantEngine if cfg.n_experts else CodeEngine
+        eng = cls(cfg, model, gemm=KERNEL_GEMM, **TENANT_GEO)
+        shadow = cls(cfg, model, gemm=PLAIN_GEMM, follow=eng, **TENANT_GEO)
+        sched.run(name, drive_lockstep, eng, shadow, t["prompts"],
+                  TENANT_NEW)
+        check_no_faults(f"{name} lockstep", eng, shadow)
+        got = tokens(eng)
+        check(got == served[name], f"{name}: the checked pass's tokens "
+              "differ from the launcher-order pass's")
+        compared, skipped, bad = compare(name, got, shadow)
+        check(bad is None, f"lockstep: {bad}")
+        same, bad_rows, first = (int(shadow.rows_same),
+                                 int(shadow.rows_bad),
+                                 int(shadow.first_differ))
+        check(bad_rows == 0 and first == 0 and same > 0,
+              f"{name}: lockstep quantizer check: {bad_rows} of {same} rows "
+              f"with bitwise equal inputs got other codes; {first} rows of "
+              "the steps' first calls had unequal inputs")
+        if cfg.n_experts:
+            # the two engines differ only by the GEMM's and quantizer's
+            # implementations, bitwise equal in int8: the same dispatch
+            ids, keep, seen = (int(shadow.ids_differ),
+                               int(shadow.keep_differ),
+                               int(shadow.valid_seen))
+            check(seen > 0 and ids <= seen // 100, f"{name}: the lockstep "
+                  f"engine's own experts differed on {ids} of {seen} valid "
+                  "token-layers")
+            print(f"  [{name}] lockstep dispatch: the plain-GEMM engine's own "
+                  f"experts differed on {ids}, its kept assignments on "
+                  f"{keep}, of {seen} valid token-layers", flush=True)
+        print(f"  [{name}] lockstep vs the plain quantizer and GEMM: "
+              f"{compared} tokens match, {skipped} near-tie step(s) "
+              f"skipped; {same} of {shadow.rows_seen} activation rows had "
+              "bitwise equal inputs, each given the kernel's codes and "
+              "scale by the plain quantizer", flush=True)
+        del eng, shadow
+    torch.cuda.empty_cache()
+    print(f"  lockstep: {time.perf_counter() - t_part:.1f} s", flush=True)
+    t_part = time.perf_counter()
+
+    # interleaved: fresh engines, both tenants pending, steps alternating
+    fresh = {}
+    for name, t in tenants.items():
+        eng = ServingEngine(t["cfg"], t["model"], **TENANT_GEO)
+        submit_all(eng, t["prompts"], TENANT_NEW)
+        sched.attach_engine(name, eng)
+        fresh[name] = dict(eng=eng, counts=dict.fromkeys(
+            (k.__name__ for k in TENANT_KERNELS), 0), profile=None)
+    both_busy, steps = None, 0
+    while any(f["eng"].pending() for f in fresh.values()):
+        for name, f in fresh.items():
+            eng = f["eng"]
+            if not eng.pending():
+                continue
+            decode_only = (steps >= TENANT_PROFILE_STEP and not eng.queue
+                           and not eng._prefilling.any())
+            calls = prefill_calls(eng)
+            if f["profile"] is None and decode_only:
+                text, counts = tenant_launches(sched.run, name, profiled,
+                                               eng.step)
+                if prefill_calls(eng) == calls:
+                    f["profile"] = (steps, int(eng._occupied().sum()), text)
+            else:
+                _, counts = tenant_launches(sched.run, name, eng.step)
+            for k, n in counts.items():
+                f["counts"][k] += n
+        steps += 1
+        util = sched.utilization()
+        if both_busy is None and all(u > 0 for u in util.values()):
+            both_busy = occupancy_text(sched)
+    check(both_busy is not None, "interleaved: the two tenants were never "
+          "busy at once")
+    for name, f in fresh.items():
+        check_no_faults(f"{name} interleaved", f["eng"])
+        check(tokens(f["eng"]) == served[name], f"{name}: interleaved "
+              "tokens differ from the tenant served alone")
+        check(f["counts"] == tenants[name]["counts"], f"{name}: "
+              f"interleaved launches {f['counts']}, alone "
+              f"{tenants[name]['counts']}")
+        if f["profile"] is not None:
+            step, rows, text = f["profile"]
+            print(f"  [{name}] profile of interleaved step {step} (decode "
+                  f"only, {rows} rows): {text}", flush=True)
+    print(f"  interleaved ({steps} rounds, {time.perf_counter() - t_part:.1f}"
+          " s): every token of both tenants bitwise equal to the tenant "
+          f"served alone, the same launches; both busy: {both_busy}",
+          flush=True)
+    t_part = time.perf_counter()
+    del tenants, fresh, sched
+    torch.cuda.empty_cache()
+
+    # the launcher itself: --multi-tenant (SMOKE tenants), then one
+    # single-tenant run with the format and backend flags
+    done = serve_launcher.main(["--multi-tenant", "--requests", "2",
+                                "--max-new", "4"])
+    check(sorted(done) == sorted(names) and all(
+        len(reqs) == 2 and all(len(r.out_tokens) == 4 for r in reqs)
+        for reqs in done.values()), f"launcher --multi-tenant: {done}")
+    done = serve_launcher.main(["--format", TENANT_FORMAT, "--backend",
+                                "ref", "--requests", "2", "--max-new", "4"])
+    check(len(done) == 2 and all(len(r.out_tokens) == 4 for r in done)
+          and not any(k.launches for k in serve_launcher.KERNELS),
+          "launcher --format int8 --backend ref: 2 requests of 4 tokens, "
+          "and no kernel launch on the ref route")
+    torch.cuda.empty_cache()
+    print(f"  launcher runs: {time.perf_counter() - t_part:.1f} s", flush=True)
+    print(f"  phase 5g: {time.perf_counter() - t_phase:.1f} s wall; {card}",
+          flush=True)
+    return launches
+
+
 # ------------------------------------- full-sequence attention, B9 and B11
 FULL_CASES = [
     # the reference's six cases (tests/test_kernels.py), then non-causal,
@@ -3070,6 +3403,7 @@ def main() -> int:
     errs.update(paged_kernel_phase(dev))
     errs.update(aio_kernel_phase(dev))
     errs.update(new_kernel_phase(dev))
+    oracle_phase(dev)
     times = timing_phase(dev)
     times.update(paged_timing_phase(dev))
     times.update(aio_timing_phase(dev))
@@ -3090,6 +3424,8 @@ def main() -> int:
         launches[kname] += n
     for kname, err in frontend_errs.items():
         errs[kname] = max(errs[kname], err)
+    for kname, n in tenancy_phase(dev, smi).items():
+        launches[kname] += n
     for kname, n in fullseq_phase(dev, smi).items():
         launches[kname] += n
     launches.update(morphable_phase(dev))

@@ -18,6 +18,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -27,6 +28,7 @@ __all__ = [
     "encode", "decode", "pow2_ceil", "pow2_scale", "quantize_scaled",
     "bias_for_scale", "pack_int4", "unpack_int4", "QuantWeight",
     "quantize_weight", "dequantize_weight", "RESIDENT_FORMATS",
+    "np_quantize_fp", "np_encode_fp", "np_decode_fp",
 ]
 
 # smallest normal float32 (jnp.finfo(jnp.float32).tiny): pow2_scale's floor
@@ -222,6 +224,68 @@ def fake_quant(x: torch.Tensor, fmt_name: str) -> torch.Tensor:
     """Forward of the reference's straight-through fake-quant (the STE
     backward comes with the training stack)."""
     return quantize(x, REGISTRY[fmt_name])
+
+
+# ---- exact numpy/float64 reference (the reference package's oracle of the
+# ---- bit-accurate multiplier model in ``aio_mac.py``; float64 keeps every
+# ---- float32 subnormal, so it is the ground truth of the bit-level tests).
+
+def np_quantize_fp(x: np.ndarray, fmt: AIOFormat) -> np.ndarray:
+    x = np.asarray(x, dtype=np.float64)
+    a = np.abs(x)
+    sgn = np.copysign(1.0, x)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        _, e2 = np.frexp(a)
+    ebit = e2 - 1
+    eff = np.maximum(ebit, fmt.emin)
+    step_exp = eff - fmt.mbits
+    # np.round is RNE
+    q = np.ldexp(np.round(np.ldexp(a, -step_exp)), step_exp)
+    q = np.minimum(q, fmt.max_finite)
+    out = sgn * q
+    out = np.where(a == 0, np.copysign(0.0, x), out)
+    if fmt.reserve_specials:
+        out = np.where(np.isinf(x), x, out)
+        out = np.where(np.isnan(x), x, out)
+    return out
+
+
+def np_encode_fp(x: np.ndarray, fmt: AIOFormat) -> np.ndarray:
+    q = np_quantize_fp(x, fmt)
+    a = np.abs(q)
+    sgn = np.signbit(q).astype(np.int64)
+    _, e2 = np.frexp(a)
+    ebit = e2 - 1
+    is_normal = a >= 2.0 ** fmt.emin
+    e_code = np.where(is_normal, ebit + fmt.bias, 0).astype(np.int64)
+    m_norm = np.round(np.ldexp(a, -ebit) * (1 << fmt.mbits)) - (1 << fmt.mbits)
+    m_sub = np.round(np.ldexp(a, -(fmt.emin - fmt.mbits)))
+    m_code = np.where(is_normal, m_norm, m_sub).astype(np.int64)
+    code = (sgn << (fmt.ebits + fmt.mbits)) | (e_code << fmt.mbits) | m_code
+    code = np.where(a == 0, sgn << (fmt.ebits + fmt.mbits), code)
+    if fmt.reserve_specials:
+        top = (1 << fmt.ebits) - 1
+        inf_code = (sgn << (fmt.ebits + fmt.mbits)) | (top << fmt.mbits)
+        code = np.where(np.isinf(q), inf_code, code)
+        code = np.where(np.isnan(q), inf_code | 1, code)
+    return code
+
+
+def np_decode_fp(code: np.ndarray, fmt: AIOFormat) -> np.ndarray:
+    code = np.asarray(code, dtype=np.int64)
+    m_mask = (1 << fmt.mbits) - 1
+    m_code = code & m_mask
+    e_code = (code >> fmt.mbits) & ((1 << fmt.ebits) - 1)
+    sgn = np.where((code >> (fmt.ebits + fmt.mbits)) & 1 == 1, -1.0, 1.0)
+    normal = e_code > 0
+    sig = np.where(normal, (1 << fmt.mbits) + m_code, m_code).astype(np.float64)
+    exp = np.where(normal, e_code - fmt.bias, fmt.emin) - fmt.mbits
+    val = sgn * np.ldexp(sig, exp)
+    if fmt.reserve_specials:
+        top = (1 << fmt.ebits) - 1
+        val = np.where((e_code == top) & (m_code == 0), sgn * np.inf, val)
+        val = np.where((e_code == top) & (m_code != 0), np.nan, val)
+    return val
 
 
 # =============================================================================

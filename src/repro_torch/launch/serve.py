@@ -1,4 +1,4 @@
-"""Serving launcher.
+"""Serving launcher — single- or multi-tenant.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1p5b \\
         --requests 6 --max-new 8                         # on the card
@@ -13,12 +13,24 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --paged --pool-blocks 16 --priority 0,1 --swap-watermark 0.75 \\
         --deadline-steps 40 --max-queue 8                # robustness knobs
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --format int8 --backend ref      # fake-quant int8 Linears, ref route
+    PYTHONPATH=src python -m repro_torch.launch.serve --multi-tenant \\
+        --requests 2 --max-new 4         # two tenants on the card's grid
 
 Random weights from seed 0, 4 slots of 128 positions, prompts of 3-9
 random tokens. Prints the routes the attention and the Linear weights
-take, the token rate and the launch counts of the kernels, the fault
-counters, every route demotion, and with --paged the block pool's
-occupancy, sharing and swap counters.
+take, the slots' occupancy mid-flight, the token rate and the launch
+counts of the kernels, the fault counters, every route demotion, and with
+--paged the block pool's occupancy, sharing and swap counters.
+
+--multi-tenant runs the paper's §VI-C scenario shape, as the reference
+launcher does: a captioning tenant (olmoe_1b_7b) and a classification
+tenant (qwen2_1p5b), both declared in int8, placed by the morphable
+scheduler on partitions of the device grid (one card: the fused 128x128
+plan, both tenants in one partition), and served one after the other
+through `MorphableScheduler.run` from their SMOKE configs, whatever
+--smoke says.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from .. import api
 from ..configs import ARCH_IDS, get_config, get_smoke
 from ..core.formats import RESIDENT_FORMATS
 from ..kernels.aio_matmul import aio_matmul
@@ -36,18 +49,138 @@ from ..kernels.aio_quant import aio_quant
 from ..kernels.flash_attention import KERNELS as ATTENTION_KERNELS
 from ..kernels.flash_attention import PAGED_KERNELS
 from ..models import init_params, quantize_params
+from ..models.layers import QuantPolicy
 from ..serving import Request, ServingEngine
+from ..tenancy import MorphableScheduler, Tenant, device_grid
 
 
 KERNELS = (*ATTENTION_KERNELS, *PAGED_KERNELS, aio_matmul, aio_quant)
+# the reference launcher's §VI-C tenants: (name, arch, weight rows, cols)
+TENANTS = (("captioning", "olmoe_1b_7b", 64, 512),
+           ("classification", "qwen2_1p5b", 64, 768))
+
+
+def _occupancy_line(eng: ServingEngine) -> str:
+    cells = ["--" if o is None else f"r{o['rid']}+{o['generated']}"
+             for o in eng.occupancy()]
+    return f"slots [{' '.join(cells)}] util {eng.utilization():.2f}"
+
+
+def _run_engine(arch: str, smoke: bool, n_requests: int, max_new: int,
+                seed: int = 0, policy: api.ExecutionPolicy = None,
+                sched=None, tenant: str = None, weight_format: str = None,
+                device="cuda", kv_quant: bool = False,
+                prefill_chunk: int = 32, max_queue: int = None,
+                deadline_steps: int = None, ttl_s: float = None,
+                paged: bool = False, block_size: int = 16,
+                pool_blocks: int = None, swap_watermark: float = 1.0,
+                priorities: list = None):
+    """Build one engine (random weights from `seed`), serve `n_requests`
+    random prompts step by step and return the finished requests."""
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    cfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+    if policy is not None and policy.format != "bf16":
+        # the policy's format plane reaches the model through its
+        # QuantPolicy: every Linear fake-quantizes activations and weights
+        # to the format
+        cfg = dataclasses.replace(cfg, quant=QuantPolicy(
+            activations=policy.format, weights=policy.format))
+    model = init_params(cfg, seed=seed, device=device)
+    if weight_format not in (None, "none"):
+        # in place, so the dense weights are freed before the engine's
+        # caches exist (the reference's launcher quantizes with donation)
+        quantize_params(model, weight_format)
+    eng = ServingEngine(cfg, model, slots=4, max_len=128, policy=policy,
+                        prefill_chunk=prefill_chunk, paged=paged,
+                        block_size=block_size, pool_blocks=pool_blocks,
+                        swap_watermark=swap_watermark, max_queue=max_queue,
+                        deadline_steps=deadline_steps, ttl_s=ttl_s)
+    t0 = time.perf_counter()
+    eng.warmup()
+    print(f"[serve:{arch}] warmup {time.perf_counter() - t0:.2f}s "
+          f"(prefill route {eng.prefill_route()}, decode route "
+          f"{eng.decode_route()}, weight route {eng.weight_route()}, device "
+          f"{eng.device})")
+    if sched is not None and tenant is not None:
+        sched.attach_engine(tenant, eng)
+    for k in KERNELS:
+        k.launches = 0
+    rng = np.random.RandomState(seed)
+    for rid in range(n_requests):
+        prompt = rng.randint(1, cfg.vocab, rng.randint(3, 10)).astype(np.int32)
+        prio = priorities[rid % len(priorities)] if priorities else 0
+        if not eng.submit(Request(rid, prompt, max_new_tokens=max_new,
+                                  priority=prio)):
+            print(f"[serve:{arch}] request {rid} REJECTED "
+                  f"(queue full at {max_queue})")
+    # drive step by step so the slots' occupancy is observable mid-flight
+    t0 = time.perf_counter()
+    while eng.pending():
+        eng.step()
+        if eng.stats.decode_steps in (1, max(2, max_new // 2)):
+            print(f"[serve:{arch}] step {eng.stats.decode_steps}: "
+                  f"{_occupancy_line(eng)}")
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    done = eng.finished
+    toks = sum(len(r.out_tokens) for r in done)
+    st = eng.stats
+    print(f"[serve:{arch}] {len(done)} requests, {toks} tokens, "
+          f"{dt:.2f}s ({toks / dt:.1f} tok/s; {st.decode_steps} decode "
+          f"steps, {st.prefill_chunk_calls} chunked prefills, "
+          f"{st.prefill_token_steps} prefill token steps)")
+    print(f"[serve:{arch}] kernel launches: "
+          + ", ".join(f"{k.__name__}={k.launches}" for k in KERNELS))
+    print(f"[serve:{arch}] fault counters: quarantines={st.quarantines} "
+          f"demotions={st.demotions} timeouts={st.timeouts} "
+          f"rejected={st.rejected_submits} failed={st.failed_requests}")
+    if paged:
+        ps = eng.pool_stats()
+        print(f"[serve:{arch}] pool: {ps['pool_blocks']} blocks "
+              f"(block_size={ps['block_size']}) used={ps['used_blocks']} "
+              f"registry={ps['registry_entries']} "
+              f"hits={ps['prefix_hits']}/{ps['admitted']} "
+              f"shared_tokens={ps['shared_tokens']} cow={ps['cow_copies']} "
+              f"evictions={ps['evictions']} skips={ps['eviction_skips']} "
+              f"deferred={ps['deferred_admissions']}")
+        print(f"[serve:{arch}] swap: watermark "
+              f"{ps['swap_watermark']:.2f} (soft cap "
+              f"{ps['watermark_blocks']} blocks) preemptions="
+              f"{ps['preemptions']} out={ps['swap_outs']} "
+              f"in={ps['swap_ins']} bytes_out={ps['swap_bytes_out']} "
+              f"bytes_in={ps['swap_bytes_in']} host_resident="
+              f"{ps['host_blocks']} blocks ({ps['host_bytes']} B)")
+    for ev in eng.degraded_routes():
+        print(f"[serve:{arch}] DEGRADED at step {ev['step']}: "
+              f"{ev['from']} -> {ev['to']} ({ev['error']})")
+    return done
 
 
 def main(argv=None):
+    """Returns the finished requests, or with --multi-tenant a dict of
+    them by tenant name."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2_1p5b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced SMOKE config instead of full width")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--multi-tenant", action="store_true",
+                    help="two tenants (olmoe_1b_7b captioning, qwen2_1p5b "
+                         "classification; SMOKE configs) on the morphable "
+                         "scheduler's partitions of the device grid")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "cuda", "ref"),
+                    help="ExecutionPolicy backend plane: 'auto' routes the "
+                         "attention and resident Linears to the kernels "
+                         "(their plain versions on CPU tensors), 'cuda' "
+                         "too but refuses CPU tensors, 'ref' runs the plain "
+                         "eager reference")
+    ap.add_argument("--format", default="bf16",
+                    choices=("bf16", "fp8a", "fp8b", "int8", "int4"),
+                    help="AIO format applied to every Linear through the "
+                         "model's QuantPolicy (fake-quantized activations "
+                         "and weights; bf16 = none)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache (codes + pow2 scales)")
     ap.add_argument("--weight-format", choices=RESIDENT_FORMATS,
@@ -85,70 +218,42 @@ def main(argv=None):
                     help="per-request wall-clock TTL in seconds")
     args = ap.parse_args(argv)
 
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    cfg = dataclasses.replace(cfg, kv_quant=args.kv_quant)
-    model = init_params(cfg, seed=0, device=args.device)
-    if args.weight_format:
-        # in place, so the dense weights are freed before the engine's
-        # caches exist (the reference's launcher quantizes with donation)
-        quantize_params(model, args.weight_format)
-    eng = ServingEngine(cfg, model, slots=4, max_len=128,
-                        prefill_chunk=args.prefill_chunk, paged=args.paged,
-                        block_size=args.block_size,
-                        pool_blocks=args.pool_blocks,
-                        swap_watermark=args.swap_watermark,
-                        max_queue=args.max_queue,
-                        deadline_steps=args.deadline_steps, ttl_s=args.ttl_s)
-    t0 = time.perf_counter()
-    eng.warmup()
-    print(f"[serve:{args.arch}] warmup {time.perf_counter() - t0:.2f}s "
-          f"(prefill route {eng.prefill_route()}, decode route "
-          f"{eng.decode_route()}, weight route {eng.weight_route()}, device "
-          f"{eng.device})")
-    for k in KERNELS:
-        k.launches = 0
+    policy = api.ExecutionPolicy(format=args.format, backend=args.backend)
     priorities = ([int(x) for x in args.priority.split(",")]
-                  if args.priority else [0])
-    rng = np.random.RandomState(0)
-    for rid in range(args.requests):
-        prompt = rng.randint(1, cfg.vocab, rng.randint(3, 10)).astype(np.int32)
-        eng.submit(Request(rid, prompt, max_new_tokens=args.max_new,
-                           priority=priorities[rid % len(priorities)]))
-    t0 = time.perf_counter()
-    done = eng.run_until_drained()
-    if eng.device.type == "cuda":
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    toks = sum(len(r.out_tokens) for r in done)
-    st = eng.stats
-    print(f"[serve:{args.arch}] {len(done)} requests, {toks} tokens, "
-          f"{dt:.2f}s ({toks / dt:.1f} tok/s; {st.decode_steps} decode "
-          f"steps, {st.prefill_chunk_calls} chunked prefills, "
-          f"{st.prefill_token_steps} prefill token steps)")
-    print(f"[serve:{args.arch}] kernel launches: "
-          + ", ".join(f"{k.__name__}={k.launches}" for k in KERNELS))
-    print(f"[serve:{args.arch}] fault counters: quarantines={st.quarantines} "
-          f"demotions={st.demotions} timeouts={st.timeouts} "
-          f"rejected={st.rejected_submits} failed={st.failed_requests}")
-    if args.paged:
-        ps = eng.pool_stats()
-        print(f"[serve:{args.arch}] pool: {ps['pool_blocks']} blocks "
-              f"(block_size={ps['block_size']}) used={ps['used_blocks']} "
-              f"registry={ps['registry_entries']} "
-              f"hits={ps['prefix_hits']}/{ps['admitted']} "
-              f"shared_tokens={ps['shared_tokens']} cow={ps['cow_copies']} "
-              f"evictions={ps['evictions']} skips={ps['eviction_skips']} "
-              f"deferred={ps['deferred_admissions']}")
-        print(f"[serve:{args.arch}] swap: watermark "
-              f"{ps['swap_watermark']:.2f} (soft cap "
-              f"{ps['watermark_blocks']} blocks) preemptions="
-              f"{ps['preemptions']} out={ps['swap_outs']} "
-              f"in={ps['swap_ins']} bytes_out={ps['swap_bytes_out']} "
-              f"bytes_in={ps['swap_bytes_in']} host_resident="
-              f"{ps['host_blocks']} blocks ({ps['host_bytes']} B)")
-    for ev in eng.degraded_routes():
-        print(f"[serve:{args.arch}] DEGRADED at step {ev['step']}: "
-              f"{ev['from']} -> {ev['to']} ({ev['error']})")
+                  if args.priority else None)
+    if not args.multi_tenant:
+        return _run_engine(args.arch, args.smoke, args.requests,
+                           args.max_new, policy=policy,
+                           weight_format=args.weight_format,
+                           device=args.device, kv_quant=args.kv_quant,
+                           prefill_chunk=args.prefill_chunk,
+                           max_queue=args.max_queue,
+                           deadline_steps=args.deadline_steps,
+                           ttl_s=args.ttl_s, paged=args.paged,
+                           block_size=args.block_size,
+                           pool_blocks=args.pool_blocks,
+                           swap_watermark=args.swap_watermark,
+                           priorities=priorities)
+
+    # §VI-C-shaped scenario: two tenants on morphable grid partitions (the
+    # card's grid, or one CPU device when asked for the CPU)
+    sched = MorphableScheduler(None if args.device == "cuda"
+                               else device_grid([[args.device]]))
+    parts = sched.reconfigure([Tenant(name, weight_rows=rows,
+                                      weight_cols=cols, fmt="int8")
+                               for name, _, rows, cols in TENANTS])
+    print(f"[serve] fusion plan: {sched.plan.describe()}; partitions: "
+          f"{[p.tenants for p in parts]}")
+    done = {}
+    for tenant, arch, _, _ in TENANTS:
+        done[tenant] = sched.run(
+            tenant, _run_engine, arch, True, args.requests, args.max_new,
+            policy=policy, sched=sched, tenant=tenant,
+            weight_format=args.weight_format, device=args.device,
+            prefill_chunk=args.prefill_chunk)
+    for name, occ in sched.occupancy().items():
+        print(f"[serve] tenant {name}: final {len(occ)} slots, "
+              f"{sum(o is not None for o in occ)} busy")
     return done
 
 

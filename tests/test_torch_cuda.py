@@ -1520,3 +1520,49 @@ def test_gemm_and_quantizer_at_frontend_shapes(dev, mode, m, k, n):
     else:
         torch.testing.assert_close(got, want, rtol=2e-5,
                                    atol=2e-5 * want.abs().max().item())
+
+
+# ====================================== multi-tenant serving and the model (A8)
+@pytest.mark.parametrize("mode", ["fp8a", "fp8b", "int8", "int4", "bf16"])
+def test_gemm_kernel_equals_the_multiplier_model(dev, mode):
+    """One launch of the AIO GEMM as an outer product of single products
+    (`kernels/aio_matmul/oracle.py`), bit for bit against the paper's
+    multiplier model `core.aio_mac`: every fp8 / int8 / int4 code pair,
+    65,536 random bf16 pairs (after RNE to bf16)."""
+    from repro_torch.kernels.aio_matmul.oracle import oracle_check
+    before = aio_matmul.launches
+    got = oracle_check(mode, dev)
+    assert aio_matmul.launches == before + 1
+    assert got["mismatches"] == 0, got
+
+
+@pytest.mark.parametrize("weight_format", [None, "int8"])
+def test_two_tenants_stepped_in_turn_equal_each_alone(dev, weight_format):
+    """The launcher's two SMOKE tenants (olmoe, qwen2) on one card: their
+    engines stepped in turn until both drain emit exactly the tokens each
+    engine emits run alone."""
+    from repro_torch.launch.serve import TENANTS
+    runs = []
+    for _ in range(2):
+        engines = []
+        for seed, (_, arch, *_) in enumerate(TENANTS):
+            cfg = get_smoke(arch)
+            eng = ServingEngine(cfg, init_params(cfg, seed=seed), slots=2,
+                                max_len=64, prefill_chunk=8,
+                                weight_format=weight_format)
+            rng = np.random.RandomState(seed)
+            for rid in range(5):
+                p = rng.randint(1, cfg.vocab, rng.randint(3, 30))
+                assert eng.submit(Request(rid, p.astype(np.int32),
+                                          max_new_tokens=6))
+            engines.append(eng)
+        runs.append(engines)
+    alone = []
+    for eng in runs[0]:
+        alone.append({r.rid: r.out_tokens for r in eng.run_until_drained()})
+    while any(e.pending() for e in runs[1]):
+        for eng in runs[1]:
+            if eng.pending():
+                eng.step()
+    together = [{r.rid: r.out_tokens for r in e.finished} for e in runs[1]]
+    assert together == alone
