@@ -273,6 +273,38 @@ of JAX or of the JAX package `repro`. Phases:
    launch each; every tenant within 1e-5 of its plain product; the MAC
    utilization equal to the plain packing's) and api.ops.depthwise_conv on
    a MobileNetV2 block (one launch, bitwise).
+7b. Training: (a) the olmo_1b CONFIG at full width and depth (16 layers,
+   d_model 2048, d_ff 8192, vocab 50,304; 1.18 B f32 parameters) trained
+   10 steps by `runtime.Trainer` (seed 0; `data.SyntheticLM` seed 5, 4 x
+   512 tokens; AdamW, base_lr 3e-4, warmup 2; no checkpoint written):
+   every loss and grad norm finite, step 1 (lr 0 at the pre-increment
+   step) leaves every parameter bitwise unchanged, every attention call of
+   the steps on the ref route (autograd records it) and no kernel launched
+   in them, B8 0 times though L = 512 is 128-aligned; a direct B8 call on
+   a query that requires grad must raise. Prints the losses, the step
+   median, tokens/s, peak memory and one profiled step. (a') The same
+   Trainer fed the stream's first batch at every step: step 10's loss
+   below step 2's (on the stream itself the loss stays within its
+   batch-to-batch spread for 10 steps at this width). (b) The same
+   widths at depth 2, seed 0, one batch of 2 x 128: every parameter's
+   gradient on the card within 1e-4 x the leaf's max
+   |g| of the CPU's (which the CPU tests hold against JAX). (c) (a)'s
+   trained model under no_grad: `loss_fn` on B8 (16 launches a forward)
+   within 1e-4 (relative) of the ref route, `make_prefill_step` tokens
+   equal but at near-ties; `make_serve_step` over 4 prompts of 64 tokens
+   fed one token a step, then 32 greedy tokens (f32 caches): B1 16 times
+   a step and no other kernel, every token equal to the ref route's
+   `decode_step` in lockstep but at near-ties (margin <= 1e-3). (d)
+   `launch.train.main(["--arch", "olmo_1b", "--smoke", "--steps", "8",
+   "--simulate-preemption", "4", "--device", "cuda"])` against the
+   uninterrupted 8-step launch: final params within atol 1e-6 (printed:
+   whether bitwise equal). (e) The hybrid-FP8 recipe
+   (examples/fp8_training.py): the qwen2_1p5b CONFIG at full width over 4
+   of its 28 layers under QuantPolicy(fp8a, fp8a), against the
+   unquantized run, 20 steps each of 8 x 64 tokens at base_lr 2e-3: every
+   fp8 loss finite and the last below the first; prints the final-loss
+   gap. Checkpoints go under build/train_ckpt and are deleted. The
+   launches of (c) count as the main path's.
 8. Summary: no engine of any phase demoted but phase 5c's two injected
    faults (every demotion warns; the script records the warnings), a
    `{"kernels": [...]}` line (13 kernel entry points), the script's wall
@@ -328,12 +360,18 @@ from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
 from repro_torch.kernels.flash_attention.shared import dequant  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul, grouped_matmul_plain, make_group_ids, pack_tenants)
-from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.bridge import (grads_to_jax, params_from_jax,  # noqa: E402
+                                params_to_jax)
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
+                                      make_serve_step)
+from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.models import (decode_step, forward,  # noqa: E402
                                 init_caches, init_params, loss_fn,
                                 quantize_params)
 from repro_torch.models.attention import _q8  # noqa: E402
-from repro_torch.models.layers import Linear  # noqa: E402
+from repro_torch.models.layers import Linear, QuantPolicy  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     RECURRENT_KINDS, encode, has_recurrent, kv_caches)
 from repro_torch.models.moe import MoE, expert_capacity  # noqa: E402
@@ -3390,6 +3428,336 @@ def morphable_phase(dev):
             "depthwise_conv": depthwise_conv.launches}
 
 
+TRAIN_ARCH = "olmo_1b"
+TRAIN_B, TRAIN_L, TRAIN_STEPS = 4, 512, 10
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+GRAD_DEPTH, GRAD_B, GRAD_L = 2, 2, 128   # (b): card against the CPU
+GRAD_TOL = 1e-4                    # of each leaf's max |g| on the CPU
+SERVE_B, SERVE_PLEN, SERVE_NEW, SERVE_MAX_LEN = 4, 64, 32, 128
+RESUME_STEPS, RESUME_AT = 8, 4     # (d), on the SMOKE config
+FP8_ARCH, FP8_LAYERS, FP8_STEPS = "qwen2_1p5b", 4, 20
+FP8_B, FP8_L, FP8_LR = 8, 64, 2e-3
+TRAIN_DIR = ROOT / "build" / "train_ckpt"
+
+
+def reset_launches():
+    for k in ALL_KERNELS:
+        k.launches = 0
+
+
+def launched():
+    return {k.__name__: k.launches for k in ALL_KERNELS if k.launches}
+
+
+def batch_on(batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def route_log():
+    """A stand-in for api.ops.attention_route that records each route."""
+    real = api.ops.attention_route
+    routes = []
+
+    def spy(**kw):
+        routes.append(real(**kw))
+        return routes[-1]
+    return spy, routes
+
+
+def train_full(dev, card):
+    """(a) the full-width olmo-1b CONFIG trained 10 steps by the Trainer;
+    returns the trainer."""
+    cfg = get_config(TRAIN_ARCH)
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    tr = Trainer(cfg, TrainerConfig(ckpt_dir=str(TRAIN_DIR / "full"),
+                                    ckpt_every=10**9, base_lr=TRAIN_LR,
+                                    warmup=TRAIN_WARMUP,
+                                    total_steps=TRAIN_STEPS),
+                 seed=0, device=dev)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    data = iter(SyntheticLM(DataConfig(vocab=cfg.vocab, batch=TRAIN_B,
+                                       seq=TRAIN_L, seed=5)))
+    check(api.ops.attention_route(lq=TRAIN_L, lk=TRAIN_L) == "cuda"
+          and api.ops.attention_route(lq=TRAIN_L, lk=TRAIN_L, grad=True)
+          == "ref", "the route rule: kernel-eligible without grad, ref with")
+    spy, routes = route_log()
+    reset_launches()
+    before = [p.detach().clone() for p in tr.model.parameters()]
+    with patched(api.ops, "attention_route", spy):
+        tr.run(data, 1)
+        torch.cuda.synchronize()
+        check(all(torch.equal(p, q) for p, q in
+                  zip(tr.model.parameters(), before)),
+              "step 1 (lr 0) changed a parameter")
+        del before
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr.run(data, TRAIN_STEPS - 2)
+        prof = profiled(lambda: tr.run(data, 1))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    n_launched = launched()
+    check(not n_launched, f"a kernel launched inside the train steps: "
+          f"{n_launched}")
+    check(len(routes) == TRAIN_STEPS * cfg.n_layers
+          and set(routes) == {"ref"}, f"attention routes under grad: "
+          f"{sorted(set(routes))} x{len(routes)}")
+    log = tr.metrics_log
+    losses = [m["loss"] for m in log]
+    check(len(log) == TRAIN_STEPS and all(
+        np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in log),
+        f"non-finite loss or grad norm: {log}")
+    ms = 1e3 * float(np.median([m["step_time_s"] for m in log[1:-1]]))
+    q = torch.randn(1, 4, 128, 64, device=dev, requires_grad=True)
+    kv = torch.randn(1, 4, 128, 64, device=dev)
+    try:
+        flash_attention(q, kv, kv)
+        refused = False
+    except RuntimeError as e:
+        refused = "forward-only" in str(e)
+    check(refused, "B8 took a query that requires grad under grad mode")
+    print(f"  (a) {cfg.name} CONFIG ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params:,} "
+          f"f32 parameters): {TRAIN_STEPS} Trainer steps at {TRAIN_B} x "
+          f"{TRAIN_L} tokens, base_lr {TRAIN_LR}, warmup {TRAIN_WARMUP}",
+          flush=True)
+    norms = [round(m["grad_norm"], 3) for m in log]
+    lrs = [float(f"{m['lr']:.3g}") for m in log]
+    print(f"      losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{norms}; lr {lrs}", flush=True)
+    print(f"      step 1 (lr 0) left every parameter bitwise unchanged; "
+          f"attention route under grad: ref x{len(routes)} (no kernel "
+          f"launched in the steps, B8 0 times though L = {TRAIN_L} is "
+          f"128-aligned); a direct B8 call on a query that requires grad "
+          f"raises", flush=True)
+    print(f"      step median {ms:.1f} ms = {TRAIN_B * TRAIN_L / ms * 1e3:.0f}"
+          f" tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"(steps 2-{TRAIN_STEPS}); {card}", flush=True)
+    print(f"      profile of step {TRAIN_STEPS}: {prof}", flush=True)
+    return tr
+
+
+def train_one_batch(dev):
+    """(a') the same Trainer and first batch, that batch fed at every step:
+    step 10's loss must be below step 2's. (On the stream the loss stays
+    within its batch-to-batch spread over 10 steps at this width: the
+    successor rule over 50,304 tokens is not learnt from 20,480 tokens.)"""
+    cfg = get_config(TRAIN_ARCH)
+    tr = Trainer(cfg, TrainerConfig(ckpt_dir=str(TRAIN_DIR / "one"),
+                                    ckpt_every=10**9, base_lr=TRAIN_LR,
+                                    warmup=TRAIN_WARMUP,
+                                    total_steps=TRAIN_STEPS),
+                 seed=0, device=dev)
+    batch = next(iter(SyntheticLM(DataConfig(vocab=cfg.vocab, batch=TRAIN_B,
+                                             seq=TRAIN_L, seed=5))))
+    reset_launches()
+    tr.run(iter([batch] * TRAIN_STEPS), TRAIN_STEPS)
+    torch.cuda.synchronize()
+    check(not launched(), f"a kernel launched in training: {launched()}")
+    losses = [m["loss"] for m in tr.metrics_log]
+    check(all(np.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    print(f"  (a') the same Trainer on its first batch at every step: losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    check(losses[-1] < losses[1], f"step {TRAIN_STEPS}'s loss "
+          f"{losses[-1]} is not below step 2's {losses[1]}")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def grads_card_vs_cpu(dev, card):
+    """(b) the full widths at depth 2: one batch's gradient on the card
+    against the CPU's, leaf by leaf."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=GRAD_DEPTH)
+    cpu = init_params(cfg, seed=0, device="cpu")
+    on_card = params_from_jax(params_to_jax(cpu), cfg, device=dev)
+    batch = next(iter(SyntheticLM(DataConfig(vocab=cfg.vocab, batch=GRAD_B,
+                                             seq=GRAD_L, seed=6))))
+    reset_launches()
+    losses = []
+    for m, d in ((cpu, torch.device("cpu")), (on_card, dev)):
+        loss, _ = loss_fn(m.trainable_(), batch_on(batch, d))
+        loss.backward()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    check(not launched(), f"a kernel launched in the backward: {launched()}")
+    worst, where = 0.0, None
+    flat = [jax_layout_leaves(grads_to_jax(m)) for m in (cpu, on_card)]
+    for (path, gc), (_, gd) in zip(*flat):
+        rel = float(np.abs(gd - gc).max()) / max(float(np.abs(gc).max()),
+                                                 1e-30)
+        if rel > worst:
+            worst, where = rel, path
+    check(worst <= GRAD_TOL, f"card gradient of {where} is {worst:.2e} of "
+          f"the leaf's max |g| from the CPU's")
+    rel_loss = abs(losses[1] - losses[0]) / abs(losses[0])
+    print(f"  (b) depth {GRAD_DEPTH} at full width, {GRAD_B} x {GRAD_L} "
+          f"tokens: loss {losses[1]:.6f} on the card vs {losses[0]:.6f} on "
+          f"the CPU (relative {rel_loss:.2e}); every leaf's gradient within "
+          f"{worst:.2e} of its max |g| (limit {GRAD_TOL}; worst {where})",
+          flush=True)
+
+
+def jax_layout_leaves(tree, path=""):
+    """[(path, leaf)] of a `bridge.params_to_jax`-shaped tree."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in jax_layout_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, t in enumerate(tree)
+                for x in jax_layout_leaves(t, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+@torch.no_grad()
+def trained_on_kernels(dev, model):
+    """(c) the trained model's no-grad loss and prefill on B8 and its
+    serve step on B1, against the ref route. Returns the launches."""
+    cfg = model.cfg
+    counts = {}
+    batch = batch_on(next(iter(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, batch=TRAIN_B, seq=TRAIN_L, seed=7)))), dev)
+    prefill = make_prefill_step(cfg)
+    reset_launches()
+    loss, _ = loss_fn(model, batch)
+    torch.cuda.synchronize()
+    check(flash_attention.launches == cfg.n_layers and len(launched()) == 1,
+          f"no-grad loss_fn launches: {launched()}, want B8 x{cfg.n_layers}")
+    nxt = prefill(model, batch)
+    torch.cuda.synchronize()
+    counts["flash_attention"] = flash_attention.launches
+    check(flash_attention.launches == 2 * cfg.n_layers,
+          f"the prefill step launched B8 {flash_attention.launches} times")
+    with api.policy(backend="ref"):
+        ref_loss, _ = loss_fn(model, batch)
+        ref_nxt = prefill(model, batch)
+        top2 = forward(model, batch["tokens"])[0][:, -1].topk(2, -1).values
+    rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    check(rel <= LOSS_TOL, f"trained model's loss on B8 {loss.item()} vs "
+          f"ref {ref_loss.item()} (relative {rel:.2e})")
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    check(all(a == b or m <= MARGIN for a, b, m in
+              zip(nxt.tolist(), ref_nxt.tolist(), margins)),
+          f"prefill tokens {nxt.tolist()} vs ref {ref_nxt.tolist()}")
+    print(f"  (c) the trained model under no_grad: loss_fn on B8 "
+          f"{loss.item():.6f} vs ref {ref_loss.item():.6f} (relative "
+          f"{rel:.2e}), B8 x{cfg.n_layers} a forward; make_prefill_step "
+          f"tokens {nxt.tolist()} = ref's", flush=True)
+
+    # the serve step: prompts fed one token a step, then greedy tokens,
+    # the ref route in lockstep (fed the kernel route's tokens)
+    rng = np.random.RandomState(8)
+    prompts = torch.from_numpy(rng.randint(1, cfg.vocab, (
+        SERVE_B, SERVE_PLEN))).to(dev)
+    serve = make_serve_step(cfg)
+    caches = init_caches(cfg, SERVE_B, SERVE_MAX_LEN, device=dev,
+                         dtype=torch.float32)
+    ref_caches = init_caches(cfg, SERVE_B, SERVE_MAX_LEN, device=dev,
+                             dtype=torch.float32)
+    reset_launches()
+    n_steps = SERVE_PLEN + SERVE_NEW - 1
+    compared = skipped = 0
+    tok = None
+    ts = time.perf_counter()
+    for i in range(n_steps):
+        feed = prompts[:, i:i + 1] if i < SERVE_PLEN else tok
+        tok, caches = serve(model, caches, feed)
+        with api.policy(backend="ref"):
+            logits, ref_caches = decode_step(model, ref_caches, feed)
+        if i < SERVE_PLEN - 1:
+            continue                      # prompt steps: no token emitted
+        top2 = logits[:, -1].topk(2, -1)
+        near = (top2.values[:, 0] - top2.values[:, 1]) <= MARGIN
+        same = tok[:, 0] == top2.indices[:, 0]
+        check(bool((same | near).all()), f"serve step {i}: tokens "
+              f"{tok[:, 0].tolist()} vs ref {top2.indices[:, 0].tolist()}")
+        compared += int((~near).sum())
+        skipped += int(near.sum())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    counts["flash_decode"] = flash_decode.launches
+    check(flash_decode.launches == cfg.n_layers * n_steps
+          and len(launched()) == 1, f"serve step launches {launched()}, "
+          f"want B1 x{cfg.n_layers * n_steps}")
+    print(f"  (c) make_serve_step, {SERVE_B} prompts of {SERVE_PLEN} tokens "
+          f"fed one a step then {SERVE_NEW} greedy tokens ({n_steps} steps, "
+          f"f32 caches): B1 x{cfg.n_layers} a step, no other kernel; "
+          f"{compared} tokens equal the ref route's in lockstep, {skipped} "
+          f"near-ties (margin <= {MARGIN}) not compared; {wall:.1f} s with "
+          f"the ref steps", flush=True)
+    return counts
+
+
+def resume_matches(dev):
+    """(d) the launcher preempted at step 4 and restarted, against an
+    uninterrupted run."""
+    common = ["--arch", TRAIN_ARCH, "--smoke", "--steps", str(RESUME_STEPS),
+              "--device", dev.type]
+    shutil.rmtree(TRAIN_DIR / "resume", ignore_errors=True)
+    full = train_launcher.main(common + [
+        "--ckpt-dir", str(TRAIN_DIR / "resume" / "full")])
+    cut = train_launcher.main(common + [
+        "--ckpt-dir", str(TRAIN_DIR / "resume" / "cut"),
+        "--simulate-preemption", str(RESUME_AT)])
+    pairs = list(zip(full.model.parameters(), cut.model.parameters()))
+    diff = max((a - b).abs().max().item() for a, b in pairs)
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    check(int(cut.opt_state.step) == RESUME_STEPS and diff <= 1e-6,
+          f"resumed params differ by {diff}")
+    print(f"  (d) launch.train.main --smoke --steps {RESUME_STEPS} "
+          f"--simulate-preemption {RESUME_AT} --device {dev.type} against "
+          f"the uninterrupted run: max |dparam| {diff:.3e} (atol 1e-6), "
+          f"bitwise equal: {bitwise}", flush=True)
+    shutil.rmtree(TRAIN_DIR / "resume", ignore_errors=True)
+
+
+def fp8_training(dev):
+    """(e) the paper's hybrid-FP8 recipe against the unquantized run."""
+    base = dataclasses.replace(get_config(FP8_ARCH), n_layers=FP8_LAYERS)
+    runs = {}
+    for label, policy in (("fp8a", QuantPolicy("fp8a", "fp8a")),
+                          ("none", QuantPolicy())):
+        cfg = dataclasses.replace(base, quant=policy)
+        tr = Trainer(cfg, TrainerConfig(
+            ckpt_dir=str(TRAIN_DIR / "fp8"), ckpt_every=10**9,
+            base_lr=FP8_LR, warmup=TRAIN_WARMUP, total_steps=FP8_STEPS),
+            seed=0, device=dev)
+        reset_launches()
+        tr.run(iter(SyntheticLM(DataConfig(vocab=cfg.vocab, batch=FP8_B,
+                                           seq=FP8_L, seed=5))), FP8_STEPS)
+        check(not launched(), f"{label}: a kernel launched in training: "
+              f"{launched()}")
+        runs[label] = [m["loss"] for m in tr.metrics_log]
+        del tr
+        torch.cuda.empty_cache()
+    fp8, ref = runs["fp8a"], runs["none"]
+    check(all(np.isfinite(x) for x in fp8), f"non-finite fp8 loss: {fp8}")
+    check(fp8[-1] < fp8[0], f"fp8 training did not descend: {fp8}")
+    print(f"  (e) {FP8_ARCH} CONFIG over {FP8_LAYERS} of its layers, "
+          f"QuantPolicy(fp8a, fp8a) on every Linear, {FP8_STEPS} steps of "
+          f"{FP8_B} x {FP8_L} at base_lr {FP8_LR}: fp8 loss {fp8[0]:.4f} -> "
+          f"{fp8[-1]:.4f}, unquantized {ref[0]:.4f} -> {ref[-1]:.4f}; final "
+          f"gap fp8 - unquantized {fp8[-1] - ref[-1]:+.4f}", flush=True)
+
+
+def training_phase(dev, card):
+    phase(f"7b. training: {TRAIN_ARCH} CONFIG trained {TRAIN_STEPS} steps "
+          f"on the card (no kernel under autograd), its gradient against the "
+          f"CPU's, the trained model on B8 and B1, resume, fp8 training")
+    ts = time.perf_counter()
+    tr = train_full(dev, card)
+    grads_card_vs_cpu(dev, card)
+    counts = trained_on_kernels(dev, tr.model)
+    del tr
+    torch.cuda.empty_cache()
+    train_one_batch(dev)
+    resume_matches(dev)
+    fp8_training(dev)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    print(f"  phase 7b wall time {time.perf_counter() - ts:.1f} s",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     dev_info = device_phase()
@@ -3429,6 +3797,8 @@ def main() -> int:
     for kname, n in fullseq_phase(dev, smi).items():
         launches[kname] += n
     launches.update(morphable_phase(dev))
+    for kname, n in training_phase(dev, smi).items():
+        launches[kname] += n
     phase("8. summary")
     demotions = [w for w in WARNINGS if DEMOTED in w]
     check(len(demotions) == 2, f"{len(demotions)} engine demotions in the "

@@ -87,9 +87,17 @@ def quantize(x: torch.Tensor, *, format: Optional[str] = None,
 
 def attention_route(*, lq: int, lk: Optional[int] = None, causal: bool = True,
                     offset_ndim: int = 0, quantized: bool = False,
-                    backend: Optional[str] = None,
+                    grad: bool = False, backend: Optional[str] = None,
                     policy: Optional[ExecutionPolicy] = None) -> str:
     """Which attention impl a call with this shape dispatches to.
+
+    grad: the call is recorded by autograd (`attention` sets it when grad
+    mode is on and q, k or v requires grad). The kernels are forward-only,
+    so such a call goes to the differentiable "ref" route whatever its
+    shape: the reference's rule that a training forward stays on its ref
+    path (its `jax.grad` cannot go through the full-sequence Pallas
+    kernel), extended to the port's default kernel backend. With
+    grad=False the table below holds.
 
     This IS the rule `attention` uses. Under a kernel backend, causal
     attention over a cache routes to the serving kernels: multi-token
@@ -104,7 +112,7 @@ def attention_route(*, lq: int, lk: Optional[int] = None, causal: bool = True,
     "pallas-prefill" -> "cuda-prefill").
     """
     pol = _resolve(policy, backend=backend)
-    if pol.use_kernels():
+    if pol.use_kernels() and not grad:
         cache_shaped = offset_ndim == 1 or (lk is not None and lk > lq)
         if causal and cache_shaped:
             if offset_ndim == 1 and lq > 1:
@@ -144,9 +152,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     offset_ndim = offset.dim() if isinstance(offset, torch.Tensor) else 0
     lk = k.shape[2] if block_tables is None \
         else block_tables.shape[1] * k.shape[2]
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     impl = attention_route(lq=q.shape[2], lk=lk, causal=causal,
                            offset_ndim=offset_ndim,
-                           quantized=k_scale is not None, policy=pol)
+                           quantized=k_scale is not None, grad=grad,
+                           policy=pol)
     if block_tables is not None and impl == "cuda":
         impl = "ref"    # no paged route on the full-sequence kernel
     fn = registry.lookup("attention", impl)

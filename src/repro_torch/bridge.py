@@ -32,10 +32,11 @@ from . import resolve_device
 from .core.formats import QuantWeight
 from .models import ssm
 from .models.attention import KVCache, QuantKVCache, paged_kv_cache
-from .models.transformer import RECURRENT_KINDS, ModelConfig, Transformer
+from .models.transformer import (RECURRENT_KINDS, ModelConfig, Transformer,
+                                 resident_format)
 
-__all__ = ["params_from_jax", "caches_from_jax", "mixer_from_jax",
-           "to_torch"]
+__all__ = ["params_from_jax", "params_to_jax", "grads_to_jax",
+           "caches_from_jax", "mixer_from_jax", "to_torch", "to_numpy"]
 
 
 def to_torch(a, device="cuda") -> torch.Tensor:
@@ -175,6 +176,91 @@ def params_from_jax(np_params, cfg: ModelConfig,
         else:
             attention_block(block, p, i)
     return model
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host (float32 for bfloat16, which
+    numpy lacks)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy().copy()
+
+
+def _module_tree(mod: torch.nn.Module, leaf) -> dict:
+    """{name: leaf(parameter)} of a module's own parameters and {name:
+    subtree} of its submodules (None entries skipped): a Linear gives {"w"}
+    (+ "b"), a norm {"g"} (+ "b") or, non-parametric, {}, as the
+    reference's param dicts."""
+    out = {name: leaf(p) for name, p in mod._parameters.items()
+           if p is not None}
+    for name, child in mod._modules.items():
+        if child is not None:
+            out[name] = _module_tree(child, leaf)
+    return out
+
+
+def _stack(trees: list):
+    """Stack equal-structured nested dicts leafwise on a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _to_jax_layout(model: Transformer, leaf) -> dict:
+    """The reference's param pytree layout of `model`, each leaf
+    leaf(parameter): the top-level entries, the encoder stacked over its
+    layers, and each segment's unit kinds stacked over the unit's repeats
+    (the shared block once, unstacked) -- the inverse of `_layer_leaves`."""
+    cfg = model.cfg
+    if resident_format(model) is not None:
+        raise ValueError(f"{cfg.name}: resident codes are not a dense "
+                         "param pytree")
+    out = {"embed": _module_tree(model.embed, leaf),
+           "final_norm": _module_tree(model.final_norm, leaf)}
+    if model.lm_head is not None:
+        out["lm_head"] = _module_tree(model.lm_head, leaf)
+    if model.pos is not None:
+        out["pos"] = leaf(model.pos)
+    if model.encoder is not None:
+        out["encoder"] = _stack([_module_tree(b, leaf)
+                                 for b in model.encoder])
+        out["enc_norm"] = _module_tree(model.enc_norm, leaf)
+    segments, first = [], 0
+    for unit, n in cfg.segments():
+        seg = {}
+        for j, kind in enumerate(unit):
+            blocks = [model.layers[first + i * len(unit) + j]
+                      for i in range(n)]
+            trees = [_module_tree(b, leaf) for b in blocks]
+            if kind == "shared_attn":
+                seg[f"{j}_{kind}"] = trees[0]
+            else:
+                seg[f"{j}_{kind}"] = _stack(trees)
+        segments.append(seg)
+        first += n * len(unit)
+    out["segments"] = segments
+    return out
+
+
+def params_to_jax(model: Transformer) -> dict:
+    """The model's weights as the reference's param pytree of numpy
+    arrays (nested dicts and the segment list): the exact inverse of
+    `params_from_jax`, so params_to_jax(params_from_jax(p, cfg)) equals p
+    leaf for leaf, bitwise. Every parameter of the model is a leaf of it.
+    Dense models only (ValueError on resident weights)."""
+    return _to_jax_layout(model, to_numpy)
+
+
+def grads_to_jax(model: Transformer) -> dict:
+    """Each parameter's `.grad` in `params_to_jax`'s layout (zeros where a
+    parameter has none), to compare with `jax.grad` of the reference's
+    loss leaf by leaf. The shared block's gradient is the sum over its
+    positions, as the reference's closed-over params give it."""
+    def grad(p):
+        return to_numpy(p.grad if p.grad is not None
+                        else torch.zeros_like(p))
+    return _to_jax_layout(model, grad)
 
 
 # a JAX recurrent cache's type, told by its first field

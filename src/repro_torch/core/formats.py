@@ -220,10 +220,24 @@ def quantize(x: torch.Tensor, fmt: AIOFormat) -> torch.Tensor:
     return _quantize_int(x, fmt)
 
 
+class _FakeQuant(torch.autograd.Function):
+    """`quantize` forward, identity backward (the straight-through
+    estimator)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, fmt_name: str) -> torch.Tensor:
+        return quantize(x, REGISTRY[fmt_name])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
 def fake_quant(x: torch.Tensor, fmt_name: str) -> torch.Tensor:
-    """Forward of the reference's straight-through fake-quant (the STE
-    backward comes with the training stack)."""
-    return quantize(x, REGISTRY[fmt_name])
+    """Straight-through-estimator quantization for QAT paths: the value of
+    `quantize(x, REGISTRY[fmt_name])`, the incoming gradient passed through
+    unchanged (the reference's `custom_vjp`)."""
+    return _FakeQuant.apply(x, fmt_name)
 
 
 # ---- exact numpy/float64 reference (the reference package's oracle of the

@@ -155,11 +155,8 @@ def aio_matmul(x: torch.Tensor, w: torch.Tensor,
         counters = tile_counters(x.device, ceil_div(m, 16) * ceil_div(n, bn))
     shift, scale = _fp8_params(mode) if mode in ("fp8a", "fp8b") else (0, 1.0)
     es = x.element_size()
-    call_kernel("aio_matmul", _ARGTYPES, _MODE_IDS[mode], x.data_ptr(),
-                w.data_ptr(), *(s.data_ptr() if s is not None else None
-                                for s in scales),
-                out.data_ptr(), *(t.data_ptr() if t is not None else None
-                                  for t in (work, counters)),
+    call_kernel("aio_matmul", _ARGTYPES, _MODE_IDS[mode], x, w, *scales,
+                out, work, counters,
                 m, n, k, bn, slices, int(k * es % 16 == 0),
                 int(n * w.element_size() % 16 == 0), shift, scale)
     aio_matmul.launches += 1

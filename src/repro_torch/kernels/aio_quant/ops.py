@@ -142,9 +142,8 @@ def aio_quant(x: torch.Tensor, *, fmt_name: str, floor: float) -> tuple:
         return codes, scale
     is_fp = fmt.kind == "fp"
     plan = quant_plan(m, n)
-    call_kernel("aio_quant", _ARGTYPES, x.data_ptr(), codes.data_ptr(),
-                scale.data_ptr(), m, n, floor, int(is_fp), fmt.ebits,
-                fmt.mbits, fmt.bias, fmt.max_finite,
+    call_kernel("aio_quant", _ARGTYPES, x, codes, scale, m, n, floor,
+                int(is_fp), fmt.ebits, fmt.mbits, fmt.bias, fmt.max_finite,
                 0 if is_fp else fmt.int_min, 0 if is_fp else fmt.int_max,
                 0 if is_fp else (1 << fmt.bits) - 1, plan.cluster,
                 plan.threads, plan.vals)

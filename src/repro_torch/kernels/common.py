@@ -20,6 +20,11 @@ Every C entry point returns the `cudaError_t` of its launch
 runs and a later synchronize does not report it); `call_kernel` launches an
 entry point on the current stream and `check_launch` is the one place that
 turns a non-zero code into an exception.
+
+The kernels are forward-only: a ctypes launch records nothing for autograd,
+so its output would carry no gradient back to its inputs. `call_kernel`
+takes the tensors of a launch as tensors and refuses, under grad mode, any
+that requires grad (`refuse_grad`), so no kernel drops a gradient silently.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ import torch
 from ..core.formats import _ldexp
 
 __all__ = ["build_kernels", "load_kernel", "check_launch", "call_kernel",
-           "check_cuda", "tile_counters", "ceil_div", "pad_to",
+           "refuse_grad", "check_cuda", "tile_counters", "ceil_div", "pad_to",
            "decode_fp_code", "encode_fp_code", "CSRC", "BUILD_ROOT",
            "BUILD_REPORTS", "NVCC_FLAGS"]
 
@@ -127,12 +132,29 @@ def check_launch(lib: ctypes.CDLL, what: str, code: int) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+def refuse_grad(name: str, tensors: Sequence) -> None:
+    """Raise a RuntimeError naming kernel entry point `name` when grad mode
+    is on and one of `tensors` requires grad: the launch would record no
+    backward, and the gradient of that input would be silently lost."""
+    if not torch.is_grad_enabled():
+        return
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the CUDA kernel is "
+            "forward-only (it records no backward); differentiate through "
+            "the plain route (backend='ref') or call it under "
+            "torch.no_grad()")
+
+
 def call_kernel(name: str, argtypes: Sequence, *args,
                 source: Optional[str] = None) -> None:
     """Launch C entry point `name` of the library of kernel source `source`
     (default: `name`) on the current stream (appended as the last argument)
     and raise on a non-zero cudaError_t. `argtypes` are the ctypes of
-    `args`, the stream excluded."""
+    `args`, the stream excluded; a tensor argument is passed as its data
+    pointer, after `refuse_grad` has seen every tensor of the launch."""
+    refuse_grad(name, args)
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     lib = load_kernel(source or name)
     fn = getattr(lib, name)
     if fn.argtypes is None:

@@ -65,7 +65,7 @@ def depthwise_conv(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
     kh, kw, _ = filt.shape
     call_kernel("depthwise_conv", _ARGTYPES, int(x.dtype == torch.bfloat16),
-                x.data_ptr(), filt.data_ptr(), out.data_ptr(), n, h, w, c, kh,
+                x, filt, out, n, h, w, c, kh,
                 kw, source="depthwise")
     depthwise_conv.launches += 1
     return out

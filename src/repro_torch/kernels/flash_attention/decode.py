@@ -149,8 +149,8 @@ def _launch(wrapper, q, k, v, k_scale, v_scale, pos, window, softcap, scale,
     work = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
     counters = tile_counters(q.device, plan.counters)
     entry = "flash_decode" if table is None else "flash_decode_paged"
-    call_kernel(entry, ARGTYPES[entry], *args, pos.data_ptr(),
-                out.data_ptr(), work.data_ptr(), counters.data_ptr(), b, hkv,
+    call_kernel(entry, ARGTYPES[entry], *args, pos, out, work, counters,
+                b, hkv,
                 hq // hkv, lq, d, *keys, plan.span, window or 0,
                 d ** -0.5 if scale is None else scale, softcap or 0.0,
                 source="flash_decode")

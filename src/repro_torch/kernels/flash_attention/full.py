@@ -143,9 +143,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        dtype=torch.bfloat16, device=q.device)
     call_kernel("flash_attention_full", _ARGTYPES,
                 int(q.dtype == torch.bfloat16), int(kv_bf16),
-                q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
-                v.data_ptr(), *v.stride()[:3], out.data_ptr(),
-                work.data_ptr(), b, hq, hkv, lq, lk, d, offset, int(causal),
+                q, *q.stride()[:3], k, *k.stride()[:3], v, *v.stride()[:3],
+                out, work, b, hq, hkv, lq, lk, d, offset, int(causal),
                 window or 0,
                 d ** -0.5 if scale is None else scale, softcap or 0.0,
                 source="flash_full")

@@ -154,9 +154,8 @@ def _launch(wrapper, q, k, v, k_scale, v_scale, pos, lengths, window,
     work = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
     counters = tile_counters(q.device, plan.counters)
     entry = "flash_prefill" if table is None else "flash_prefill_paged"
-    call_kernel(entry, ARGTYPES[entry], *args, pos.data_ptr(),
-                lens.data_ptr(), out.data_ptr(), work.data_ptr(),
-                counters.data_ptr(), b, hkv, hq // hkv, lq, bq, d, *keys,
+    call_kernel(entry, ARGTYPES[entry], *args, pos, lens, out, work,
+                counters, b, hkv, hq // hkv, lq, bq, d, *keys,
                 plan.span, window or 0, d ** -0.5 if scale is None else scale,
                 softcap or 0.0, source="flash_prefill")
     wrapper.launches += 1

@@ -67,8 +67,8 @@ def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 softcap: Optional[float],
                 table: Optional[torch.Tensor] = None):
     """Validate the operands every kernel takes and return the leading
-    ctypes arguments (kv kind, q pointer and strides, K/V and scale
-    pointers, and with a block table its pointer). q may be a strided view
+    launch arguments of `call_kernel` (kv kind, q and its strides, K/V, the
+    scales or None, and with a block table the table). q may be a strided view
     (the head split of a projection); its last dimension must be
     unit-stride. Flat K/V are (B, Hkv, Lk, D) caches; with `table` (B,
     nblk) int32, K/V are (P, Hkv, bs, D) block pools that the table's
@@ -109,16 +109,15 @@ def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if t is None or t.dtype != torch.float32 or t.shape != want:
                 raise ValueError(f"{name} must be float32 {want}")
             check_cuda(name, t)
-        scales = (k_scale.data_ptr(), v_scale.data_ptr())
-    args = [kind, q.data_ptr(), *q.stride()[:3], k.data_ptr(), v.data_ptr(),
-            *scales]
+        scales = (k_scale, v_scale)
+    args = [kind, q, *q.stride()[:3], k, v, *scales]
     if table is not None:
         if (table.dtype != torch.int32 or table.dim() != 2
                 or table.shape[0] != b or table.shape[1] < 1):
             raise ValueError(f"block table must be int32 (B={b}, nblk >= 1), "
                              f"got {table.dtype} {tuple(table.shape)}")
         check_cuda("table", table)
-        args.append(table.data_ptr())
+        args.append(table)
     return args
 
 

@@ -148,10 +148,8 @@ def grouped_matmul(group_ids: torch.Tensor, x: torch.Tensor,
                            device=x.device)
         counters = tile_counters(x.device, t // tm * ceil_div(n, TN))
     call_kernel("grouped_matmul", _ARGTYPES, int(x.dtype == torch.bfloat16),
-                int(out_dtype == torch.bfloat16), x.data_ptr(), w.data_ptr(),
-                group_ids.data_ptr(),
-                *(a.data_ptr() if a is not None else None
-                  for a in (*ext, out, work, counters)),
+                int(out_dtype == torch.bfloat16), x, w, group_ids, *ext, out,
+                work, counters,
                 t, k, n, bm, tm, kc, slices)
     grouped_matmul.launches += 1
     return out

@@ -54,10 +54,12 @@ class QuantPolicy:
 
 
 def _maybe_quant(x: torch.Tensor, fmt_name: str) -> torch.Tensor:
-    """Per-tensor pow2-scaled fake-quant (the scale folds into the bias)."""
+    """Per-tensor pow2-scaled fake-quant (the scale folds into the bias).
+    The scale is taken from x detached (the reference's stop_gradient): the
+    gradient passes through the STE only."""
     if fmt_name in ("none", "bf16"):
         return x
-    scale = F.pow2_scale(x, F.REGISTRY[fmt_name])
+    scale = F.pow2_scale(x.detach(), F.REGISTRY[fmt_name])
     return F.fake_quant(x / scale, fmt_name) * scale
 
 
@@ -65,10 +67,11 @@ def _maybe_quant_weight(w: torch.Tensor, fmt_name: str) -> torch.Tensor:
     """Weight fake-quant with PER-OUTPUT-CHANNEL pow2 scales (axis=-2, the
     contraction axis of a (..., K, N) weight): the scale geometry of the
     resident codes, so `dequantize_weight(quantize_weight(w, f))` equals
-    this bitwise."""
+    this bitwise. The scale is taken from w detached, as in
+    `_maybe_quant`."""
     if fmt_name in ("none", "bf16"):
         return w
-    scale = F.pow2_scale(w, F.REGISTRY[fmt_name], axis=-2)
+    scale = F.pow2_scale(w.detach(), F.REGISTRY[fmt_name], axis=-2)
     return F.fake_quant(w / scale, fmt_name) * scale
 
 

@@ -32,8 +32,14 @@ frees them); `resident_view` does it on a shallow copy and leaves the
 caller's model dense (what the serving engine does, as the reference's
 engine leaves the caller's params dense); `resident_format` reports it.
 
-`loss_fn` is the causal-LM cross entropy of the full-sequence forward, as
-a value (no gradient: the training stack is not ported).
+`encode`, `forward` and `loss_fn` record autograd: `loss_fn` is the
+causal-LM cross entropy (+ the MoE aux loss) that the training stack
+(`launch.steps.make_train_step`) differentiates. Parameters are made with
+`requires_grad=False`, so serving records nothing; `Transformer.trainable_`
+turns gradients on for training. Attention recorded by autograd takes the
+differentiable `ref` route (`api.ops.attention_route(grad=True)`): the CUDA
+kernels are forward-only. `decode_step` and the cache functions never
+record.
 
 `init_caches(..., paged=(pool_blocks, block_size))` gives block-pool caches
 instead (every layer a pool, all layers sharing one (B, nblk) block table);
@@ -392,6 +398,22 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.d_model, cfg.vocab, **kw)
 
+    def trainable_(self, flag: bool = True) -> "Transformer":
+        """Turn gradients on (or off) for every parameter, in place, and
+        return the model. The parameters are the dense float weights, each a
+        leaf of the reference's param pytree (`bridge.params_to_jax` maps
+        them); rope tables, resident codes and caches are buffers or plain
+        tensors and stay so. A model with resident weights is refused:
+        codes are not trainable."""
+        if flag and resident_format(self) is not None:
+            raise ValueError(
+                f"{self.cfg.name}: the Linears hold resident "
+                f"{resident_format(self)} codes, which are not trainable; "
+                "train the dense model and quantize it afterwards")
+        for p in self.parameters():
+            p.requires_grad_(flag)
+        return self
+
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:
             logits = linear(x, self.embed.table.t()).to(torch.float32)
@@ -493,7 +515,6 @@ def _sinusoid(length: int, d: int, *, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
 
-@torch.no_grad()
 def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     """The audio encoder over frame embeddings (B, T, d_model): frames +
     the sinusoid positions, the non-causal "enc" blocks (RoPE at arange(T)
@@ -529,7 +550,6 @@ def _run_layers(model: Transformer, x: torch.Tensor, caches=None,
     return x, aux
 
 
-@torch.no_grad()
 def forward(model: Transformer, tokens: torch.Tensor, *,
             prefix_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None):
@@ -559,11 +579,11 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     return logits, aux
 
 
-@torch.no_grad()
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
             aux_weight: float = 0.01):
     """Causal-LM cross entropy (+ aux_weight x the MoE aux loss), the
-    reference's `loss_fn` as a value. batch: "tokens" (B, L) and "labels"
+    reference's `loss_fn`, differentiable (under `torch.no_grad()` a value
+    whose attention may take the kernels). batch: "tokens" (B, L) and "labels"
     (B, L), optionally "frames" and "patch_embeds" (`forward`'s frames and
     prefix_embeds); labels < 0 (-100) mask a position out. Returns (loss +
     aux_weight * aux, {"loss": loss, "aux": aux})."""

@@ -340,7 +340,7 @@ class ServingEngine:
                 or frames.shape[2] != self.cfg.d_model:
             raise ValueError(f"frames {tuple(frames.shape)}: want (slots "
                              f"{self.slots}, T, d_model {self.cfg.d_model})")
-        with self._policy_ctx():
+        with self._policy_ctx(), torch.no_grad():
             return T.encode(self.model, frames)
 
     def _merged_mode(self) -> bool:

@@ -39,7 +39,8 @@ def to_host(t: torch.Tensor) -> Tuple[str, np.ndarray]:
 
 def from_host(tag: str, a: np.ndarray) -> torch.Tensor:
     """The inverse of `to_host`: a CPU tensor of dtype `tag`."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    # ascontiguousarray makes a 0-d array 1-d: keep the shape
+    t = torch.from_numpy(np.ascontiguousarray(a).reshape(np.shape(a)))
     return t.view(torch.bfloat16) if tag == "bfloat16" else t
 
 

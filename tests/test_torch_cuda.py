@@ -1566,3 +1566,150 @@ def test_two_tenants_stepped_in_turn_equal_each_alone(dev, weight_format):
                 eng.step()
     together = [{r.rid: r.out_tokens for r in e.finished} for e in runs[1]]
     assert together == alone
+
+
+# ================================================ the training stack (A9)
+def _launch_cases(dev):
+    """{wrapper name: (wrapper, operands, index of a float operand)}: each
+    ctypes entry point with valid operands, one float input to mark as
+    requiring grad."""
+    b, hkv, group, lk, w = 2, 2, 2, 256, 32
+    q1, k, v = _data(dev, 21, b, hkv * group, hkv, 1, lk, d=64)
+    qw, _, _ = _data(dev, 22, b, hkv * group, hkv, w, lk, d=64)
+    q1, qw = q1.contiguous(), qw.contiguous()
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    kc, ks = _q8(k)
+    vc, vs = _q8(v)
+    pos = torch.tensor([0, lk - 1], dtype=torch.int32, device=dev)
+    ppos = torch.tensor([0, lk - w], dtype=torch.int32, device=dev)
+    lens = torch.tensor([w, 3], dtype=torch.int32, device=dev)
+    pools, table = _paged(dev, (kb, vb), 16, seed=1)
+    qpools, qtable = _paged(dev, (kc, ks, vc, vs), 16, seed=2)
+    x, wq, _, _ = _gemm_operands(dev, "bf16", 8, 64, 32, seed=3)
+    xi, wi, xs, ws = _gemm_operands(dev, "int8", 8, 64, 32, seed=4)
+    g = torch.Generator(device=dev).manual_seed(5)
+    gx = torch.randn(32, 48, generator=g, device=dev)
+    gw = torch.randn(2, 48, 40, generator=g, device=dev)
+    gids = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    dx = torch.randn(1, 6, 7, 24, generator=g, device=dev)
+    df = torch.randn(3, 3, 24, generator=g, device=dev)
+    fq, fk, fv = _data(dev, 23, 1, 4, 2, 128, 128, d=64)
+    return {
+        "flash_decode": (flash_decode, [q1, k, v], dict(pos=pos), 0),
+        "flash_decode_quant": (flash_decode_quant, [q1, kc, ks, vc, vs],
+                               dict(pos=pos), 0),
+        "flash_prefill": (flash_prefill, [qw, kb, vb],
+                          dict(pos=ppos, lengths=lens), 0),
+        "flash_prefill_quant": (flash_prefill_quant, [qw, kc, ks, vc, vs],
+                                dict(pos=ppos, lengths=lens), 0),
+        "flash_decode_paged": (flash_decode_paged, [q1, *pools],
+                               dict(table=table, pos=pos), 0),
+        "flash_decode_paged_quant": (flash_decode_paged_quant,
+                                     [q1, *qpools],
+                                     dict(table=qtable, pos=pos), 0),
+        "flash_prefill_paged": (flash_prefill_paged, [qw, *pools],
+                                dict(table=table, pos=ppos, lengths=lens),
+                                0),
+        "flash_prefill_paged_quant": (flash_prefill_paged_quant,
+                                      [qw, *qpools],
+                                      dict(table=qtable, pos=ppos,
+                                           lengths=lens), 0),
+        "flash_attention": (flash_attention, [fq, fk.contiguous(), fv], {},
+                            1),
+        "aio_matmul": (aio_matmul, [x, wq], dict(mode="bf16"), 0),
+        "aio_matmul_int8_scale": (aio_matmul, [xi, wi, xs, ws],
+                                  dict(mode="int8"), 2),
+        "aio_quant": (aio_quant, [gx], dict(fmt_name="int8",
+                                            floor=KERNEL_FLOOR), 0),
+        "grouped_matmul": (grouped_matmul, [gids, gx, gw], dict(bm=16), 1),
+        "depthwise_conv": (depthwise_conv, [dx, df], {}, 1),
+    }
+
+
+@pytest.mark.parametrize("case", [
+    "flash_decode", "flash_decode_quant", "flash_prefill",
+    "flash_prefill_quant", "flash_decode_paged", "flash_decode_paged_quant",
+    "flash_prefill_paged", "flash_prefill_paged_quant", "flash_attention",
+    "aio_matmul", "aio_matmul_int8_scale", "aio_quant", "grouped_matmul",
+    "depthwise_conv"])
+def test_kernel_refuses_inputs_that_require_grad(dev, case):
+    """Under grad mode a ctypes launch refuses an input that requires grad
+    (it would record no backward and drop that input's gradient), naming
+    the entry point, and launches nothing; under no_grad, or with the
+    input detached, it launches."""
+    kernel, args, kw, i = _launch_cases(dev)[case]
+    args = list(args)
+    args[i] = args[i].detach().clone().requires_grad_()
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kernel(*args, **kw)
+    assert kernel.launches == before
+    with torch.no_grad():
+        want = kernel(*args, **kw)
+    plain = list(args)
+    plain[i] = plain[i].detach()
+    got = kernel(*plain, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
+
+
+def _tree_leaves(tree):
+    """The numpy leaves of a nested dict / list tree (the reference's
+    param layout of `bridge.params_to_jax`), in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in _tree_leaves(t)]
+    return [tree]
+
+
+def _train_pair(dev, arch="olmo_1b"):
+    """The same weights on the CPU and on the card."""
+    from repro_torch.bridge import params_from_jax, params_to_jax
+    cfg = get_smoke(arch)
+    cpu = init_params(cfg, seed=0, device="cpu")
+    card = params_from_jax(params_to_jax(cpu), cfg, device=dev)
+    return cfg, cpu, card
+
+
+def test_train_step_on_card_matches_cpu_and_launches_no_full_kernel(dev):
+    """Two train steps of olmo SMOKE at L = 128 (every attention call
+    kernel-eligible): no full-sequence kernel launch inside the steps
+    (autograd routes to ref), losses within 1e-5, each leaf's gradient
+    within 1e-4 x its max |g| of the CPU's, params within 1e-5; then the
+    no-grad loss of the trained model launches B8 once a layer."""
+    from repro_torch.bridge import grads_to_jax, params_to_jax
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    cfg, cpu, card = _train_pair(dev)
+    step = make_train_step(cfg, base_lr=1e-3, warmup=1, total=10)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=2, seq=128, seed=5))
+    opts = [adamw_init(list(m.trainable_().parameters()))
+            for m in (cpu, card)]
+    flash_attention.launches = 0
+    for _ in range(2):
+        batch = next(data)
+        got = [step(m, o, {k: torch.from_numpy(a).to(d)
+                           for k, a in batch.items()})
+               for m, o, d in ((cpu, opts[0], "cpu"), (card, opts[1], dev))]
+        torch.cuda.synchronize()
+        assert flash_attention.launches == 0
+        torch.testing.assert_close(got[1]["loss"].cpu(), got[0]["loss"],
+                                   rtol=1e-5, atol=0)
+        for gc, gd in zip(*(_tree_leaves(grads_to_jax(m))
+                            for m in (cpu, card))):
+            assert np.abs(gd - gc).max() <= 1e-4 * np.abs(gc).max()
+    for pc, pd in zip(*(_tree_leaves(params_to_jax(m))
+                        for m in (cpu, card))):
+        np.testing.assert_allclose(pd, pc, rtol=0, atol=1e-5)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in next(data).items()}
+    with torch.no_grad():
+        loss, _ = loss_fn(card, batch)
+        with api.policy(backend="ref"):
+            want, _ = loss_fn(card, batch)
+    assert flash_attention.launches == cfg.n_layers
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)

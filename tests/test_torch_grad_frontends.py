@@ -1,0 +1,12 @@
+"""Gradients of the frontend families against the JAX package
+(`test_torch_grad`'s `check_parity`, same bounds): whisper (the encoder
+reaches the loss through the cross attention, so its gradient shows that
+`encode` records) and internvl2 (patch embeddings prepended)."""
+import pytest
+
+from test_torch_grad import check_parity
+
+
+@pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_76b"])
+def test_loss_and_gradient_match_reference(arch):
+    check_parity(arch)
