@@ -66,6 +66,28 @@ of JAX or of the JAX package `repro`. Phases:
    sum's sign). Prints each mode's mismatches, and those among the pairs
    with a subnormal operand; any mismatch fails. These launches are not
    counted as the main path's.
+3f. Static analysis on the card (`repro_torch.analysis.run_all()`, what
+   `python -m repro_torch.analysis` runs): the launch contracts of the 8
+   kernel impls swept on the CPU (KC100-KC105: tiles in bounds at every
+   block, masked tails, 32-bit offsets, the H100's launch limits); every
+   contract case's body (each C entry point, flat, paged and int8, at the
+   contracts' cases) launched with every operand inside 64 KiB redzones
+   filled with NaN patterns (guards unchanged, output equal to the plain
+   version, NaN nowhere the plain version has none), under torch.profiler
+   (each kernel record's grid, block and shared memory equal to the
+   contract's), and under compute-sanitizer (memcheck, synccheck,
+   racecheck, initcheck; this machine's refuses the device: a KB433
+   warning with its words); the hot-loop audit of the default smoke
+   engines; the format matrix. Prints the findings, their counts against
+   the `cuda` section of `src/repro_torch/analysis/baseline.json` and the
+   phase's wall time. Phases 5 (dense, int8 KV, int4 resident), 5b
+   (paged), 5d (olmoe) and 5e (zamba2, bf16 KV) then audit their own
+   engines after the free-running pass (`hotloop.check_engine`): the idle
+   step at each width recorded op by op (host syncs, rebound cache
+   buffers, dequants, the health guard), then 3 live steps of 2 requests
+   under `torch.cuda.set_sync_debug_mode`; their counts are held to the
+   section's `engines`. Launches made here do not count as the main
+   path's.
 4. Timing: CUDA-event time per launch of each kernel, its plain version and
    one PyTorch library call computing the same function (timed only here),
    beside the least time the card could take: the larger of the bytes the
@@ -112,7 +134,8 @@ of JAX or of the JAX package `repro`. Phases:
    FMA) over 33.5 T a second, the rate 67 TFLOP/s counts as FMAs.
 5. Engine: ServingEngine on the full-width qwen2_1p5b CONFIG (random f32
    weights, seed 0), 8 slots, max_len 2048, prefill chunk 32, 8 requests
-   with prompts of 16..1000 tokens and 32 new tokens each — dense bf16-KV,
+   with prompts of 16..512 tokens (16..1000 until phase 3f needed the
+   time) and 32 new tokens each — dense bf16-KV,
    int8-KV, and bf16-KV with the Linear weights resident in int4 and in
    fp8a (converted in place by `quantize_params`, as the serve launcher
    does: the quantizer and the AIO GEMM run on every Linear). A
@@ -182,7 +205,8 @@ of JAX or of the JAX package `repro`. Phases:
    prompts of 4600, 4200, 700 and 90 tokens (two past the window), one
    chunk step profiled; gpt2_small and olmo_1b CONFIG at full width and
    depth and internlm2_20b CONFIG at full width over 4 layers, 4 slots,
-   max_len 2048, 4 requests each. The MoE variant's comparison engines
+   max_len 2048, 4 requests each of 16, 500, 300 and 64 prompt tokens
+   (1000 until phase 3f needed the time). The MoE variant's comparison engines
    follow the kernel engine's expert dispatch in lockstep (a top-k choice
    or a capacity cut flips at a tie, and a chunk's pad rows, which the
    routes give other values, compete for capacity); the ref route's own
@@ -198,7 +222,7 @@ of JAX or of the JAX package `repro`. Phases:
    seven Linears; the Mamba2 mixers stay dense, as in the reference), and
    xlstm_1p3b CONFIG (48 layers: 42 mLSTM, 6 sLSTM, d_model 2048, mLSTM
    heads of 1024 with a 1024 x 1025 state; 3.61 B), each as a phase-5
-   variant on 8 prompts of 4-24 tokens, 24 new tokens each. First B1, B2
+   variant on 8 prompts of 4-24 tokens, 16 new tokens each. First B1, B2
    and B8 at zamba2's head_dim 80 against their plain versions (1e-4; B2
    bitwise equal to B1 on the dequantized K/V), timed beside their plain
    versions, SDPA and their bounds. Then per config a teacher-forced
@@ -212,7 +236,7 @@ of JAX or of the JAX package `repro`. Phases:
    whisper_tiny CONFIG at full width and depth (4 encoder and 4 decoder
    layers, d_model 384, 6 heads of 64, vocab 51,865), 8 slots, one random
    1500-frame clip a slot (`frames=`, encoded once per engine), max_len
-   1024, chunk 32, 8 prompts of 4-64 tokens and 64 new tokens each, as
+   1024, chunk 32, 8 prompts of 4-64 tokens and 32 new tokens each, as
    phase-5 variants: bf16 KV, int8 KV, bf16 KV at chunk 128 (its chunk
    launches send the cross attention to B8, which must launch once a
    decoder layer in each) and int4 resident (the encoder's and the cross
@@ -238,7 +262,7 @@ of JAX or of the JAX package `repro`. Phases:
    and classification on the qwen2_1p5b CONFIG (full width and depth,
    seed 1), their Linears resident in int8 (`quantize_params`; olmoe's
    experts stay dense), ~29 GB together; 4 slots, max_len 256, chunk 32,
-   8 requests a tenant of 16-200 prompt tokens, 32 new tokens. (1) The
+   8 requests a tenant of 16-200 prompt tokens, 16 new tokens. (1) The
    launcher's order: both engines built (routes cuda-decode /
    cuda-prefill / resident-int8) and attached, then each served through
    `sched.run`, one after the other; B1, B3, B5 and B10 must launch in
@@ -309,7 +333,13 @@ of JAX or of the JAX package `repro`. Phases:
    faults (every demotion warns; the script records the warnings), a
    `{"kernels": [...]}` line (13 kernel entry points), the script's wall
    time, then as the last line `{"ok": true, "device": {...}}`. Any failed
-   check exits non-zero before.
+   check exits non-zero before; so does any drift of phase 3f's or the
+   engine audits' finding counts from the baseline's `cuda` section (an
+   error finding not pinned there included).
+
+`python3 chip_smoke.py --write-baseline` runs the same phases and rewrites
+that whole `cuda` section (phase 3f's counts and each audited engine's)
+from the run instead of holding the run to it.
 """
 from __future__ import annotations
 
@@ -331,7 +361,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import api  # noqa: E402
+from repro_torch import analysis, api  # noqa: E402
+from repro_torch.analysis import hotloop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import formats as FM  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
@@ -479,8 +510,12 @@ def check(cond, msg: str):
         raise SystemExit(f"FAILED: {msg}")
 
 
+T_START = time.perf_counter()
+
+
 def phase(title: str):
-    print(f"\n=== {title}", flush=True)
+    print(f"\n=== {title}  [t = {time.perf_counter() - T_START:.1f} s]",
+          flush=True)
 
 
 def cuda_ms(fns, iters: int) -> float:
@@ -1632,7 +1667,8 @@ def compare(label, got, ref, limit=None):
 
 
 def run_variant(label, cfg, model, prompts, max_new, card, *,
-                resident=None, geo=None, profile_at=(6, 45), also=()):
+                resident=None, geo=None, profile_at=(6, 45), also=(),
+                audit=False):
     """One engine variant: the free-running pass of the kernel engine
     alone (launches, tokens/s, step times, peak memory), then the checked
     pass beside two comparison engines. Returns the launch counts of the
@@ -1641,9 +1677,11 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
     5's by default); `also`: kernels beside the attention (and resident
     AIO) kernels that must launch on the path; `profile_at`: the checked
     pass's
-    steps to profile (phase 5's mix: at step 6 the 1000-token prompt
-    admits while others decode; at step 45 every prompt is in, decode
-    only). An MoE config's comparison engines follow the kernel engine's
+    steps to profile (phase 5's mix: at step 6 the 500- and 512-token
+    prompts admit while others decode; at step 45 every prompt is in,
+    decode only); `audit`: run the hot-loop audit on the kernel engine after its
+    free-running pass. An MoE config's comparison engines follow the kernel
+    engine's
     expert dispatch (`RouteEngine`). A model with recurrent blocks runs
     merged l=1 launches: flash_decode (or its int8 variant) launches once
     per attention layer of every model call, no chunk launch is made,
@@ -1724,6 +1762,8 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
           f"engine's caches and activations); {card}", flush=True)
     check_no_faults(f"{label} free-running", eng)
     served = tokens(eng)
+    if audit:
+        audit_engine(label, eng, prompts)
     del eng
     torch.cuda.empty_cache()
 
@@ -1799,14 +1839,78 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
     return {n: counts[n] for n in path}, served, free_tokens
 
 
-ENGINE_PLENS = [16, 1000, 137, 512, 64, 800, 300, 33]
+# 1000 and 800 cut to 500 and 400 for phase 3f's time (5b keeps prompts of
+# up to 1000 tokens)
+ENGINE_PLENS = [16, 500, 137, 512, 64, 400, 300, 33]
 MAX_NEW = 32
 
 
 def engine_prompts(vocab):
-    """Phase 5's mix: 8 prompts of 16..1000 tokens (32 new tokens each)."""
+    """Phase 5's mix: 8 prompts of 16..512 tokens (32 new tokens each)."""
     rng = np.random.RandomState(0)
     return [rng.randint(1, vocab, n).astype(np.int32) for n in ENGINE_PLENS]
+
+
+# ------------------------------------------------- static analysis (3f)
+BASELINE = ROOT / "src" / "repro_torch" / "analysis" / "baseline.json"
+HOTLOOP_STEPS = 3                  # live steps of each audited engine
+# the engines' hot-loop reports, by label (phase 8 holds them to the
+# baseline)
+HOTLOOP = {}
+
+
+def cuda_baseline() -> dict:
+    with open(BASELINE) as f:
+        return json.load(f).get("cuda", {})
+
+
+def analysis_phase(card):
+    """Phase 3f: every checker of `repro_torch.analysis` on the card.
+    Returns its report and the drift of its counts from the baseline's
+    cuda section."""
+    phase("3f. static analysis on the card: kernel contracts, kernel bodies "
+          "(redzones, profiled geometry, compute-sanitizer), the default "
+          "hot-loop engines, the format matrix")
+    t0 = time.perf_counter()
+    rep = analysis.run_all()
+    print(rep.render(), flush=True)
+    counts = analysis.run.counts_by_code(rep)
+    drift = analysis.compare_baseline(rep, cuda_baseline())
+    print(f"  phase 3f: findings {counts}; against the baseline's cuda "
+          f"section: {drift or 'no drift'}; "
+          f"{time.perf_counter() - t0:.1f} s wall; {card}", flush=True)
+    return rep, drift
+
+
+def write_cuda_baseline(rep) -> None:
+    """Rewrite the baseline's whole `cuda` section from this run: phase
+    3f's counts and every audited engine's (`--write-baseline`)."""
+    with open(BASELINE) as f:
+        data = json.load(f)
+    data["cuda"] = {
+        "counts_by_code": analysis.run.counts_by_code(rep),
+        "engines": {label: {"counts_by_code":
+                            analysis.run.counts_by_code(r)}
+                    for label, r in HOTLOOP.items()}}
+    with open(BASELINE, "w") as f:
+        json.dump(data, f, indent=2, sort_keys=True)
+        f.write("\n")
+    print(f"wrote the cuda section of {BASELINE}", flush=True)
+
+
+def audit_engine(label, eng, prompts):
+    """The hot-loop audit of a served engine: the idle step at each width,
+    then HOTLOOP_STEPS live steps of two short requests."""
+    t0 = time.perf_counter()
+    rep = analysis.Report()
+    submit_all(eng, [p[:24] for p in prompts[:2]], 4)
+    hotloop.check_engine(eng, rep, label=label, live_steps=HOTLOOP_STEPS)
+    HOTLOOP[label] = rep
+    for f in rep.findings:
+        print(f"  [{label}] {f.render()}", flush=True)
+    print(f"  [{label}] hot-loop audit: "
+          f"{analysis.run.counts_by_code(rep)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def engine_phase(dev, card):
@@ -1831,8 +1935,9 @@ def engine_phase(dev, card):
               f"{base.d_ff}, vocab {base.vocab}; {n_params / 1e9:.3f} B f32 "
               f"params in {time.perf_counter() - t0:.1f}s", flush=True)
         cfg = dataclasses.replace(base, kv_quant=kv_quant)
-        counts, served, free = run_variant(label, cfg, model, prompts,
-                                           max_new, card, resident=resident)
+        counts, served, free = run_variant(
+            label, cfg, model, prompts, max_new, card, resident=resident,
+            audit=resident in (None, "int4"))
         for name, n in counts.items():
             launches[name] += n
         served_by[label] = served
@@ -1922,10 +2027,14 @@ def paged_engine_phase(dev, card):
             if not paged:
                 flat_served[kv_quant] = served[False]
             else:
+                # the pool counters of the main pass alone, before the
+                # audit's own requests and warmup add to them
                 ps = eng.pool_stats()
                 print(f"  [{label}] pool_stats {json.dumps(ps)}", flush=True)
                 for n in path:
                     launches[n] += counts[n]
+                if label == PAGED_VARIANTS[0][0]:
+                    audit_engine(label, eng, prompts)
             del eng
             torch.cuda.empty_cache()
         check(served[True] == served[False],
@@ -2221,7 +2330,7 @@ def robustness_phase(dev, card, served, paged_served):
 GEMMA_PLENS = [4600, 4200, 700, 90]
 GEMMA_GEO = dict(slots=4, max_len=6144, prefill_chunk=W)
 # the dense configs: four requests each
-DENSE_PLENS = [16, 1000, 300, 64]
+DENSE_PLENS = [16, 500, 300, 64]   # 1000 cut to 500 for phase 3f's time
 DENSE_GEO = dict(slots=4, max_len=LK, prefill_chunk=W)
 
 
@@ -2285,7 +2394,8 @@ def families_phase(dev, card):
                   f"{1e3 * expert_bytes / HBM_BYTES_PER_S:.2f} ms a launch "
                   f"at 3.35 TB/s", flush=True)
         counts, _, _ = run_variant(label, cfg, model, prompts, max_new,
-                                   card, geo=geo, profile_at=profile_at)
+                                   card, geo=geo, profile_at=profile_at,
+                                   audit=bool(cfg.n_experts))
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         print(f"  [{label}] {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2298,11 +2408,11 @@ def families_phase(dev, card):
 
 # --------------------------------------- recurrent and hybrid (5e)
 # the merged engine makes one launch a token, so the longest prompt and
-# the new tokens set the step count: 24 + 24 steps a pass (the mix 16-256
+# the new tokens set the step count: 24 + 16 steps a pass (the mix 16-256
 # took 463 s; cut to 4-48 and 32 new tokens, 80 steps, 190 s; cut again to
-# make room for phase 5f)
+# make room for phase 5f, and the new tokens from 24 to 16 for phase 3f)
 RECURRENT_PLENS = [4, 12, 24, 16, 8, 20, 6, 10]
-RECURRENT_NEW = 24
+RECURRENT_NEW = 16
 # the decode kernel rows at D 80 keep the positions of the 4-48 mix
 ZAMBA_ROW_POS = [4, 12, 24, 48, 8, 40, 16, 32]
 RECURRENT_GEO = dict(slots=8, max_len=1024)
@@ -2438,7 +2548,8 @@ def recurrent_phase(dev, card):
                                        RECURRENT_NEW,
                                        card, resident=resident,
                                        geo=RECURRENT_GEO,
-                                       profile_at=profile_at)
+                                       profile_at=profile_at,
+                                       audit=label == "zamba2 bf16-KV")
             for name, n in counts.items():
                 launches[name] = launches.get(name, 0) + n
             print(f"  [{label}] {time.perf_counter() - t1:.1f} s",
@@ -2452,9 +2563,10 @@ def recurrent_phase(dev, card):
 
 # ------------------------------------------------ the frontends (5f)
 # whisper-tiny: 8 slots, one random 1500-frame clip each; prompts of 4-64
-# tokens (start-of-transcript tokens and earlier text), 64 new tokens each
+# tokens (start-of-transcript tokens and earlier text), 32 new tokens each
+# (64 until phase 3f needed the time)
 WHISPER_PLENS = [4, 12, 24, 64, 8, 40, 16, 32]
-WHISPER_NEW = 64
+WHISPER_NEW = 32
 WHISPER_GEO = dict(slots=8, max_len=1024, prefill_chunk=W)
 WHISPER_TOL = 1e-3                 # teacher-forced max |dlogit| / max|logit|
 INTERNVL_LAYERS = 4                # of 80: 3.4 B f32 parameters in them
@@ -2715,7 +2827,7 @@ def frontends_phase(dev, card):
 TENANT_FORMAT = "int8"
 TENANT_GEO = dict(slots=4, max_len=256, prefill_chunk=W)
 TENANT_PLENS = [16, 200, 64, 137, 33, 180, 90, 24]
-TENANT_NEW = 32
+TENANT_NEW = 16                    # 32 until phase 3f needed the time
 TENANT_OCC_STEP = 8                # decode steps before the mid-flight read
 TENANT_PROFILE_STEP = 12           # profile a decode-only step from here
 TENANT_KERNELS = (flash_decode, flash_prefill, aio_matmul, aio_quant)
@@ -3758,7 +3870,10 @@ def training_phase(dev, card):
     return counts
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--write-baseline"]):
+        sys.exit("usage: python3 chip_smoke.py [--write-baseline]")
     t_start = time.perf_counter()
     dev_info = device_phase()
     if dev_info is None:
@@ -3772,6 +3887,7 @@ def main() -> int:
     errs.update(aio_kernel_phase(dev))
     errs.update(new_kernel_phase(dev))
     oracle_phase(dev)
+    analysis_rep, drift = analysis_phase(smi)
     times = timing_phase(dev)
     times.update(paged_timing_phase(dev))
     times.update(aio_timing_phase(dev))
@@ -3805,6 +3921,20 @@ def main() -> int:
           f"run, want only phase 5c's two injected ones: {demotions}")
     print("engine demotions: the two injected in phase 5c, no other",
           flush=True)
+    pinned = cuda_baseline().get("engines", {})
+    for label, rep in HOTLOOP.items():
+        drift += [f"{label}: {m}" for m in analysis.compare_baseline(
+            rep, pinned.get(label, {}))]
+    drift += [f"{label}: pinned in the baseline, but no engine of that "
+              "label was audited" for label in pinned if label not in HOTLOOP]
+    print("hot-loop audits: " + json.dumps(
+        {label: analysis.run.counts_by_code(rep)
+         for label, rep in HOTLOOP.items()}), flush=True)
+    if argv:
+        write_cuda_baseline(analysis_rep)
+        drift = []
+    check(not drift, "static-analysis findings drifted from the baseline's "
+          f"cuda section ({BASELINE.name}): {drift}")
     kernels = []
     for kname in (k.__name__ for k in ALL_KERNELS):
         source, replaces = KERNEL_META[kname]

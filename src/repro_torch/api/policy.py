@@ -10,12 +10,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import threading
 from typing import Iterator, Optional
 
 import torch
 
-__all__ = ["ExecutionPolicy", "policy", "current_policy", "default_policy"]
+__all__ = ["ExecutionPolicy", "policy", "current_policy", "default_policy",
+           "TILE_FIELDS", "REPRESENTATIVE_TILES", "policy_sweep"]
 
 _BACKENDS = ("auto", "cuda", "ref")
 # formats of the quantized-matmul / quantize plane (formats.REGISTRY names)
@@ -90,6 +92,34 @@ class ExecutionPolicy:
 
 
 default_policy = ExecutionPolicy()
+
+# The tiling plane of the policy: the fields the kernel wrappers read.
+# `repro_torch.analysis` sweeps the launch contracts over these;
+# REPRESENTATIVE_TILES are the values a sweep takes (the default, then a
+# smaller tile the tests and the serving configs use). bkv stays a multiple
+# of 32, the only bkv the decode wrappers take.
+TILE_FIELDS = ("bm", "bn", "bk", "bkv", "bq")
+REPRESENTATIVE_TILES = {
+    "bm": (128, 64), "bn": (128, 64), "bk": (128, 64),
+    "bkv": (128, 32), "bq": (32, 8),
+}
+
+
+def policy_sweep(fields, base: Optional[ExecutionPolicy] = None,
+                 values: Optional[dict] = None):
+    """The ExecutionPolicies of a sweep over the named tile fields: the
+    cartesian product of each field's values (from `values`, else
+    REPRESENTATIVE_TILES) applied over `base` (the default policy when
+    omitted), in the order of `fields` and of each field's values."""
+    base = base if base is not None else default_policy
+    table = values if values is not None else REPRESENTATIVE_TILES
+    fields = tuple(fields)
+    for f in fields:
+        if f not in TILE_FIELDS:
+            raise ValueError(f"{f!r} is not a tile field {TILE_FIELDS}")
+    grids = [table[f] for f in fields]
+    return tuple(base.override(**dict(zip(fields, combo)))
+                 for combo in itertools.product(*grids))
 
 _state = threading.local()
 

@@ -35,7 +35,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -43,6 +43,7 @@ from ..core.formats import _ldexp
 
 __all__ = ["build_kernels", "load_kernel", "check_launch", "call_kernel",
            "refuse_grad", "check_cuda", "tile_counters", "ceil_div", "pad_to",
+           "set_launch_hook",
            "decode_fp_code", "encode_fp_code", "CSRC", "BUILD_ROOT",
            "BUILD_REPORTS", "NVCC_FLAGS"]
 
@@ -56,6 +57,9 @@ SOURCES = ("flash_decode", "flash_prefill", "flash_full", "aio_matmul",
 
 BUILD_REPORTS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# `hook(name, args, launch)`, called by `call_kernel` in place of the launch
+# when set: it may hand `launch` other tensors (the analysis' redzones do)
+_launch_hook: Optional[Callable] = None
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
 _LOCK = threading.Lock()
 
@@ -154,14 +158,33 @@ def call_kernel(name: str, argtypes: Sequence, *args,
     `args`, the stream excluded; a tensor argument is passed as its data
     pointer, after `refuse_grad` has seen every tensor of the launch."""
     refuse_grad(name, args)
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    lib = load_kernel(source or name)
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = [*argtypes, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream().cuda_stream
-    check_launch(lib, name, fn(*args, stream))
+
+    def launch(*args):
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        lib = load_kernel(source or name)
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream().cuda_stream
+        check_launch(lib, name, fn(*ptrs, stream))
+
+    if _launch_hook is None:
+        launch(*args)
+    else:
+        _launch_hook(name, args, launch)
+
+
+def set_launch_hook(hook: Optional[Callable]) -> Optional[Callable]:
+    """Install (or clear, with None) the launch hook: `call_kernel` then
+    calls ``hook(name, args, launch)`` instead of launching, and the hook
+    launches with ``launch(*args)``, the same arguments or others in their
+    place. Returns the hook it replaces."""
+    global _launch_hook
+    prev = _launch_hook
+    _launch_hook = hook
+    return prev
 
 
 def check_cuda(name: str, t: torch.Tensor, *, contiguous: bool = True):
@@ -176,17 +199,17 @@ def check_cuda(name: str, t: torch.Tensor, *, contiguous: bool = True):
 
 
 def tile_counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least n zeroed int32 tile counters for a split-K launch
-    (`csrc/splitk.cuh`) on `device`'s current stream, where `call_kernel`
-    launches it. A launch leaves its counters zeroed, so one buffer per
-    (device, stream) serves every launch on that stream in turn, and
-    launches on two streams never share counters."""
+    """n zeroed int32 tile counters for a split-K launch (`csrc/splitk.cuh`)
+    on `device`'s current stream, where `call_kernel` launches it: the
+    first n of a buffer kept per (device, stream). A launch leaves its
+    counters zeroed, so one buffer serves every launch on that stream in
+    turn, and launches on two streams never share counters."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _COUNTERS[key] = buf
-    return buf
+    return buf[:n]
 
 
 def ceil_div(a: int, b: int) -> int:

@@ -20,3 +20,4 @@ KERNELS = (flash_decode, flash_decode_quant, flash_prefill,
            flash_prefill_quant)
 PAGED_KERNELS = (flash_decode_paged, flash_decode_paged_quant,
                  flash_prefill_paged, flash_prefill_paged_quant)
+from . import contract  # noqa: F401  (registers the launch contracts)

@@ -7,3 +7,4 @@ from .kernel import (grouped_matmul, grouped_matmul_plain,  # noqa: F401
 from .ops import (make_group_ids, multi_gemm_with_policy,  # noqa: F401
                   pack_tenants)
 from .ref import grouped_matmul_ref  # noqa: F401
+from . import contract  # noqa: F401  (registers the launch contracts)

@@ -324,6 +324,8 @@ class ServingEngine:
         self._fault_plan: Optional[faultlib.FaultPlan] = None
         self._degraded: List[dict] = []
         self._has_deadlines = deadline_steps is not None or ttl_s is not None
+        # token widths the step program has run at (`step_trace_count`)
+        self._widths_launched: set = set()
 
     # ------------------------------------------------------------ launches
     def _policy_ctx(self):
@@ -357,6 +359,7 @@ class ServingEngine:
         finite. On a resident-weight engine a row is healthy only if the
         `_InputProbe` sums are finite too. The caches are updated in
         place."""
+        self._widths_launched.add(int(tokens.shape[1]))
         probe = None
         if self._probing:
             if self._probe is None or self._probe.model is not self.model:
@@ -1385,6 +1388,39 @@ class ServingEngine:
                               device=self.device)
             self._step_program(tok, zeros)
         return self
+
+    # ---------------------------------------------------------- introspection
+    def step_widths(self) -> tuple:
+        """Token widths the ONE step program runs at over the engine's
+        lifetime: (1,) for merged-mode engines, else (1, prefill_chunk)."""
+        return (1,) if self._merged_mode() else (1, self.prefill_chunk)
+
+    def step_trace(self, width: int, recorder):
+        """Run the step program once at token width `width` with every row
+        idle (lengths == 0: no cache value changes) inside `recorder`, a
+        context manager the caller passes in (the analysis package's
+        `hotloop.StepRecorder` records the step's ops), and return the
+        recorder."""
+        tok = torch.zeros((self.slots, width), dtype=torch.int32,
+                          device=self.device)
+        lens = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
+        with recorder, torch.no_grad():
+            self._step_program(tok, lens)
+        return recorder
+
+    def cache_buffers(self) -> List[tuple]:
+        """(name, data_ptr, shape, dtype) of every tensor field of every
+        cache layer, as "layer.field": the buffers a captured step would
+        have to keep in place."""
+        return [(f"{i}.{f.name}", t.data_ptr(), tuple(t.shape), t.dtype)
+                for i, c in enumerate(self.caches)
+                for f in dataclasses.fields(c)
+                if isinstance(t := getattr(c, f.name), torch.Tensor)]
+
+    def step_trace_count(self) -> int:
+        """Distinct token widths the step program has run at. After warmup
+        (or any real traffic) it must equal len(step_widths())."""
+        return len(self._widths_launched)
 
     # ------------------------------------------------------- snapshot/restore
     def snapshot(self, ckpt_dir, *, step: Optional[int] = None,

@@ -1713,3 +1713,60 @@ def test_train_step_on_card_matches_cpu_and_launches_no_full_kernel(dev):
             want, _ = loss_fn(card, batch)
     assert flash_attention.launches == cfg.n_layers
     torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+
+
+# -------------------------------------------- static analysis on the card
+# One contract case of each of the 13 entry points (repro_torch.analysis):
+# (label, registry key, case index). The card checks launch the case's
+# body with every operand inside NaN-filled redzones and under the
+# profiler: no guard may change, the output must equal the plain version,
+# and each kernel record's grid, block and shared memory must equal the
+# contract's.
+ENTRY_CASES = [
+    ("B1 flash_decode", ("attention", "cuda-decode"), 0),
+    ("B2 flash_decode_quant", ("attention", "cuda-decode"), 2),
+    ("B3 flash_prefill", ("attention", "cuda-prefill"), 0),
+    ("B4 flash_prefill_quant", ("attention", "cuda-prefill"), 2),
+    ("B5 aio_matmul", ("matmul", "cuda"), 6),
+    ("B6 flash_decode_paged", ("attention", "cuda-decode"), 3),
+    ("B6 flash_decode_paged_quant", ("attention", "cuda-decode"), 4),
+    ("B7 flash_prefill_paged", ("attention", "cuda-prefill"), 3),
+    ("B7 flash_prefill_paged_quant", ("attention", "cuda-prefill"), 4),
+    ("B8 flash_attention", ("attention", "cuda"), 0),
+    ("B9 grouped_matmul", ("grouped_matmul", "cuda"), 2),
+    ("B10 aio_quant", ("quantize", "cuda"), 4),
+    ("B11 depthwise_conv", ("depthwise_conv", "cuda"), 0),
+]
+
+
+@pytest.mark.parametrize("label,key,ci", ENTRY_CASES,
+                         ids=[c[0].split()[0] + "-" + c[0].split()[1]
+                              for c in ENTRY_CASES])
+def test_entry_point_is_clean_in_redzones_and_matches_its_contract(
+        dev, label, key, ci):
+    from repro_torch.analysis import card
+    fn = api.registry.contract(*key)
+    lc = fn(fn.cases[ci], api.ExecutionPolicy())
+    assert card.run_body(lc) == []
+
+
+def test_decode_workspace_one_block_short_is_caught_in_the_redzones(
+        dev, monkeypatch):
+    """Negative control: the real decode launch given a split workspace one
+    block short writes its last partials past the buffer. The output can
+    still come out right (the merge reads back what was written there), so
+    only the redzone after the workspace shows it."""
+    from repro_torch.analysis import card
+    from repro_torch.kernels.flash_attention import decode as dec
+    fn = api.registry.contract("attention", "cuda-decode")
+    lc = fn(fn.cases[0], api.ExecutionPolicy())
+    real = dec.decode_plan
+
+    def short(b, hkv, group, lq, lk, d):
+        plan = real(b, hkv, group, lq, lk, d)
+        return dataclasses.replace(
+            plan, workspace=plan.workspace - dec.ROWS_PER_BLOCK * (d + 2))
+    monkeypatch.setattr(dec, "decode_plan", short)
+    found = card.run_body(lc)
+    assert any(code == "KB400" and "redzone after" in msg
+               for code, msg in found), found
