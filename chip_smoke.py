@@ -329,6 +329,29 @@ of JAX or of the JAX package `repro`. Phases:
    fp8 loss finite and the last below the first; prints the final-loss
    gap. Checkpoints go under build/train_ckpt and are deleted. The
    launches of (c) count as the main path's.
+7c. Distribution on one card: a world of 8 ranks (`launch.world.
+   spawn_world`), every rank on cuda:0 over gloo (NCCL refuses two ranks
+   a device, so every collective goes through host memory; NCCL across
+   cards is not exercised). (a) qwen2_1p5b CONFIG over 2 layers, B 2 x L
+   512, the automatic TP path on mesh (1, 2); (b) internlm2_20b CONFIG
+   over 2 layers, L 1024, the manual TP+SP block on (1, 8) (each rank
+   builds the whole model in turn and keeps its shards); (c) olmoe_1b_7b
+   CONFIG over 2 layers, B 2 x L 512, expert parallelism on (1, 2): each
+   against rank 0's one-rank forward on the ref route (plain attention),
+   max |dlogit| <= 1e-4 x max |logit| (olmoe's reference routed as the EP
+   run chose; its own expert choice may differ on at most 1% of
+   token-layers). Each rank's recorded collectives show the path taken:
+   (a) two row-parallel all-reduces a layer and no sequence collective,
+   (b) two sequence all-gathers and two reduce-scatters a layer, (c) one
+   expert combine over "model" a layer and no all-gather of the experts;
+   B8 launches once a layer on every rank. (d) olmo_1b CONFIG over 2
+   layers on (2, 1), 3 steps of a global 4 x 256 batch: the int8
+   compressed step (step 1's reduced gradient within scale/2 of the f32
+   mean, elementwise; the ranks' params bitwise equal after every step),
+   then the plain-DP Trainer within 1e-5 (relative) of one rank's
+   Trainer. Prints each case's max |diff|, times and peak memory; B8's
+   launches in (a)-(c) count as the main path's. A failed rank fails the
+   run.
 8. Summary: no engine of any phase demoted but phase 5c's two injected
    faults (every demotion warns; the script records the warnings), a
    `{"kernels": [...]}` line (13 kernel entry points), the script's wall
@@ -3870,6 +3893,349 @@ def training_phase(dev, card):
     return counts
 
 
+# --------------------------------------- distribution on one card (7c)
+# NCCL refuses two ranks on one device, so the ranks share cuda:0 over
+# gloo (every collective through host buffers); the cases run on meshes of
+# ranks 0-1 or 0-7 of one world of 8
+DIST_RANKS = 8
+DIST_DEVICE = torch.device("cuda", 0)     # every rank's device
+DIST_TP = ("qwen2_1p5b", 2, 2, 512)       # (a): arch, layers, B, L; (1, 2)
+DIST_SP = ("internlm2_20b", 2, 1, 1024)   # (b): (1, 8), the manual block
+DIST_EP = ("olmoe_1b_7b", 2, 2, 512)      # (c): (1, 2)
+DIST_DP = ("olmo_1b", 2, 4, 256, 3)       # (d): (2, 1), global B x L, steps
+DIST_TOL = 1e-4                           # max |dlogit| / max |logit|
+DIST_ROUTE_TOL = 0.01                     # token-layers routed otherwise
+DIST_LOSS_TOL = 1e-5                      # relative, plain DP vs one rank
+
+
+def dist_sync():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def dist_peak(reset=False):
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def dist_calls(rec, site, kind):
+    """The forward calls of one kind at one call site in a record of
+    `record_collectives`."""
+    return sum(1 for c in rec if c["site"] == site and c["kind"] == kind
+               and c["phase"] == "forward")
+
+
+def dist_forward_case(rank, ranks, arch, layers, b, l, mesh, manual,
+                      seed=0):
+    """One forward at full width over `layers` layers on a mesh of
+    `ranks` ranks against rank 0's one-rank forward of the same model on
+    the ref route (plain attention): each rank builds the whole model on
+    the card in turn (a whole internlm2-20b x2 is 7.6 GB) and keeps its
+    shards. manual: the layers must run the manual TP+SP block (two
+    sequence all-gathers and two reduce-scatters a layer), else the
+    automatic path (two row-parallel all-reduces a layer). Returns rank
+    0's (max |diff|, max |logit|, ms, peak GiB, B8 launches) or this
+    rank's launches."""
+    from repro_torch.dist import set_mesh, shard_params
+    from repro_torch.dist.collectives import barrier, record_collectives
+    from repro_torch.models.tp_block import SITE
+    dev = DIST_DEVICE
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    toks = torch.randint(0, cfg.vocab, (b, l), generator=torch.Generator()
+                         .manual_seed(seed)).to(dev)
+    model = ref = None
+    for r in range(ranks):
+        if rank == r:
+            model = init_params(cfg, seed=0, device=dev)
+            if rank == 0:
+                with torch.no_grad(), api.policy(backend="ref"):
+                    ref, _ = forward(model, toks)
+            shard_params(model, mesh)
+            dist_sync()
+        barrier(mesh)
+    dist_peak(reset=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    with set_mesh(mesh), torch.no_grad(), record_collectives() as rec:
+        logits, _ = forward(model, toks)
+    dist_sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    n_b8 = flash_attention.launches
+    peak = dist_peak()
+    seq = (dist_calls(rec, SITE, "all-gather"),
+           dist_calls(rec, SITE, "reduce-scatter"))
+    rows = dist_calls(rec, "row", "all-reduce")
+    check(n_b8 == layers, f"{arch} rank {rank}: {n_b8} B8 launches in the "
+          f"forward, want {layers}")
+    if manual:
+        check(seq == (2 * layers, 2 * layers), f"{arch} rank {rank}: "
+              f"{seq} sequence all-gathers / reduce-scatters, want "
+              f"{2 * layers} each (the manual TP+SP block did not run)")
+    else:
+        check(seq == (0, 0) and rows == 2 * layers, f"{arch} rank {rank}: "
+              f"{seq} sequence all-gathers / reduce-scatters and {rows} "
+              f"row all-reduces, want none and {2 * layers}")
+    if rank:
+        return {"launches": n_b8, "peak": peak}
+    diff = float((logits - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(torch.isfinite(logits).all() and logits.shape == ref.shape,
+          f"{arch}: non-finite or misshapen logits {tuple(logits.shape)}")
+    check(diff <= DIST_TOL * scale, f"{arch} on {tuple(mesh.shape)}: max "
+          f"|dlogit| {diff:.3e} > {DIST_TOL} x {scale:.3e}")
+    return {"launches": n_b8, "peak": peak, "diff": diff, "scale": scale,
+            "ms": ms, "seq": seq, "rows": rows}
+
+
+def dist_ep_case(rank, mesh):
+    """(c) olmoe's expert-parallel forward against rank 0's one-rank
+    forward on the ref route, the reference routed as the EP run chose (a
+    top-k near-tie may flip between them: counted, at most 1% of
+    token-layers). Each layer must combine its experts' outputs over
+    "model" and no rank may all-gather the experts."""
+    from repro_torch.dist import set_mesh, shard_params
+    from repro_torch.dist.collectives import record_collectives
+    from repro_torch.models import moe as moe_mod
+    arch, layers, b, l = DIST_EP
+    dev = DIST_DEVICE
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    toks = torch.randint(0, cfg.vocab, (b, l), generator=torch.Generator()
+                         .manual_seed(1)).to(dev)
+    model = init_params(cfg, seed=0, device=dev)
+    shard_params(model, mesh)
+    real = moe_mod.router_topk
+    chosen = []
+
+    def record(probs, k):
+        gates, ids = real(probs, k)
+        chosen.append(ids)
+        return gates, ids
+    dist_peak(reset=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    with set_mesh(mesh), torch.no_grad(), record_collectives() as rec, \
+            patched(moe_mod, "router_topk", record):
+        logits, aux = forward(model, toks)
+    dist_sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    n_moe = cfg.block_kinds().count("moe")
+    combines = dist_calls(rec, "moe.combine", "all-reduce")
+    experts = sum(1 for c in rec if c["site"] == "weight"
+                  and len(c["shape"]) == 3
+                  and c["shape"][0] == cfg.n_experts)
+    n_b8 = flash_attention.launches
+    check(n_b8 == layers and combines == n_moe and experts == 0,
+          f"olmoe EP rank {rank}: {n_b8} B8 launches, {combines} expert "
+          f"combines, {experts} expert all-gathers; want {layers}, "
+          f"{n_moe}, 0")
+    out = {"launches": n_b8, "peak": dist_peak()}
+    del model
+    dist_sync()
+    if rank:
+        return out
+    full = init_params(cfg, seed=0, device=dev)
+    calls, flips = iter(chosen), []
+
+    def follow(probs, k):
+        _, own = real(probs, k)
+        ids = next(calls)
+        flips.append(float((torch.sort(own, -1).values
+                            != torch.sort(ids, -1).values).any(1)
+                           .float().mean()))
+        gates = torch.gather(probs, -1, ids)
+        return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), ids
+    with torch.no_grad(), api.policy(backend="ref"), \
+            patched(moe_mod, "router_topk", follow):
+        ref, ref_aux = forward(full, toks)
+    diff = float((logits - ref).abs().max())
+    scale = float(ref.abs().max())
+    flipped = float(np.mean(flips))
+    check(len(flips) == n_moe, f"olmoe: {len(flips)} routed calls")
+    check(flipped <= DIST_ROUTE_TOL, f"olmoe EP: expert choice differs on "
+          f"{flipped:.2%} of token-layers")
+    check(diff <= DIST_TOL * scale, f"olmoe EP: max |dlogit| {diff:.3e} > "
+          f"{DIST_TOL} x {scale:.3e}")
+    out.update(diff=diff, scale=scale, ms=ms, flipped=flipped,
+               aux=abs(float(aux) - float(ref_aux)), combines=combines)
+    return out
+
+
+def dist_dp_case(rank, mesh):
+    """(d) olmo-1b x2 trained data-parallel on (2, 1): the int8 compressed
+    step (the ranks' params bitwise equal after every step; step 1's
+    reduced gradient within scale/2 of the f32 mean, elementwise), then the
+    plain-DP Trainer against one rank's Trainer on the same global
+    batches."""
+    import torch.distributed as dist
+    from repro_torch.dist import set_mesh, shard_params
+    from repro_torch.dist.collectives import all_gather, all_reduce
+    from repro_torch.dist.specs import _leaves, param_tree
+    from repro_torch.launch.steps import dp_slice
+    from repro_torch.launch.steps_compressed import make_compressed_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.grad_compress import (compressed_psum,
+                                                 init_error_state,
+                                                 shared_scale)
+    arch, layers, b, l, steps = DIST_DP
+    dev = DIST_DEVICE
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    data = iter(SyntheticLM(DataConfig(vocab=cfg.vocab, batch=b, seq=l,
+                                       seed=7)))
+    batches = [batch_on(next(data), dev) for _ in range(steps)]
+    fmt = FM.REGISTRY["int8"]
+    model = init_params(cfg, seed=0, device=dev).trainable_()
+    shard_params(model, mesh)
+    dist_peak(reset=True)
+    t0 = time.perf_counter()
+    # step 1's reduced gradient against the f32 mean, group by group
+    with set_mesh(mesh):
+        with torch.enable_grad():
+            loss_fn(model, dp_slice(batches[0], mesh))[0].backward()
+        worst = 0.0
+        for ref in _leaves(param_tree(model)):
+            x = torch.cat([p.grad.reshape(-1) for _, _, p in ref.params])
+            got = compressed_psum(x, ("data",), fmt) / 2
+            mean = all_reduce(x, "data") / 2
+            scale = shared_scale(all_reduce(x.abs().amax(), "data", "max"),
+                                 fmt)
+            gap = float(((got - mean).abs() / (scale / 2)).max())
+            worst = max(worst, gap)
+        check(worst <= 1 + 1e-4, f"compressed step 1: a reduced gradient "
+              f"element {worst:.6f} x scale/2 from the f32 mean")
+    params = list(model.parameters())
+    opt = adamw_init(params)
+    err = init_error_state(params)
+    step = make_compressed_train_step(cfg, mesh, fmt_name="int8",
+                                      warmup=TRAIN_WARMUP, total=10)
+    closs, same = [], True
+    for batch in batches:
+        closs.append(float(step(model, opt, err, batch)["loss"]))
+        with set_mesh(mesh):
+            for p in params:
+                both = all_gather(p.detach()[None], 0, "data")
+                same &= bool(torch.equal(both[0], both[1]))
+        check(same, f"compressed DP: the ranks' params differ after step "
+              f"{len(closs)}")
+    ms_comp = 1e3 * (time.perf_counter() - t0) / steps
+    peak = dist_peak()
+    del model, opt, err, params
+    dist_sync()
+    tcfg = dict(ckpt_every=10**9, warmup=TRAIN_WARMUP, total_steps=10)
+    tr = Trainer(cfg, TrainerConfig(ckpt_dir=str(TRAIN_DIR / "dp"), **tcfg),
+                 seed=0, device=dev, mesh=mesh)
+    tr.run(iter([{k: v.cpu().numpy() for k, v in x.items()}
+                 for x in batches]), steps)
+    dp_loss = [m["loss"] for m in tr.metrics_log]
+    del tr
+    dist_sync()
+    out = {"peak": peak, "closs": closs, "dp_loss": dp_loss,
+           "ms": ms_comp, "worst": worst}
+    if rank == 0:
+        one = Trainer(cfg, TrainerConfig(ckpt_dir=str(TRAIN_DIR / "one_dp"),
+                                         **tcfg), seed=0, device=dev)
+        one.run(iter([{k: v.cpu().numpy() for k, v in x.items()}
+                      for x in batches]), steps)
+        one_loss = [m["loss"] for m in one.metrics_log]
+        gap = max(abs(a - c) / abs(c) for a, c in zip(dp_loss, one_loss))
+        check(gap <= DIST_LOSS_TOL, f"plain DP losses {dp_loss} vs one "
+              f"rank's {one_loss}")
+        out.update(one_loss=one_loss, gap=gap)
+        del one
+        dist_sync()
+    dist.barrier(group=mesh.get_group("data"))
+    return out
+
+
+def dist_rank_main(rank, world, init):
+    """One rank of phase 7c's world (every rank on cuda:0, gloo)."""
+    import torch.distributed as dist
+    from repro_torch.dist.collectives import barrier
+    from repro_torch.launch.mesh import init_world, make_mesh
+    torch.cuda.set_device(DIST_DEVICE)
+    init_world(init_method=init, rank=rank, world_size=world,
+               device="cuda", backend="gloo")
+    pair = [0, 1]
+    m12 = make_mesh((1, 2), ranks=pair)
+    m18 = make_mesh((1, DIST_RANKS))
+    m21 = make_mesh((2, 1), ranks=pair)
+    out, wall = {}, {}
+    t0 = time.perf_counter()
+    if rank in pair:
+        out["a"] = dist_forward_case(rank, 2, *DIST_TP, m12, manual=False)
+    barrier(m18)
+    wall["a"] = time.perf_counter() - t0
+    out["b"] = dist_forward_case(rank, DIST_RANKS, *DIST_SP, m18,
+                                 manual=True, seed=2)
+    barrier(m18)
+    wall["b"] = time.perf_counter() - t0 - wall["a"]
+    if rank in pair:
+        out["c"] = dist_ep_case(rank, m12)
+    barrier(m18)
+    wall["c"] = time.perf_counter() - t0 - wall["a"] - wall["b"]
+    if rank in pair:
+        out["d"] = dist_dp_case(rank, m21)
+    barrier(m18)
+    wall["d"] = time.perf_counter() - t0 - sum(wall.values())
+    out["wall"] = wall
+    dist.destroy_process_group()
+    return out
+
+
+def distribution_phase(card):
+    """Phase 7c: the distribution layer on one card. Returns B8's
+    launches in the cases' forwards (every rank's)."""
+    phase(f"7c. distribution on one card: {DIST_RANKS} gloo ranks on cuda:0 "
+          f"(host buffers): (a) automatic TP, (b) manual TP+SP block, (c) "
+          f"expert parallelism, (d) int8-compressed and plain DP")
+    from repro_torch.launch.world import spawn_world
+    torch.cuda.empty_cache()
+    ts = time.perf_counter()
+    ranks = spawn_world(DIST_RANKS, "chip_smoke:dist_rank_main",
+                        sys_path=[str(ROOT)], timeout=600)
+    wall_s = time.perf_counter() - ts
+    r0 = ranks[0]
+    launches = sum(r[c]["launches"] for r in ranks for c in "abc"
+                   if c in r)
+    for c, (arch, layers, b, l), shape in (
+            ("a", DIST_TP, (1, 2)), ("b", DIST_SP, (1, DIST_RANKS)),
+            ("c", DIST_EP, (1, 2))):
+        x = r0[c]
+        peaks = [r[c]["peak"] for r in ranks if c in r]
+        n = sum(r[c]["launches"] for r in ranks if c in r)
+        if c == "c":
+            path = (f"{x['combines']} expert combines over \"model\" a "
+                    f"rank, no expert all-gather; expert choice differs on "
+                    f"{x['flipped']:.3%} of token-layers, |daux| "
+                    f"{x['aux']:.2e}")
+        else:
+            path = (f"{x['seq'][0]} sequence all-gathers and {x['seq'][1]} "
+                    f"reduce-scatters, {x['rows']} row all-reduces a rank")
+        print(f"  ({c}) {arch} CONFIG x{layers} layers, B {b} x L {l} on "
+              f"mesh {shape}: max |dlogit| {x['diff']:.3e} (<= {DIST_TOL} x "
+              f"max |logit| {x['scale']:.3e}) against one rank on the ref "
+              f"route; forward {x['ms']:.1f} ms (rank 0); B8 launches {n} "
+              f"({layers} a rank); {path}; peak {max(peaks):.2f} GiB a "
+              f"rank, {sum(peaks):.2f} GiB all ranks; case wall "
+              f"{r0['wall'][c]:.1f} s", flush=True)
+    d = r0["d"]
+    print(f"  (d) {DIST_DP[0]} CONFIG x{DIST_DP[1]} layers on mesh (2, 1), "
+          f"global batch {DIST_DP[2]} x {DIST_DP[3]}, {DIST_DP[4]} steps: "
+          f"int8 compressed losses {[round(x, 5) for x in d['closs']]}, "
+          f"the ranks' params bitwise equal after every step; step 1's "
+          f"reduced gradient at most {d['worst']:.4f} x scale/2 from the "
+          f"f32 mean; plain-DP Trainer {[round(x, 6) for x in d['dp_loss']]}"
+          f" vs one rank {[round(x, 6) for x in d['one_loss']]} (max rel "
+          f"{d['gap']:.2e}); {d['ms']:.1f} ms a compressed step; peak "
+          f"{d['peak']:.2f} GiB a rank; case wall {r0['wall']['d']:.1f} s",
+          flush=True)
+    print(f"  phase 7c wall time {wall_s:.1f} s (spawn to exit, {DIST_RANKS}"
+          f" ranks); NCCL across cards not exercised (one card); {card}",
+          flush=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return {"flash_attention": launches}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--write-baseline"]):
@@ -3914,6 +4280,8 @@ def main(argv=None) -> int:
         launches[kname] += n
     launches.update(morphable_phase(dev))
     for kname, n in training_phase(dev, smi).items():
+        launches[kname] += n
+    for kname, n in distribution_phase(smi).items():
         launches[kname] += n
     phase("8. summary")
     demotions = [w for w in WARNINGS if DEMOTED in w]

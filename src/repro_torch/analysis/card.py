@@ -13,7 +13,14 @@ the real entry point, and three instruments watch it.
   equal the plain version's (NaN exactly where it has NaN; else KB402).
 * Geometry (KB431). The body runs under `torch.profiler`; each kernel
   record's grid, block and shared memory (dynamic plus static, as the
-  profiler reports it) must equal its contract's, in launch order.
+  profiler reports it) must equal its contract's, in launch order. Now
+  and then a session hands back a trace without some or all of the
+  records of the work it saw launched (`scripts/profiler_sessions.py`
+  counts such sessions on a card): a trace that holds fewer of a
+  contract's kernel records than it declares is profiled again, at most
+  PROFILE_ATTEMPTS sessions, and every run's redzones and outputs are
+  checked. A grid, block, shared memory or extra launch that differs is
+  a finding at once.
 * compute-sanitizer (KB400, KB410). A subprocess runs the smallest
   contract case of each C entry point and kernel variant under
   `memcheck`, `synccheck`, `racecheck` and `initcheck`, with
@@ -42,9 +49,10 @@ from ..api.registry import KernelRegistry, LaunchContract
 from ..kernels import common
 from .findings import Report
 
-__all__ = ["Redzones", "check_on_card", "run_body", "profiled_launches",
-           "geometry_drift", "card_cases", "sanitizer_cases",
-           "run_sanitizers", "GUARD_BYTES", "SANITIZER_TOOLS"]
+__all__ = ["Redzones", "check_on_card", "run_body", "profiled_body",
+           "profiled_launches", "geometry_drift", "card_cases",
+           "sanitizer_cases", "run_sanitizers", "GUARD_BYTES",
+           "SANITIZER_TOOLS"]
 
 CHECKER = "kernel-body"
 GUARD_BYTES = 64 * 1024
@@ -54,6 +62,8 @@ CARD_CASE_BYTES = 256 << 20
 SANITIZER_TOOLS = ("memcheck", "synccheck", "racecheck", "initcheck")
 SANITIZER_EXIT = 86
 SANITIZER_TIMEOUT_S = 600
+# profiler sessions of one body before missing kernel records are a finding
+PROFILE_ATTEMPTS = 3
 
 # the guard pattern of each dtype, little-endian: a NaN of floats, 0x7f
 # bytes for integer codes
@@ -194,33 +204,48 @@ def geometry_drift(lc: LaunchContract, records) -> List[str]:
     return out
 
 
-def run_body(lc: LaunchContract) -> List[Tuple[str, str]]:
-    """Launch one contract's body inside redzones and under the profiler;
-    the (code, message) of every problem seen."""
+def profiled_body(lc: LaunchContract):
+    """One run of a contract's body inside redzones under a new profiler
+    session: (redzones, outputs, plain outputs, the trace's events)."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    found = []
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            with Redzones() as rz:
-                got, want = lc.body()
-            torch.cuda.synchronize()
-    except Exception as e:  # noqa: BLE001 — surfaced as a finding
-        return [("KB431", f"body raised {type(e).__name__}: {e}")]
-    found += [("KB400", m) for m in rz.problems()]
-    oob, diff = compare(got, want, lc.tol)
-    if oob:
-        found.append(("KB400", oob))
-    if diff:
-        found.append(("KB402", diff))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with Redzones() as rz:
+            got, want = lc.body()
+        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
-    recs = profiled_launches(events, {lch.kernel for lch in lc.launches})
-    found += [("KB431", m) for m in geometry_drift(lc, recs)]
-    return found
+    return rz, got, want, events
+
+
+def run_body(lc: LaunchContract) -> List[Tuple[str, str]]:
+    """Launch one contract's body inside redzones and under the profiler;
+    the (code, message) of every problem seen."""
+    torch.cuda.synchronize()
+    kernels = {lch.kernel for lch in lc.launches}
+    found = []
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        try:
+            rz, got, want, events = profiled_body(lc)
+        except Exception as e:  # noqa: BLE001 — surfaced as a finding
+            return [("KB431", f"body raised {type(e).__name__}: {e}")]
+        found += [("KB400", m) for m in rz.problems()]
+        oob, diff = compare(got, want, lc.tol)
+        if oob:
+            found.append(("KB400", oob))
+        if diff:
+            found.append(("KB402", diff))
+        recs = profiled_launches(events, kernels)
+        if len(recs) >= len(lc.launches):
+            break
+    drift = geometry_drift(lc, recs)
+    if len(recs) < len(lc.launches):
+        drift = [f"{m} (in each of {attempt} profiler sessions)"
+                 for m in drift]
+    found += [("KB431", m) for m in drift]
+    return list(dict.fromkeys(found))
 
 
 def _operand_bytes(lc: LaunchContract) -> int:

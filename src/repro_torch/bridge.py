@@ -188,11 +188,11 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _module_tree(mod: torch.nn.Module, leaf) -> dict:
-    """{name: leaf(parameter)} of a module's own parameters and {name:
-    subtree} of its submodules (None entries skipped): a Linear gives {"w"}
-    (+ "b"), a norm {"g"} (+ "b") or, non-parametric, {}, as the
-    reference's param dicts."""
-    out = {name: leaf(p) for name, p in mod._parameters.items()
+    """{name: leaf(module, name, parameter)} of a module's own parameters
+    and {name: subtree} of its submodules (None entries skipped): a Linear
+    gives {"w"} (+ "b"), a norm {"g"} (+ "b") or, non-parametric, {}, as
+    the reference's param dicts."""
+    out = {name: leaf(mod, name, p) for name, p in mod._parameters.items()
            if p is not None}
     for name, child in mod._modules.items():
         if child is not None:
@@ -200,18 +200,20 @@ def _module_tree(mod: torch.nn.Module, leaf) -> dict:
     return out
 
 
-def _stack(trees: list):
-    """Stack equal-structured nested dicts leafwise on a new leading axis."""
+def _stack(trees: list, join=np.stack):
+    """Stack equal-structured nested dicts leafwise on a new leading axis
+    (each leaf's list through `join`)."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+        return {k: _stack([t[k] for t in trees], join) for k in trees[0]}
+    return join(trees)
 
 
-def _to_jax_layout(model: Transformer, leaf) -> dict:
+def _to_jax_layout(model: Transformer, leaf, stack=np.stack) -> dict:
     """The reference's param pytree layout of `model`, each leaf
-    leaf(parameter): the top-level entries, the encoder stacked over its
-    layers, and each segment's unit kinds stacked over the unit's repeats
-    (the shared block once, unstacked) -- the inverse of `_layer_leaves`."""
+    leaf(module, name, parameter): the top-level entries, the encoder
+    stacked over its layers, and each segment's unit kinds stacked over the
+    unit's repeats by `stack` (the shared block once, unstacked) -- the
+    inverse of `_layer_leaves`."""
     cfg = model.cfg
     if resident_format(model) is not None:
         raise ValueError(f"{cfg.name}: resident codes are not a dense "
@@ -221,10 +223,10 @@ def _to_jax_layout(model: Transformer, leaf) -> dict:
     if model.lm_head is not None:
         out["lm_head"] = _module_tree(model.lm_head, leaf)
     if model.pos is not None:
-        out["pos"] = leaf(model.pos)
+        out["pos"] = leaf(model, "pos", model.pos)
     if model.encoder is not None:
         out["encoder"] = _stack([_module_tree(b, leaf)
-                                 for b in model.encoder])
+                                 for b in model.encoder], stack)
         out["enc_norm"] = _module_tree(model.enc_norm, leaf)
     segments, first = [], 0
     for unit, n in cfg.segments():
@@ -236,7 +238,7 @@ def _to_jax_layout(model: Transformer, leaf) -> dict:
             if kind == "shared_attn":
                 seg[f"{j}_{kind}"] = trees[0]
             else:
-                seg[f"{j}_{kind}"] = _stack(trees)
+                seg[f"{j}_{kind}"] = _stack(trees, stack)
         segments.append(seg)
         first += n * len(unit)
     out["segments"] = segments
@@ -249,7 +251,7 @@ def params_to_jax(model: Transformer) -> dict:
     `params_from_jax`, so params_to_jax(params_from_jax(p, cfg)) equals p
     leaf for leaf, bitwise. Every parameter of the model is a leaf of it.
     Dense models only (ValueError on resident weights)."""
-    return _to_jax_layout(model, to_numpy)
+    return _to_jax_layout(model, lambda _m, _n, p: to_numpy(p))
 
 
 def grads_to_jax(model: Transformer) -> dict:
@@ -257,7 +259,7 @@ def grads_to_jax(model: Transformer) -> dict:
     parameter has none), to compare with `jax.grad` of the reference's
     loss leaf by leaf. The shared block's gradient is the sum over its
     positions, as the reference's closed-over params give it."""
-    def grad(p):
+    def grad(_m, _n, p):
         return to_numpy(p.grad if p.grad is not None
                         else torch.zeros_like(p))
     return _to_jax_layout(model, grad)

@@ -1,3 +1,4 @@
 """Architecture configs of the ported families: all twelve of the
 reference's."""
-from .common import ARCH_IDS, get_arch, get_config, get_smoke  # noqa: F401
+from .common import (ARCH_IDS, SHAPES, ShapeCell, get_arch,  # noqa: F401
+                     get_config, get_smoke, shape_support)

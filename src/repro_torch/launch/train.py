@@ -20,8 +20,14 @@ consumed, not the prefetcher's (which runs up to its depth ahead), so a
 restart replays no batch and skips none: a preempted run ends with the
 params of an uninterrupted one. (The reference launcher checkpoints the
 source's own position and so may skip up to the prefetch depth.)
---model-parallel takes 1 only: tensor parallelism is the distribution
-layer's.
+
+Distributed: under a launcher environment (`torchrun --nproc-per-node N
+-m repro_torch.launch.train ... --model-parallel M`, or RANK / WORLD_SIZE
+/ MASTER_ADDR / MASTER_PORT set by hand, or --init-method) the process
+group starts from it (`launch.mesh.init_world`: NCCL when each rank has a
+card of its own, gloo otherwise) and the mesh is (world / M, M) ("data",
+"model"). Every rank reads the same global batch from the same stream;
+the Trainer takes its DP rows. Rank 0 prints and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -30,9 +36,12 @@ import os
 import tempfile
 from typing import Iterator, Optional, Sequence
 
+import torch
+
 from ..configs import get_config, get_smoke
 from ..data import DataConfig, PipelineState, Prefetcher, SyntheticLM
 from ..runtime import Trainer, TrainerConfig
+from .mesh import init_world, make_local_mesh, rank_device
 
 
 def _consumed(it: Iterator, state: PipelineState) -> Iterator:
@@ -58,11 +67,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--simulate-preemption", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--init-method", default=None,
+                    help="rendezvous of a multi-rank world (default: the "
+                         "launcher environment, env://)")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise ValueError(f"--model-parallel {args.model_parallel}: the port "
-                         "trains on one device; tensor parallelism comes "
-                         "with the distribution layer (ROADMAP A10)")
+
+    mesh, device, lead = None, args.device, True
+    world = torch.distributed.get_world_size() \
+        if torch.distributed.is_initialized() \
+        else int(os.environ.get("WORLD_SIZE", 1))
+    if args.model_parallel < 1 or world % args.model_parallel:
+        raise ValueError(
+            f"--model-parallel {args.model_parallel} does not divide the "
+            f"world of {world} rank(s): start the ranks with torchrun, or "
+            "set RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT, or pass "
+            "--init-method with RANK / WORLD_SIZE")
+    if args.model_parallel > 1 or args.init_method or world > 1 or \
+            torch.distributed.is_initialized():
+        init_world(init_method=args.init_method, device=args.device)
+        mesh = make_local_mesh(model=args.model_parallel)
+        device = rank_device(args.device)
+        lead = torch.distributed.get_rank() == 0
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
@@ -79,15 +104,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         return Prefetcher(src)
 
     def on_step(step, m):
-        if step % 10 == 0 or step == 1:
+        if lead and (step % 10 == 0 or step == 1):
             print(f"step {step:5d}  loss {m['loss']:.4f}  "
                   f"gnorm {m['grad_norm']:.3f}  lr {m['lr']:.2e}  "
                   f"{m['step_time_s']*1e3:.0f} ms", flush=True)
 
     def train_until(last: int) -> Trainer:
-        trainer = Trainer(cfg, tcfg, seed=0, device=args.device)
+        trainer = Trainer(cfg, tcfg, seed=0, device=device, mesh=mesh)
         resumed = trainer.maybe_restore()
-        if resumed:
+        if resumed and lead:
             print(f"[train] resumed from checkpoint step {resumed}")
         start = int(trainer.opt_state.step)
         data = make_data(trainer)
@@ -97,15 +122,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         finally:
             data.close()
         trainer.checkpoint(int(trainer.opt_state.step))
-        trainer.ckpt.wait()
+        trainer.wait()
         return trainer
 
     preempt = args.simulate_preemption
     trainer = train_until(preempt if 0 < preempt < args.steps else args.steps)
     if int(trainer.opt_state.step) < args.steps:
-        print("[train] simulated preemption — restarting from checkpoint")
+        if lead:
+            print("[train] simulated preemption — restarting from "
+                  "checkpoint")
         trainer = train_until(args.steps)
-    print("[train] done")
+    if lead:
+        print("[train] done")
     return trainer
 
 

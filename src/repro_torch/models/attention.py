@@ -290,6 +290,22 @@ class Attention(nn.Module):
         self.rope_theta = rope_theta
         self.window, self.softcap = window, softcap
 
+    def _tp_heads(self) -> int:
+        """The model-parallel ranks this rank's heads are split over: R
+        when q, k and v are column-parallel and o row-parallel over R ranks,
+        the q and the kv heads both divide by R (so a rank's q heads and
+        their kv heads are its own) and nothing is quantized; else 1 (a
+        sharded weight is then all-gathered and the heads computed
+        replicated)."""
+        mods = (self.q, self.k, self.v, self.o)
+        if not all(m.tp == t for m, t in zip(mods, ("col",) * 3 + ("row",))):
+            return 1
+        ranks = self.q.shards["w"][2]
+        if self.n_heads % ranks or self.n_kv % ranks \
+                or any(m.policy.active for m in mods):
+            return 1
+        return ranks
+
     def forward(self, x: torch.Tensor, *, causal: bool = True,
                 cache=None, lengths: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
@@ -303,9 +319,15 @@ class Attention(nn.Module):
         inside any row's causal frontier.
         """
         b, l, _ = x.shape
-        q = _split_heads(self.q(x), self.n_heads)
-        k = _split_heads(self.k(x), self.n_kv)
-        v = _split_heads(self.v(x), self.n_kv)
+        ranks = self._tp_heads() if cache is None else 1
+        if ranks > 1:          # this rank's heads; o all-reduces
+            q = _split_heads(self.q.local(x), self.n_heads // ranks)
+            k = _split_heads(self.k.local(x), self.n_kv // ranks)
+            v = _split_heads(self.v.local(x), self.n_kv // ranks)
+        else:
+            q = _split_heads(self.q(x), self.n_heads)
+            k = _split_heads(self.k(x), self.n_kv)
+            v = _split_heads(self.v(x), self.n_kv)
 
         if cache is None:
             positions = torch.arange(l, device=x.device)
@@ -313,6 +335,8 @@ class Attention(nn.Module):
                 rope(k, positions, self.rope_theta)
             out = aio_ops.attention(q, k, v, causal=causal,
                                     window=self.window, softcap=self.softcap)
+            if ranks > 1:
+                return self.o.local(_merge_heads(out))
             return self.o(_merge_heads(out))
 
         start = cache.pos

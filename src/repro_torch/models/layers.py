@@ -10,6 +10,15 @@ Every Linear can route through the AIO quantized-matmul plane: under a
 per-output-channel pow2 scales, as registered buffers, the dense weight
 freed — and dispatches through `api.ops.matmul_codes`.
 
+Under a mesh (`dist.set_mesh`) a Linear, the embedding and the MLP run
+model-parallel once `dist.shard_params` has cut their weights to this
+rank's shards (`Linear.tp`): a column-parallel Linear keeps its local
+output features for a consumer that takes them (`Linear.local`), a
+row-parallel one all-reduces its partial sums over "model", the embedding
+looks up its vocab slice and all-reduces. A consumer that needs the whole
+output calls the Linear as usual: a column-parallel weight is all-gathered
+and applied replicated, and a row-parallel Linear slices its input.
+
 Initialization follows the JAX init scales (normal * d_in^-0.5 for a
 Linear, normal * 0.02 for the embedding, ones for a norm gain, zeros for
 a bias) from an
@@ -28,6 +37,8 @@ from torch import nn
 from .. import resolve_device
 from ..api import ops as aio_ops
 from ..core import formats as F
+from ..dist.collectives import all_gather, all_reduce
+from ..dist.sharding import axis_rank
 
 __all__ = ["QuantPolicy", "Linear", "Embedding", "RMSNorm", "LayerNorm",
            "NonParamLayerNorm", "MLP", "linear", "norm", "rmsnorm",
@@ -105,10 +116,20 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, F.QuantWeight],
     return y
 
 
+def _rank_slice(t: torch.Tensor, dim: int, axis: str, n: int
+                ) -> torch.Tensor:
+    """This rank's slice of a tensor replicated over `axis` (n ranks)."""
+    return t.chunk(n, dim=dim)[axis_rank(axis)]
+
+
 class Linear(nn.Module):
     """A (d_in, d_out) Linear: a dense weight `w`, or — once `quantize_` or
     `set_resident` ran — resident codes in the buffers `w_codes` and
-    `w_scale` (format `fmt`, contraction length `k`) with `w` freed."""
+    `w_scale` (format `fmt`, contraction length `k`) with `w` freed.
+    `dist.shard_params` may cut `w` to this rank's column (d_out) or row
+    (d_in) shard and record it in `shards`; the bias stays whole."""
+
+    shards = None
 
     def __init__(self, d_in: int, d_out: int, bias: bool = False, *,
                  gen: Optional[torch.Generator] = None, device="cuda",
@@ -144,12 +165,51 @@ class Linear(nn.Module):
         """Convert the dense weight into resident codes in `fmt`, in place."""
         self.set_resident(F.quantize_weight(self.w, fmt))
 
+    @property
+    def tp(self) -> Optional[str]:
+        """"col" or "row" when `w` is this rank's shard, else None."""
+        s = (self.shards or {}).get("w")
+        return None if s is None else ("col" if s[0] == -1 else "row")
+
+    def weight_full(self) -> torch.Tensor:
+        """The whole dense weight (all-gathered when sharded)."""
+        s = (self.shards or {}).get("w")
+        if s is None:
+            return self.w
+        return all_gather(self.w, s[0], s[1], site="weight")
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """The model-parallel product of a sharded Linear. Column-parallel:
+        x (whole features) -> this rank's output features, plus its slice
+        of the bias. Row-parallel: x (this rank's input features) -> the
+        whole output, the partial sums all-reduced over the axis, then the
+        bias."""
+        dim, axis, n = self.shards["w"]
+        if dim == -1:
+            b = None if self.b is None else _rank_slice(self.b, -1, axis, n)
+            return linear(x, self.w, b, self.policy)
+        y = all_reduce(linear(x, self.w, None, self.policy), axis,
+                       site="row")
+        return y if self.b is None else y + self.b.to(y.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.qweight
+        if w is None and self.tp is not None:
+            if self.tp == "row" and not self.policy.active:
+                _, axis, n = self.shards["w"]
+                return self.local(_rank_slice(x, -1, axis, n))
+            # a per-tensor quantization scale needs the whole operands
+            return linear(x, self.weight_full(), self.b, self.policy)
         return linear(x, self.w if w is None else w, self.b, self.policy)
 
 
 class Embedding(nn.Module):
+    """The (vocab, d_model) table; vocab-parallel once `dist.shard_params`
+    cut it to this rank's rows (`shards["table"]`): each rank looks up the
+    tokens of its slice, zeros elsewhere, and the rows are all-reduced."""
+
+    shards = None
+
     def __init__(self, vocab: int, d_model: int, *,
                  gen: Optional[torch.Generator] = None, device="cuda",
                  dtype=torch.float32):
@@ -158,7 +218,16 @@ class Embedding(nn.Module):
         self.table = _normal((vocab, d_model), 0.02, gen, device, dtype)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.table[tokens]
+        s = (self.shards or {}).get("table")
+        if s is None:
+            return self.table[tokens]
+        _, axis, _ = s
+        rows = self.table.shape[0]
+        ids = tokens - axis_rank(axis) * rows
+        inside = (ids >= 0) & (ids < rows)
+        e = self.table[ids.clamp(0, rows - 1)]
+        e = torch.where(inside[..., None], e, torch.zeros_like(e))
+        return all_reduce(e, axis, site="embed")
 
 
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6
@@ -280,7 +349,23 @@ class MLP(nn.Module):
         """The projection back to d_model (down, or fc2)."""
         return self.fc2 if self.kind == "gelu" else self.down
 
+    def _tp_local(self) -> bool:
+        """Column-parallel in, row-parallel out, and no quantization: the
+        hidden features stay local and one all-reduce closes the MLP."""
+        ins = (self.fc1,) if self.kind == "gelu" else (self.gate, self.up)
+        return (all(m.tp == "col" for m in ins)
+                and self.out_proj.tp == "row"
+                and not any(m.policy.active for m in ins + (self.out_proj,)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._tp_local():
+            if self.kind == "gelu":
+                return self.fc2.local(torch.nn.functional.gelu(
+                    self.fc1.local(x), approximate="tanh"))
+            g = self.gate.local(x)
+            act = (torch.nn.functional.silu(g) if self.kind == "swiglu"
+                   else torch.nn.functional.gelu(g, approximate="tanh"))
+            return self.down.local(act * self.up.local(x))
         if self.kind == "gelu":
             return self.fc2(torch.nn.functional.gelu(self.fc1(x),
                                                      approximate="tanh"))

@@ -11,6 +11,14 @@ mass is lost (GShard/Switch). Every position of the launch counts toward
 T and competes for capacity, pad positions and idle rows included, as in
 the reference: which assignments a token keeps depends on its launch.
 
+Under a mesh with a "model" axis (`dist.set_mesh`) the layer runs the
+reference's expert-parallel path (`_ep_context`, `_moe_apply_ep`): each
+rank holds E / R experts (`dist.shard_params` cuts the stacked weights on
+their expert axis), routes the tokens of its DP shard (capacity from that
+shard's token count), keeps the assignments of its own experts, and the
+ranks' outputs are summed over "model" (an all-reduce, or a reduce-scatter
+onto the sequence-sharded residual of the manual TP block).
+
 The expert products run batched over the expert axis (`torch.bmm`),
 outside any kernel, as the reference computes them (a batched einsum). The
 router is a plain product with no QuantPolicy; the shared expert (kimi's
@@ -28,7 +36,11 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from .layers import MLP, Linear, QuantPolicy, _normal
+from ..dist.collectives import (all_gather, all_reduce, reduce_scatter,
+                                seq_split)
+from ..dist.sharding import (axis_rank, axis_size, ctx_dp_axes, ctx_mesh,
+                             dp_size, in_dp_region)
+from .layers import MLP, Linear, QuantPolicy, _normal, linear
 
 __all__ = ["MoE", "Dispatch", "router_topk", "expert_capacity"]
 
@@ -77,6 +89,8 @@ class MoE(nn.Module):
     plus `n_shared` always-on experts as one SwiGLU MLP of width
     d_ff * n_shared."""
 
+    shards = None
+
     def __init__(self, d_model: int, d_ff: int, n_experts: int, top_k: int,
                  *, n_shared: int = 0, capacity_factor: float = 1.25,
                  gen: Optional[torch.Generator] = None, device="cuda",
@@ -102,7 +116,7 @@ class MoE(nn.Module):
         """Route the (T, d_model) tokens of one launch."""
         t, k, e = xt.shape[0], self.top_k, self.n_experts
         logits = torch.matmul(xt.to(torch.float32),
-                              self.router.w.to(torch.float32))
+                              self.router.weight_full().to(torch.float32))
         probs = torch.softmax(logits, dim=-1)
         gates, ids = router_topk(probs, k)
         flat_e = ids.reshape(-1)
@@ -125,9 +139,28 @@ class MoE(nn.Module):
                                 minlength=self.n_experts).to(torch.float32)
         return self.n_experts * torch.sum(d.probs.mean(0) * (routed / n))
 
-    def forward(self, x: torch.Tensor
+    def experts(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The stacked expert weights (gate, up, down), all-gathered over
+        their expert axis when sharded."""
+        out = []
+        for name in ("gate", "up", "down"):
+            w = getattr(self, name)
+            s = (self.shards or {}).get(name)
+            out.append(w if s is None
+                       else all_gather(w, s[0], s[1], site="weight"))
+        return tuple(out)
+
+    def forward(self, x: torch.Tensor, *, seq_sharded: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (B, L, d_model) -> (out (B, L, d_model), aux loss)."""
+        """x (B, L, d_model) -> (out (B, L, d_model), aux loss).
+        seq_sharded: x is this rank's sequence slice over "model" (the
+        manual TP block's residual), and so is the output."""
+        ep = _ep_context(x, self.n_experts)
+        if ep is not None:
+            return _moe_apply_ep(self, x, ep, seq_sharded=seq_sharded)
+        if seq_sharded:
+            out, aux = self(all_gather(x, 1, "model", site="moe.seq"))
+            return seq_split(out, 1, "model"), aux
         b, l, dm = x.shape
         xt = x.reshape(b * l, dm)
         d = self.dispatch(xt)
@@ -141,9 +174,10 @@ class MoE(nn.Module):
         rows = torch.zeros((e * c + 1, dm), dtype=x.dtype, device=x.device)
         rows[dst] = xt[d.st]
         buf = rows[:e * c].view(e, c, dm)
-        h = torch.nn.functional.silu(torch.bmm(buf, self.gate)) \
-            * torch.bmm(buf, self.up)
-        y = torch.bmm(h, self.down)
+        gate, up, down = self.experts()
+        h = torch.nn.functional.silu(torch.bmm(buf, gate)) \
+            * torch.bmm(buf, up)
+        y = torch.bmm(h, down)
         gathered = y[d.se, posc] * torch.where(
             d.keep, d.sg, torch.zeros_like(d.sg))[:, None].to(y.dtype)
         # the combine: back to (token, k) order, summed over k in a fixed
@@ -154,3 +188,97 @@ class MoE(nn.Module):
         if self.shared is not None:
             out = out + self.shared(xt)
         return out.reshape(b, l, dm).to(x.dtype), self.aux_loss(d)
+
+
+# =============================================================================
+# Expert-parallel path
+# =============================================================================
+
+def _ep_context(x: torch.Tensor, n_experts: int):
+    """(dp axes, dp size, model size) when the ambient mesh supports EP
+    here: a "model" axis whose size divides the experts, outside the
+    compressed step's DP region (the reference's manual region). A DP-only
+    mesh with a "model" axis of 1 takes it too, as the reference's does:
+    capacity then comes from the DP shard's tokens. (The reference's
+    B*L % dp holds by construction: x is this rank's DP shard.)"""
+    mesh = ctx_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names or in_dp_region():
+        return None
+    ms = axis_size("model")
+    if n_experts % ms:
+        return None
+    return ctx_dp_axes(), dp_size(), ms
+
+
+def _moe_apply_ep(moe: MoE, x: torch.Tensor, ep, *, seq_sharded: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's `_moe_apply_ep` on this rank: x is its DP shard's
+    tokens (or, seq_sharded, its sequence slice of them, all-gathered in);
+    every rank routes all of them, keeps the assignments of its E / R
+    experts (the others go to a sentinel bin past them, sorted stably), and
+    its outputs are summed over "model" (reduce-scattered back onto the
+    sequence slice when seq_sharded). aux is averaged over the DP axes.
+    kimi's shared expert runs column/row-parallel in the same sum."""
+    dp, n_dp, ms = ep
+    if seq_sharded:
+        x = all_gather(x, 1, "model", site="moe.seq")
+    b, l, dm = x.shape
+    t, k, e = b * l, moe.top_k, moe.n_experts
+    e_loc = e // ms
+    e_lo = axis_rank("model") * e_loc
+    capacity = expert_capacity(t, e, k, moe.capacity_factor)
+    xt = x.reshape(t, dm)
+    logits = torch.matmul(xt.to(torch.float32),
+                          moe.router.weight_full().to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    gates, ids = router_topk(probs, k)
+    flat_e = ids.reshape(-1)
+    routed = torch.zeros(e, dtype=torch.float32, device=x.device
+                         ).scatter_add_(0, flat_e, torch.ones(
+                             t * k, dtype=torch.float32, device=x.device))
+    aux = e * torch.sum(probs.mean(0) * (routed / (t * k)))
+    if n_dp > 1:
+        aux = all_reduce(aux, dp, site="moe.aux") / n_dp
+
+    local = (flat_e >= e_lo) & (flat_e < e_lo + e_loc)
+    le = torch.where(local, flat_e - e_lo, torch.full_like(flat_e, e_loc))
+    order = torch.argsort(le, stable=True)
+    se = le[order]
+    st = torch.div(order, k, rounding_mode="floor")
+    sg = gates.reshape(-1)[order]
+    seg_start = torch.searchsorted(
+        se, torch.arange(e_loc, device=x.device, dtype=se.dtype))
+    sec = se.clamp(max=e_loc - 1)
+    pos = torch.arange(t * k, device=x.device) - seg_start[sec]
+    keep = local[order] & (pos < capacity) & (se < e_loc)
+    posc = pos.clamp(0, capacity - 1)
+    dst = torch.where(keep, sec * capacity + posc,
+                      torch.full_like(posc, e_loc * capacity))
+    rows = torch.zeros((e_loc * capacity + 1, dm), dtype=x.dtype,
+                       device=x.device)
+    rows = rows.index_put((dst,), xt[st])
+    buf = rows[:e_loc * capacity].view(e_loc, capacity, dm)
+    h = torch.nn.functional.silu(torch.bmm(buf, moe.gate)) \
+        * torch.bmm(buf, moe.up)
+    y = torch.bmm(h, moe.down)
+    gathered = y[sec, posc] * torch.where(
+        keep, sg, torch.zeros_like(sg))[:, None].to(y.dtype)
+    # back to (token, k) order, summed over k in a fixed order
+    combined = torch.empty_like(gathered).index_put((order,), gathered)
+    out = combined.view(t, k, dm).sum(1)
+    shared = moe.shared
+    if shared is not None and shared._tp_local():
+        # column/row-parallel: its partial sums ride the combine below
+        hs = torch.nn.functional.silu(shared.gate.local(xt)) \
+            * shared.up.local(xt)
+        out = out + linear(hs, shared.down.w).to(out.dtype)
+        shared = None
+    out = out.reshape(b, l, dm)
+    if seq_sharded:
+        out = reduce_scatter(out, 1, "model", site="moe.seq")
+    else:
+        out = all_reduce(out, "model", site="moe.combine")
+    if shared is not None:                      # replicated shared expert
+        xs = seq_split(x, 1, "model") if seq_sharded else x
+        out = out + shared(xs)
+    return out.to(x.dtype), aux

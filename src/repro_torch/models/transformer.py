@@ -68,6 +68,9 @@ from .layers import (_NORMS, MLP, Embedding, Linear, QuantPolicy, _normal,
                      linear, norm)
 from .moe import MoE
 from . import ssm
+from .tp_block import MANUAL_KINDS, manual_layer, manual_tp_ok
+from ..dist.collectives import all_gather, seq_split
+from ..dist.sharding import ctx_mesh
 
 __all__ = ["ModelConfig", "Transformer", "DenseBlock", "RecurrentBlock",
            "EncDecBlock", "init_params",
@@ -415,10 +418,21 @@ class Transformer(nn.Module):
         return self
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        if self.lm_head is None:
-            logits = linear(x, self.embed.table.t()).to(torch.float32)
+        """Logits (f32). Under a mesh a vocab-sharded table or a
+        column-parallel lm_head gives this rank's vocab slice, all-gathered
+        over "model"."""
+        table = (self.embed.shards or {}).get("table")
+        if self.lm_head is None and table is not None:
+            logits = all_gather(linear(x, self.embed.table.t()), -1,
+                                table[1], site="unembed")
+        elif self.lm_head is None:
+            logits = linear(x, self.embed.table.t())
+        elif self.lm_head.tp == "col" and not self.lm_head.policy.active:
+            logits = all_gather(self.lm_head.local(x), -1,
+                                self.lm_head.shards["w"][1], site="unembed")
         else:
-            logits = self.lm_head(x).to(torch.float32)
+            logits = self.lm_head(x)
+        logits = logits.to(torch.float32)
         cap = self.cfg.softcap_final
         if cap:
             logits = cap * torch.tanh(logits / cap)
@@ -542,11 +556,29 @@ def _run_layers(model: Transformer, x: torch.Tensor, caches=None,
         raise ValueError(f"{model.cfg.name}: the decoder needs the "
                          "encoder's memory (frames=, or memory=)")
     aux = None
+    # the manual TP+SP block (tp_block.py): eligible layers run on this
+    # rank's sequence slice; the residual is split before the first and
+    # gathered back before any other layer and after the last
+    manual = ctx_mesh() is not None and manual_tp_ok(
+        model.cfg, x, None if caches is None else caches[0],
+        model.cfg.quant, model)
+    sharded = False
     for i, layer in enumerate(model.layers):
         cache = None if caches is None else caches[i]
-        x, a = layer(x, cache=cache, lengths=lengths, **extra)
+        if manual and getattr(layer, "kind", None) in MANUAL_KINDS \
+                and layer.causal:
+            if not sharded:
+                x, sharded = seq_split(x, 1, "model"), True
+            x, a = manual_layer(layer, x, model.cfg)
+        else:
+            if sharded:
+                x, sharded = all_gather(x, 1, "model",
+                                        site="tp_block.exit"), False
+            x, a = layer(x, cache=cache, lengths=lengths, **extra)
         if a is not None:
             aux = a if aux is None else aux + a
+    if sharded:
+        x = all_gather(x, 1, "model", site="tp_block.exit")
     return x, aux
 
 

@@ -67,18 +67,21 @@ def adamw_update(grads: Sequence[torch.Tensor], state: AdamWState,
                  params: Sequence[torch.Tensor], *,
                  lr: Union[float, torch.Tensor], b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8, wd: float = 0.1,
-                 clip: Optional[float] = 1.0):
+                 clip: Optional[float] = 1.0,
+                 grad_norm: Optional[torch.Tensor] = None):
     """One AdamW step on `params` and `state`, in place. Returns (params,
     state, the gradients' global norm before clipping). lr: a scalar or a
-    0-d tensor (a schedule value computed outside)."""
+    0-d tensor (a schedule value computed outside). grad_norm: the global
+    norm when the gradients are shards of it (`dist.grads.global_grad_norm`
+    over a model-parallel mesh); by default the norm of `grads`."""
     grads, params = list(grads), list(params)
     if not len(grads) == len(params) == len(state.master):
         raise ValueError(f"{len(grads)} gradients, {len(params)} params, "
                          f"{len(state.master)} state entries")
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     if clip is not None:
-        grads, gnorm = clip_by_global_norm(grads, clip)
-    else:
-        gnorm = global_norm(grads)
+        factor = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+        grads = [g * factor.to(g.dtype) for g in grads]
     state.step.add_(1)
     step = state.step.to(torch.float32)
     c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,

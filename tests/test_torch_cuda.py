@@ -1770,3 +1770,45 @@ def test_decode_workspace_one_block_short_is_caught_in_the_redzones(
     found = card.run_body(lc)
     assert any(code == "KB400" and "redzone after" in msg
                for code, msg in found), found
+
+
+def _tp_rank(rank, world, init):
+    """A rank of the card's 2-rank TP world: qwen2 SMOKE's automatic TP
+    forward on cuda:0 (gloo, host buffers) against rank 0's one-rank
+    forward; returns (max |diff|, max |logit|, B8 launches)."""
+    import torch.distributed as dist
+    from repro_torch.dist import set_mesh, shard_params
+    from repro_torch.launch.mesh import init_world, make_mesh
+    torch.cuda.set_device(0)
+    init_world(init_method=init, rank=rank, world_size=world, device="cuda",
+               backend="gloo")
+    mesh = make_mesh((1, world))
+    dev = torch.device("cuda", 0)
+    model = init_params(get_smoke("qwen2_1p5b"), seed=0, device=dev)
+    toks = torch.randint(0, model.cfg.vocab, (2, 128), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad():
+        ref, _ = forward(model, toks)
+        shard_params(model, mesh)
+        flash_attention.launches = 0
+        with set_mesh(mesh):
+            got, _ = forward(model, toks)
+    out = (float((got - ref).abs().max()), float(ref.abs().max()),
+           flash_attention.launches)
+    dist.destroy_process_group()
+    return out
+
+
+def test_automatic_tp_on_the_card_matches_one_rank(dev):
+    """2 gloo ranks sharing the card run qwen2 SMOKE's automatic TP path
+    (column/row-parallel Linears, vocab-parallel embedding, B8 on each
+    rank's heads) against one rank's forward."""
+    import os
+    from repro_torch.launch.world import spawn_world
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    for diff, scale, launches in spawn_world(
+            2, "test_torch_cuda:_tp_rank", sys_path=[here, src],
+            timeout=240):
+        assert diff <= TOL * scale, (diff, scale)
+        assert launches == get_smoke("qwen2_1p5b").n_layers

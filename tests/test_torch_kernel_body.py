@@ -248,6 +248,71 @@ def test_geometry_drift_reads_the_profilers_kernel_records():
     assert "1 kernel record" in card.geometry_drift(lc, recs[:1])[0]
 
 
+_SPLIT_KV = LaunchContract(launches=(
+    KernelLaunch("split_kv_kernel", (75,), (), threads=256),))
+_SPLIT_KV_RECORD = _record("void repro::full::split_kv_kernel<float, 3>(Args)",
+                           [75, 1, 1], [256, 1, 1], 0, 10)
+_COPY_RECORD = {"cat": "gpu_memcpy", "name": "Memcpy DtoD", "ts": 5}
+
+
+def _sessions(monkeypatch, traces, problems=()):
+    """run_body on the CPU with each profiler session's trace taken in turn
+    from `traces`; returns its findings and the sessions it opened."""
+    class Zones:
+        def problems(self):
+            return list(problems)
+    opened = []
+
+    def session(lc):
+        opened.append(len(opened))
+        out = torch.ones(3)
+        return Zones(), out, out.clone(), traces[len(opened) - 1]
+    monkeypatch.setattr(card, "profiled_body", session)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    return card.run_body(_SPLIT_KV), len(opened)
+
+
+@pytest.mark.parametrize("traces,sessions", [
+    ([[_SPLIT_KV_RECORD]], 1),
+    ([[], [_COPY_RECORD, _SPLIT_KV_RECORD]], 2),
+    ([[_COPY_RECORD], [], [_SPLIT_KV_RECORD]], 3),
+], ids=["first", "after-one-short", "after-two-short"])
+def test_a_session_short_of_kernel_records_is_profiled_again(
+        monkeypatch, traces, sessions):
+    assert _sessions(monkeypatch, traces) == ([], sessions)
+
+
+def test_a_launch_missing_from_every_session_is_a_finding(monkeypatch):
+    found, opened = _sessions(monkeypatch,
+                              [[_COPY_RECORD]] * card.PROFILE_ATTEMPTS)
+    assert opened == card.PROFILE_ATTEMPTS
+    assert [code for code, _ in found] == ["KB431"]
+    assert "0 kernel record" in found[0][1]
+    assert "in each of 3 profiler sessions" in found[0][1]
+
+
+@pytest.mark.parametrize("trace", [
+    [_COPY_RECORD, _SPLIT_KV_RECORD, dict(_SPLIT_KV_RECORD, ts=20)],
+    [dict(_SPLIT_KV_RECORD, args={"grid": [76, 1, 1], "block": [256, 1, 1],
+                                  "shared memory": 0})],
+    [dict(_SPLIT_KV_RECORD, args={"grid": [75, 1, 1], "block": [128, 1, 1],
+                                  "shared memory": 0})],
+], ids=["extra", "grid", "block"])
+def test_a_drifted_launch_is_a_finding_at_once(monkeypatch, trace):
+    """Every launch recorded but one that differs: drift, no second
+    session."""
+    found, opened = _sessions(monkeypatch, [trace, [_SPLIT_KV_RECORD]])
+    assert opened == 1
+    assert [code for code, _ in found] == ["KB431"]
+    assert "profiler sessions" not in found[0][1]
+
+
+def test_a_redzone_problem_of_a_short_session_is_kept(monkeypatch):
+    found, opened = _sessions(monkeypatch, [[], [_SPLIT_KV_RECORD]],
+                              problems=["guard changed"])
+    assert (found, opened) == ([("KB400", "guard changed")], 2)
+
+
 def test_static_shared_memory_is_part_of_the_contract():
     """The profiler reports dynamic plus static shared memory; the split-K
     arrival's `s_last` is 16 bytes as ptxas lays it out."""

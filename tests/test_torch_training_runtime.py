@@ -13,7 +13,7 @@ tests/test_torch_training_resume.py).
   parameters;
 * refusals: a resident model cannot be trained; a model whose
   parameters do not require grad cannot take a train step;
-  --model-parallel other than 1."""
+  --model-parallel that does not divide the world (alone: any but 1)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,10 +58,13 @@ def test_launcher_preemption_ends_where_the_uninterrupted_run_ends(
 
 
 def test_launcher_refuses_model_parallelism(tmp_path):
-    with pytest.raises(ValueError, match="A10"):
+    """--model-parallel needs a world it divides: alone, the launcher
+    refuses it before starting any process group."""
+    with pytest.raises(ValueError, match="does not divide the world of 1"):
         train_launcher.main(["--arch", "olmo_1b", "--smoke", "--device",
                              "cpu", "--model-parallel", "2", "--ckpt-dir",
                              str(tmp_path)])
+    assert not torch.distributed.is_initialized()
 
 
 # ------------------------------------------------------------ serve step
