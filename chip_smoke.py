@@ -134,8 +134,8 @@ of JAX or of the JAX package `repro`. Phases:
    FMA) over 33.5 T a second, the rate 67 TFLOP/s counts as FMAs.
 5. Engine: ServingEngine on the full-width qwen2_1p5b CONFIG (random f32
    weights, seed 0), 8 slots, max_len 2048, prefill chunk 32, 8 requests
-   with prompts of 16..512 tokens (16..1000 until phase 3f needed the
-   time) and 32 new tokens each — dense bf16-KV,
+   with prompts of 16..256 tokens (16..1000 until phase 3f, 16..512
+   until the partition phase needed the time) and 32 new tokens each — dense bf16-KV,
    int8-KV, and bf16-KV with the Linear weights resident in int4 and in
    fp8a (converted in place by `quantize_params`, as the serve launcher
    does: the quantizer and the AIO GEMM run on every Linear). A
@@ -349,9 +349,24 @@ of JAX or of the JAX package `repro`. Phases:
    compressed step (step 1's reduced gradient within scale/2 of the f32
    mean, elementwise; the ranks' params bitwise equal after every step),
    then the plain-DP Trainer within 1e-5 (relative) of one rank's
-   Trainer. Prints each case's max |diff|, times and peak memory; B8's
-   launches in (a)-(c) count as the main path's. A failed rank fails the
-   run.
+   Trainer. (e) The launcher's two tenants on partitions of ranks 0-3
+   as a (2, 2) grid (`MorphableScheduler(ranks=)`, each partition a (1, 2)
+   mesh bound by `run`), served at once: olmoe_1b_7b CONFIG over 4 of its
+   16 layers on ranks 0-1, qwen2_1p5b CONFIG over all 28 on ranks 2-3, each
+   rank's weights its shards from `dist.init_sharded` (one KV head a rank
+   for qwen2), flat bf16-KV and paged int8-KV engines over 6 prompts of
+   16-160 tokens, 8 new tokens each; a one-rank engine of the whole
+   model on each partition's first rank runs in lockstep (put in the
+   partition's state before every step, the heads all-gathered; it emits
+   the partition's tokens, and olmoe's follows its expert choices): logits
+   of every consumed row within 1e-3 (bf16 KV) / 1e-2 (int8 KV) of max
+   |logit|, tokens equal but at near-ties (counted), expert choice
+   differing on at most 1% of token-layers; every rank's caches hold
+   n_kv / 2 heads, no weight all-gathered, each variant's two attention
+   kernels launched on every rank. Prints each case's max |diff|, times and
+   peak memory (every rank's in (e)); the launches of B8 in (a)-(c) and of
+   B1 / B3 / B6 / B7 on the partitions count as the main path's. A failed
+   rank fails the run.
 8. Summary: no engine of any phase demoted but phase 5c's two injected
    faults (every demotion warns; the script records the warnings), a
    `{"kernels": [...]}` line (13 kernel entry points), the script's wall
@@ -1690,7 +1705,7 @@ def compare(label, got, ref, limit=None):
 
 
 def run_variant(label, cfg, model, prompts, max_new, card, *,
-                resident=None, geo=None, profile_at=(6, 45), also=(),
+                resident=None, geo=None, profile_at=(6, 30), also=(),
                 audit=False):
     """One engine variant: the free-running pass of the kernel engine
     alone (launches, tokens/s, step times, peak memory), then the checked
@@ -1862,14 +1877,14 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
     return {n: counts[n] for n in path}, served, free_tokens
 
 
-# 1000 and 800 cut to 500 and 400 for phase 3f's time (5b keeps prompts of
-# up to 1000 tokens)
-ENGINE_PLENS = [16, 500, 137, 512, 64, 400, 300, 33]
+# 1000 and 800 cut to 500 and 400 for phase 3f's time, then halved for
+# phase 7c (e)'s (5b keeps prompts of up to 1000 tokens)
+ENGINE_PLENS = [16, 250, 137, 256, 64, 200, 150, 33]
 MAX_NEW = 32
 
 
 def engine_prompts(vocab):
-    """Phase 5's mix: 8 prompts of 16..512 tokens (32 new tokens each)."""
+    """Phase 5's mix: 8 prompts of 16..256 tokens (32 new tokens each)."""
     rng = np.random.RandomState(0)
     return [rng.randint(1, vocab, n).astype(np.int32) for n in ENGINE_PLENS]
 
@@ -2296,7 +2311,7 @@ def robustness_phase(dev, card, served, paged_served):
         prompts, served["dense bf16-KV"],
         lambda e: e._prefilling.any() and (e._occupied()
                                            & ~e._prefilling).any()
-        and e.step_no >= 8)
+        and e.step_no >= 4)
     del eng
     torch.cuda.empty_cache()
 
@@ -2375,7 +2390,7 @@ def families_phase(dev, card):
     olmoe = get_config("olmoe_1b_7b")
     variants = [
         ("olmoe_1b_7b", olmoe, engine_prompts(olmoe.vocab), MAX_NEW,
-         None, (45,)),
+         None, (30,)),
         ("gemma2_27b x4", dataclasses.replace(get_config("gemma2_27b"),
                                               n_layers=4),
          None, 16, GEMMA_GEO, (6,)),
@@ -4004,18 +4019,13 @@ def dist_ep_case(rank, mesh):
                          .manual_seed(1)).to(dev)
     model = init_params(cfg, seed=0, device=dev)
     shard_params(model, mesh)
-    real = moe_mod.router_topk
-    chosen = []
-
-    def record(probs, k):
-        gates, ids = real(probs, k)
-        chosen.append(ids)
-        return gates, ids
+    routes = FollowRoutes(moe_mod.router_topk)
+    routes.mode = "record"
     dist_peak(reset=True)
     reset_launches()
     t0 = time.perf_counter()
     with set_mesh(mesh), torch.no_grad(), record_collectives() as rec, \
-            patched(moe_mod, "router_topk", record):
+            patched(moe_mod, "router_topk", routes):
         logits, aux = forward(model, toks)
     dist_sync()
     ms = 1e3 * (time.perf_counter() - t0)
@@ -4035,19 +4045,11 @@ def dist_ep_case(rank, mesh):
     if rank:
         return out
     full = init_params(cfg, seed=0, device=dev)
-    calls, flips = iter(chosen), []
-
-    def follow(probs, k):
-        _, own = real(probs, k)
-        ids = next(calls)
-        flips.append(float((torch.sort(own, -1).values
-                            != torch.sort(ids, -1).values).any(1)
-                           .float().mean()))
-        gates = torch.gather(probs, -1, ids)
-        return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), ids
+    routes.mode = "follow"
     with torch.no_grad(), api.policy(backend="ref"), \
-            patched(moe_mod, "router_topk", follow):
+            patched(moe_mod, "router_topk", routes):
         ref, ref_aux = forward(full, toks)
+    flips = routes.flips
     diff = float((logits - ref).abs().max())
     scale = float(ref.abs().max())
     flipped = float(np.mean(flips))
@@ -4147,6 +4149,227 @@ def dist_dp_case(rank, mesh):
     return out
 
 
+# --------------------------- tenants on partitions of ranks (7c, case e)
+# ranks 0-3 of the world as a (2, 2) grid of ranks: the launcher's two
+# tenants, each on a (1, 2) partition of its own, served tensor-parallel at
+# once by `ServingEngine`s built under `MorphableScheduler.run`
+PART_GRID = np.arange(4).reshape(2, 2)
+# (tenant, arch, weight rows, cols, layers: None = all)
+PART_TENANTS = (("captioning", "olmoe_1b_7b", 64, 512, 4),   # of 16
+                ("classification", "qwen2_1p5b", 64, 768, None))
+PART_VARIANTS = (("flat bf16-KV", False, False),
+                 ("paged int8-KV", True, True))
+PART_GEO = dict(slots=4, max_len=256, prefill_chunk=W, block_size=16)
+PART_PLENS = [16, 160, 48, 100, 24, 130]
+PART_NEW = 8
+PART_TOL = 1e-3                 # max |dlogit| / max |logit|; ties below it
+PART_TOL_INT8 = 1e-2            # int8 KV: see `partition_tenant`
+PART_KERNELS = (flash_decode, flash_prefill, flash_decode_paged_quant,
+                flash_prefill_paged_quant)
+
+
+class StepLog(ServingEngine):
+    """A partition's engine that keeps each launch's logit rows and tokens
+    in `log` (the lockstep comparison drains it)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.log = []
+
+    def _greedy(self, rows, health):
+        tok, ok = super()._greedy(rows, health)
+        self.log.append((rows, tok))
+        return tok, ok
+
+
+class Follower(ServingEngine):
+    """The one-rank engine in lockstep with a partition's engine `lead`:
+    each launch emits the tokens the lead's same launch chose (so both
+    serve the same streams) and holds its own logits against the lead's
+    on every row whose token is consumed: max |dlogit| / max |logit|
+    (`worst`), and a token of its own other than the lead's only where its
+    top-1 / top-2 gap is at most `tol` x max |logit| (`ties`; any other is
+    `wrong`)."""
+
+    def __init__(self, *args, lead, tol, **kw):
+        super().__init__(*args, **kw)
+        self.lead, self.tol = lead, tol
+        self.worst, self.ties, self.compared, self.wrong = 0.0, 0, 0, []
+        self._now = None
+
+    def _greedy(self, rows, health):
+        own, ok = super()._greedy(rows, health)
+        theirs_rows, theirs = self.lead.log.pop(0)
+        self._now = (rows, theirs_rows, own)
+        return theirs, ok
+
+    def _emit(self, s, tok, newly):
+        rows, theirs_rows, own = self._now
+        mine = rows[s].float()
+        scale = float(mine.abs().max())
+        self.worst = max(self.worst, float(
+            (theirs_rows[s].float() - mine).abs().max()) / scale)
+        if int(own[s]) != int(tok):
+            top = mine.topk(2).values
+            if float(top[0] - top[1]) <= self.tol * scale:
+                self.ties += 1
+            else:
+                self.wrong.append((self._slot_req[s].rid, int(own[s]),
+                                   int(tok)))
+        self.compared += 1
+        super()._emit(s, tok, newly)
+
+
+class FollowRoutes:
+    """`moe.router_topk` recording the partition engine's expert choices
+    (`mode` "record") and giving them to the one-rank engine's same calls
+    ("follow"), counting the token-layers whose own choice differs."""
+
+    def __init__(self, real):
+        self.real, self.mode, self.ids, self.flips = real, None, [], []
+
+    def __call__(self, probs, k):
+        if self.mode == "record":
+            gates, ids = self.real(probs, k)
+            self.ids.append(ids)
+            return gates, ids
+        if self.mode == "follow":
+            _, own = self.real(probs, k)
+            ids = self.ids.pop(0)
+            self.flips.append(float((torch.sort(own, -1).values
+                                     != torch.sort(ids, -1).values).any(1)
+                                    .float().mean()))
+            gates = torch.gather(probs, -1, ids)
+            return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), ids
+        return self.real(probs, k)
+
+
+def gather_state(dst, src):
+    """Put the one-rank engine `dst` (None on the partition's other ranks)
+    in the device state of the partition's engine `src`: each cache field
+    sharded on its heads axis is all-gathered over "model" (every rank of
+    the partition calls this), the rest copied."""
+    from repro_torch.dist.collectives import all_gather
+    for i, sc in enumerate(src.caches):
+        for f in dataclasses.fields(sc):
+            t = getattr(sc, f.name)
+            if f.name not in ("pos", "table"):
+                t = all_gather(t, 1, "model", site="lockstep")
+            if dst is not None:
+                getattr(dst.caches[i], f.name).copy_(t)
+    if dst is not None:
+        dst._last[:] = src._last
+
+
+def partition_tenant(rank, arch, layers):
+    """One tenant on its partition (every rank of it, under its mesh):
+    the model built as this rank's shards (`init_sharded`), each variant
+    served by a partition engine in lockstep with a one-rank engine of the
+    whole model on the partition's first rank (put in the partition's
+    state before every step). Returns this rank's launches, peak memory,
+    cache heads and collectives, and on the first rank the comparison.
+
+    Tolerances of the lockstep logits (of max |logit|): the two engines
+    sum their products in other orders (row-parallel partial sums, other
+    GEMM column blocks), so each step's fresh K/V differ by f32 ulps
+    before they are stored; a bf16 cache rounds a few elements the other
+    way (half a bf16 ulp, PART_TOL = 1e-3 holds), an int8 cache moves a
+    key by a whole code step (amax / 127) wherever x / scale sits that
+    close to a rounding tie, several a chunk step at 28 layers:
+    PART_TOL_INT8 = 1e-2. A wrong head or slice moves logits by O(1)."""
+    from repro_torch.dist import init_sharded, set_mesh
+    from repro_torch.dist.collectives import record_collectives
+    from repro_torch.dist.sharding import axis_rank, ctx_mesh
+    from repro_torch.models import moe as moe_mod
+    mesh = ctx_mesh()
+    lead = axis_rank("model", mesh) == 0
+    dev = DIST_DEVICE
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    dist_peak(reset=True)
+    t0 = time.perf_counter()
+    model = init_sharded(cfg, mesh, seed=0, device=dev)
+    full = init_params(cfg, seed=0, device=dev) if lead else None
+    dist_sync()
+    out = {"arch": arch, "rank": rank, "lead": lead, "layers": cfg.n_layers,
+           "build_s": time.perf_counter() - t0, "variants": {}}
+    prompts = family_prompts(cfg.vocab, PART_PLENS, seed=5)
+    routes = FollowRoutes(moe_mod.router_topk)
+    for label, paged, int8 in PART_VARIANTS:
+        vcfg = dataclasses.replace(cfg, kv_quant=int8)
+        geo = dict(PART_GEO, paged=paged)
+        eng = StepLog(vcfg, model, **geo).warmup()
+        one = None
+        if lead:
+            with set_mesh(None):
+                one = Follower(vcfg, full, lead=eng, **geo,
+                               tol=PART_TOL_INT8 if int8 else PART_TOL
+                               ).warmup()
+            submit_all(one, prompts, PART_NEW)
+        submit_all(eng, prompts, PART_NEW)
+        counts = {k.__name__: 0 for k in PART_KERNELS}
+        steps, t_serve = 0, 0.0
+        with patched(moe_mod, "router_topk", routes), \
+                record_collectives() as rec:
+            while eng.pending():
+                n_rec = len(rec)
+                gather_state(one, eng)
+                del rec[n_rec:]           # the lockstep's own gathers
+                before = {k.__name__: k.launches for k in PART_KERNELS}
+                ts = time.perf_counter()
+                routes.mode = "record" if lead else None
+                eng.step()
+                dist_sync()
+                t_serve += time.perf_counter() - ts
+                for k in PART_KERNELS:
+                    counts[k.__name__] += k.launches - before[k.__name__]
+                if lead:
+                    with set_mesh(None):
+                        routes.mode = "follow"
+                        one.step()
+                routes.mode = None
+                eng.log.clear()
+                steps += 1
+        dist_sync()
+        check_no_faults(f"partition {arch} {label}", eng)
+        weights = sum(1 for c in rec if c["site"] == "weight")
+        heads = {c.k_codes.shape[1] if int8 else c.k.shape[1]
+                 for c in kv_caches(eng.caches)}
+        check(heads == {cfg.n_kv_heads // 2} and weights == 0,
+              f"partition {arch} {label} rank {rank}: cache heads {heads} "
+              f"(want {cfg.n_kv_heads // 2}), {weights} weight all-gathers")
+        check(len(eng.finished) == len(prompts), f"partition {arch} "
+              f"{label}: {len(eng.finished)} requests finished")
+        v = {"counts": counts, "steps": steps, "serve_s": t_serve,
+             "heads": min(heads),
+             "rows": sum(1 for c in rec if c["site"] == "row"),
+             "tokens": sum(len(r.out_tokens) for r in eng.finished)}
+        if lead:
+            check(not one.pending(), f"partition {arch} {label}: the "
+                  "one-rank engine did not drain in step")
+            check_no_faults(f"one-rank {arch} {label}", one)
+            check(not one.wrong and one.worst <= one.tol,
+                  f"partition {arch} {label}: max |dlogit| {one.worst:.3e}"
+                  f" x max |logit| (limit {one.tol}); tokens other than "
+                  f"the one-rank engine's past a near-tie (rid, one-rank, "
+                  f"partition): {one.wrong[:5]}")
+            v.update(worst=one.worst, tol=one.tol, ties=one.ties,
+                     compared=one.compared)
+        out["variants"][label] = v
+        del eng, one
+        dist_sync()
+    if routes.flips:
+        flipped = float(np.mean(routes.flips))
+        check(flipped <= DIST_ROUTE_TOL, f"partition {arch}: expert "
+              f"choice differs on {flipped:.2%} of token-layers")
+        out["flipped"] = flipped
+    out["peak"] = dist_peak()
+    del model, full
+    dist_sync()
+    return out
+
+
 def dist_rank_main(rank, world, init):
     """One rank of phase 7c's world (every rank on cuda:0, gloo)."""
     import torch.distributed as dist
@@ -4177,6 +4400,17 @@ def dist_rank_main(rank, world, init):
         out["d"] = dist_dp_case(rank, m21)
     barrier(m18)
     wall["d"] = time.perf_counter() - t0 - sum(wall.values())
+    # (e) every rank of the world makes the partitions' meshes; the
+    # partitions' ranks serve their tenants at once, the others wait
+    sched = MorphableScheduler(ranks=PART_GRID)
+    sched.reconfigure([Tenant(n, weight_rows=r, weight_cols=c, fmt="int8")
+                       for n, _, r, c, _ in PART_TENANTS])
+    for name, arch, _, _, layers in PART_TENANTS:
+        got = sched.run(name, partition_tenant, rank, arch, layers)
+        if got is not None:
+            out["e"] = got
+    barrier(m18)
+    wall["e"] = time.perf_counter() - t0 - sum(wall.values())
     out["wall"] = wall
     dist.destroy_process_group()
     return out
@@ -4187,12 +4421,13 @@ def distribution_phase(card):
     launches in the cases' forwards (every rank's)."""
     phase(f"7c. distribution on one card: {DIST_RANKS} gloo ranks on cuda:0 "
           f"(host buffers): (a) automatic TP, (b) manual TP+SP block, (c) "
-          f"expert parallelism, (d) int8-compressed and plain DP")
+          f"expert parallelism, (d) int8-compressed and plain DP, (e) two "
+          f"tenants served on (1, 2) partitions of ranks 0-3")
     from repro_torch.launch.world import spawn_world
     torch.cuda.empty_cache()
     ts = time.perf_counter()
     ranks = spawn_world(DIST_RANKS, "chip_smoke:dist_rank_main",
-                        sys_path=[str(ROOT)], timeout=600)
+                        sys_path=[str(ROOT)], timeout=900)
     wall_s = time.perf_counter() - ts
     r0 = ranks[0]
     launches = sum(r[c]["launches"] for r in ranks for c in "abc"
@@ -4229,11 +4464,54 @@ def distribution_phase(card):
           f"{d['gap']:.2e}); {d['ms']:.1f} ms a compressed step; peak "
           f"{d['peak']:.2f} GiB a rank; case wall {r0['wall']['d']:.1f} s",
           flush=True)
+    part = partition_report(ranks, r0["wall"]["e"])
     print(f"  phase 7c wall time {wall_s:.1f} s (spawn to exit, {DIST_RANKS}"
           f" ranks); NCCL across cards not exercised (one card); {card}",
           flush=True)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    return {"flash_attention": launches}
+    return {"flash_attention": launches, **part}
+
+
+def partition_report(ranks, wall_s):
+    """Print case (e), check that every partition rank launched each
+    attention kernel of its variants, and return the partition engines'
+    launches of them (every rank's)."""
+    parts = sorted((r["e"] for r in ranks if "e" in r),
+                   key=lambda x: x["rank"])
+    total = {k.__name__: 0 for k in PART_KERNELS}
+    for x in parts:
+        for label, v in x["variants"].items():
+            for name, n in v["counts"].items():
+                total[name] += n
+            used = [k for k, n in v["counts"].items() if n]
+            check(len(used) == 2, f"partition {x['arch']} {label} rank "
+                  f"{x['rank']}: kernels launched {v['counts']}")
+    for x in (p for p in parts if p["lead"]):
+        members = [p for p in parts if p["arch"] == x["arch"]]
+        for label, v in x["variants"].items():
+            counts = [m["variants"][label]["counts"] for m in members]
+            kern = ", ".join(f"{k} {[c[k] for c in counts]}"
+                             for k in counts[0] if counts[0][k])
+            print(f"  (e) {x['arch']} CONFIG x{x['layers']} layers on "
+                  f"partition ranks {[m['rank'] for m in members]} (1, 2), "
+                  f"{label}: {v['heads']} KV head(s) a rank; lockstep max "
+                  f"|dlogit| {v['worst']:.3e} x max |logit| (<= "
+                  f"{v['tol']}) over {v['compared']} tokens, {v['ties']} "
+                  f"near-tie(s) (top-2 gap <= {v['tol']} x max |logit|) "
+                  f"where the one-rank engine would choose otherwise; "
+                  f"{v['tokens']} tokens in {v['steps']} steps, partition "
+                  f"step time {1e3 * v['serve_s'] / v['steps']:.1f} ms "
+                  f"(rank 0 of it), {v['rows']} row all-reduces, no weight "
+                  f"all-gather; launches a rank {kern}", flush=True)
+        flips = (f"; expert choice differs on {x['flipped']:.3%} of "
+                 f"token-layers" if "flipped" in x else "")
+        print(f"  (e) {x['arch']}: peak "
+              f"{[round(m['peak'], 2) for m in members]} GiB by rank "
+              f"(the first also holds the one-rank engine's whole model); "
+              f"build {x['build_s']:.1f} s{flips}", flush=True)
+    print(f"  (e) both partitions served at once: case wall {wall_s:.1f} s",
+          flush=True)
+    return total
 
 
 def main(argv=None) -> int:

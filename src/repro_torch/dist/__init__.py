@@ -8,5 +8,5 @@ spec functions the trainer and the dry-run use to place whole trees.
 """
 from .sharding import (DP_AXES, ShapeMesh, constrain,  # noqa: F401
                        ctx_dp_axes, ctx_mesh, set_mesh)
-from .specs import (batch_specs, cache_specs, opt_state_specs,  # noqa: F401
-                    param_specs, shard_params)
+from .specs import (batch_specs, cache_specs, init_sharded,  # noqa: F401
+                    opt_state_specs, param_specs, shard_params)

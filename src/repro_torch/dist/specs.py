@@ -36,7 +36,8 @@ from .sharding import (DP_AXES, Placements, axis_rank, axis_size,
                        spec_placements)
 
 __all__ = ["param_specs", "opt_state_specs", "batch_specs", "cache_specs",
-           "param_tree", "shard_params", "local_shape", "local_bytes",
+           "param_tree", "shard_params", "init_sharded", "local_shape",
+           "local_bytes",
            "ParamRef", "Placements"]
 
 # Leaf-name classes for the Megatron placement of 2D weights.
@@ -201,6 +202,36 @@ def param_tree(model) -> dict:
     return _to_jax_layout(model, leaf, stack=stack)
 
 
+def _shard_plan(model, mesh) -> tuple:
+    """(specs, cuts) of `param_specs` over the model's reference layout:
+    cuts lists (module, attribute, parameter, dim, axis, ranks, rank) for
+    every parameter that has a shard on some mesh axis (the first such
+    axis; a module's attribute once: zamba2's shared block sits at several
+    positions), dim negative, counted from the last axis, as the stacked
+    leaf's placement reads it."""
+    tree = param_tree(model)
+    specs = param_specs(tree, mesh)
+    cuts, seen = [], set()
+    for ref, pl in zip(_leaves(tree), _leaves(specs)):
+        for name, placement in zip(mesh.mesh_dim_names, pl):
+            if not hasattr(placement, "dim"):
+                continue
+            n = axis_size(name, mesh)
+            r = axis_rank(name, mesh)
+            dim = placement.dim - ref.ndim            # negative
+            for mod, attr, p in ref.params:
+                if (id(mod), attr) not in seen:
+                    seen.add((id(mod), attr))
+                    cuts.append((mod, attr, p, dim, name, n, r))
+    return specs, cuts
+
+
+def _mark(mod, attr: str, dim: int, axis: str, n: int) -> None:
+    if getattr(mod, "shards", None) is None:
+        mod.shards = {}
+    mod.shards[attr] = (dim, axis, n)
+
+
 @torch.no_grad()
 def shard_params(model, mesh) -> Any:
     """Cut each parameter of a full port model to this rank's shard, in
@@ -214,20 +245,64 @@ def shard_params(model, mesh) -> Any:
     if resident_format(model) is not None:
         raise ValueError(f"{model.cfg.name}: resident codes cannot be "
                          "sharded; shard the dense model")
-    tree = param_tree(model)
-    specs = param_specs(tree, mesh)
-    for ref, pl in zip(_leaves(tree), _leaves(specs)):
-        for name, placement in zip(mesh.mesh_dim_names, pl):
-            if not hasattr(placement, "dim"):
-                continue
-            n = axis_size(name, mesh)
-            r = axis_rank(name, mesh)
-            dim = placement.dim - ref.ndim            # negative
-            for mod, attr, p in ref.params:
-                if getattr(mod, "shards", None) is None:
-                    mod.shards = {}
-                if attr in mod.shards:                # zamba2's shared block
-                    continue
-                p.data = p.data.chunk(n, dim=dim)[r].clone()
-                mod.shards[attr] = (dim, name, n)
+    specs, cuts = _shard_plan(model, mesh)
+    for mod, attr, p, dim, axis, n, r in cuts:
+        if attr in (getattr(mod, "shards", None) or {}):
+            continue                                  # already cut
+        p.data = p.data.chunk(n, dim=dim)[r].clone()
+        _mark(mod, attr, dim, axis, n)
     return specs
+
+
+@torch.no_grad()
+def init_sharded(cfg, mesh, *, seed: int = 0, device="cuda",
+                 dtype=torch.float32):
+    """`shard_params(init_params(cfg, seed=, device=, dtype=), mesh)`,
+    bitwise, without ever holding the whole model: the model is laid out
+    on `meta` first (its cuts), then built from the seeded generator with
+    each weight cut to this rank's shard as soon as it is drawn, so the
+    device holds at most one whole weight beside the shards (olmoe-1b-7b
+    is 27.6 GB in f32; one rank of a (1, 2) mesh keeps about half). A
+    sharded parameter that `layers._normal` does not draw raises
+    ValueError before the build."""
+    from .. import resolve_device
+    from ..models import layers
+    from ..models.transformer import Transformer
+    drawn = []
+
+    def record(p):
+        drawn.append(p)
+        return p
+    layers._DRAW_HOOKS.append(record)
+    try:
+        meta = Transformer(cfg, device="meta", dtype=dtype)
+    finally:
+        layers._DRAW_HOOKS.pop()
+    _, cuts = _shard_plan(meta, mesh)
+    drawn_ids = {id(p) for p in drawn}
+    for mod, attr, p, *_ in cuts:
+        if id(p) not in drawn_ids:
+            raise ValueError(f"{cfg.name}: {type(mod).__name__}.{attr} is "
+                             "sharded but not drawn by layers._normal")
+    by_param = {id(p): (dim, n, r) for _, _, p, dim, _, n, r in cuts}
+    plan = iter([by_param.get(id(p)) for p in drawn])
+
+    def cut(p):
+        c = next(plan)
+        if c is None:
+            return p
+        dim, n, r = c
+        return torch.nn.Parameter(p.data.chunk(n, dim=dim)[r].clone(),
+                                  requires_grad=False)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layers._DRAW_HOOKS.append(cut)
+    try:
+        model = Transformer(cfg, gen=gen, device=dev, dtype=dtype)
+    finally:
+        layers._DRAW_HOOKS.pop()
+    real = dict(model.named_modules())
+    twin = {id(m): real[name] for name, m in meta.named_modules()}
+    for mod, attr, _, dim, axis, n, _ in cuts:
+        _mark(twin[id(mod)], attr, dim, axis, n)
+    return model

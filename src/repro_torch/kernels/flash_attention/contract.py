@@ -244,6 +244,14 @@ _DECODE_CASES = (
      "bs": 16, "nblk": 128, "pool": 1030,
      "pos": (0, 1, 127, 128, 700, 1500, 2046, 2047), "window": None,
      "quant": True},
+    # one rank of qwen2-1.5B on a (1, 2) partition: its 6 q heads over its
+    # one KV head (a GQA group of 6; flat bf16 and paged int8 KV, as
+    # chip_smoke serves it)
+    {"b": 4, "hq": 6, "hkv": 1, "lq": 1, "lk": 256, "d": 128,
+     "pos": (0, 17, 128, 255), "window": None, "quant": False},
+    {"b": 4, "hq": 6, "hkv": 1, "lq": 1, "d": 128, "paged": True,
+     "bs": 16, "nblk": 16, "pool": 66, "pos": (0, 17, 128, 255),
+     "window": None, "quant": True},
     # a 32k-key cache (contract only: too large for the card's checks)
     {"b": 4, "hq": 32, "hkv": 8, "lq": 1, "lk": 32768, "d": 128,
      "pos": (0, 4095, 20000, 32767), "window": None, "quant": False},
@@ -391,6 +399,15 @@ _PREFILL_CASES = (
      "pos": (0, 128, 256, 700, 1000, 1500, 1800, 1920),
      "lens": (128, 128, 5, 128, 0, 77, 128, 128), "window": None,
      "quant": True},
+    # one rank of qwen2-1.5B on a (1, 2) partition: chunk 32, its 6 q
+    # heads over its one KV head (flat bf16 and paged int8 KV, as chip_smoke
+    # serves it)
+    {"b": 4, "hq": 6, "hkv": 1, "lq": 32, "lk": 256, "d": 128,
+     "pos": (0, 32, 100, 224), "lens": (32, 5, 0, 32), "window": None,
+     "quant": False},
+    {"b": 4, "hq": 6, "hkv": 1, "lq": 32, "d": 128, "paged": True,
+     "bs": 16, "nblk": 16, "pool": 66, "pos": (0, 32, 100, 224),
+     "lens": (32, 5, 0, 32), "window": None, "quant": True},
     # a 32k-key cache
     {"b": 2, "hq": 4, "hkv": 2, "lq": 32, "lk": 32768, "d": 128,
      "pos": (0, 32736), "lens": (32, 32), "window": None, "quant": False},

@@ -161,7 +161,8 @@ def run_step(cfg, cell, mesh) -> Dict:
                                                        replicate=True))
         else:
             local = S.dp_slice(batch, mesh, replicate=True)
-            caches = S.cache_shapes(cfg, local["token"].shape[0], cell.seq)
+            caches = S.cache_shapes(cfg, local["token"].shape[0], cell.seq,
+                                    model=model)
             S.make_serve_step(cfg)(model, caches, local["token"],
                                    memory=local.get("memory"))
     return {"flops": float(fc.get_total_flops()),

@@ -8,7 +8,10 @@ card of its own, gloo otherwise (ranks that share a card, or the CPU; the
 collectives then carry device tensors through host buffers).
 
 `make_local_mesh(model)` lays the live world out as (world / model, model)
-with dims ("data", "model"). `make_production_mesh(multi_pod=)` gives the
+with dims ("data", "model"). `world_grid()` gives the world's ranks as the
+squarest 2-D grid and `make_meshes(grids)` a mesh over each of several
+rank grids (the morphable scheduler's partitions), made alike on every
+rank. `make_production_mesh(multi_pod=)` gives the
 reference's production shapes, (16, 16) or (2, 16, 16), as a `ShapeMesh`
 of names and sizes only: it touches no device and needs no world (the
 dry-run builds one rank's step against it).
@@ -18,13 +21,15 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..dist.sharding import ShapeMesh
 
-__all__ = ["init_world", "world_backend", "make_mesh", "make_local_mesh",
-           "make_production_mesh", "rank_device"]
+__all__ = ["init_world", "world_backend", "make_mesh", "make_meshes",
+           "squarest", "world_grid", "make_local_mesh", "make_production_mesh",
+           "rank_device"]
 
 
 def world_backend(local_world: int, device: str = "cuda") -> str:
@@ -92,6 +97,34 @@ def make_mesh(shape, names=("data", "model"), ranks=None):
                          f"{ranks.numel()}")
     kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(kind, ranks.view(*shape), mesh_dim_names=tuple(names))
+
+
+def make_meshes(grids, names=("data", "model")) -> list:
+    """One DeviceMesh for each 2-D grid of world ranks in `grids`, made in
+    the order given: every rank of the world calls it with the same grids
+    (making a mesh is collective over the world), and a rank keeps the
+    meshes of grids it is not in as meshes it sits outside of."""
+    return [make_mesh(tuple(g.shape), names,
+                      ranks=torch.as_tensor(g.reshape(-1).tolist()))
+            for g in grids]
+
+
+def squarest(n: int) -> tuple:
+    """(rows, cols) of the squarest grid of n, rows <= cols."""
+    side = int(np.sqrt(n))
+    while n % side:
+        side -= 1
+    return side, n // side
+
+
+def world_grid():
+    """The live world's ranks as the squarest 2-D grid, a numpy int
+    array."""
+    if not dist.is_initialized():
+        raise RuntimeError("a grid of ranks needs a process group: call "
+                           "launch.mesh.init_world() first")
+    n = dist.get_world_size()
+    return np.arange(n).reshape(squarest(n))
 
 
 def make_local_mesh(model: int = 1):

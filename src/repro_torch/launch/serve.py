@@ -17,6 +17,8 @@
         --format int8 --backend ref      # fake-quant int8 Linears, ref route
     PYTHONPATH=src python -m repro_torch.launch.serve --multi-tenant \\
         --requests 2 --max-new 4         # two tenants on the card's grid
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --multi-tenant --device cpu --backend ref    # on a world of ranks
 
 Random weights from seed 0, 4 slots of 128 positions, prompts of 3-9
 random tokens. Prints the routes the attention and the Linear weights
@@ -30,20 +32,32 @@ tenant (qwen2_1p5b), both declared in int8, placed by the morphable
 scheduler on partitions of the device grid (one card: the fused 128x128
 plan, both tenants in one partition), and served one after the other
 through `MorphableScheduler.run` from their SMOKE configs, whatever
---smoke says.
+--smoke says. On a world of ranks (`torchrun`, or a caller that started the
+process group) the scheduler's grid is the world's ranks: on 4 ranks each
+tenant gets a (1, 2) partition of its own, the two partitions serve at
+once, each rank builds its shards of the tenant's weights
+(`dist.init_sharded`; whole weights with --weight-format, which are served
+replicated) and serves tensor-parallel, and rank 0 of each partition
+prints the tenant's lines. Each rank runs on `launch.mesh.rank_device`:
+its own card under NCCL, the given device under gloo.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from .. import api
 from ..configs import ARCH_IDS, get_config, get_smoke
 from ..core.formats import RESIDENT_FORMATS
+from ..dist import init_sharded
+from ..dist.sharding import ctx_mesh
 from ..kernels.aio_matmul import aio_matmul
 from ..kernels.aio_quant import aio_quant
 from ..kernels.flash_attention import KERNELS as ATTENTION_KERNELS
@@ -52,12 +66,26 @@ from ..models import init_params, quantize_params
 from ..models.layers import QuantPolicy
 from ..serving import Request, ServingEngine
 from ..tenancy import MorphableScheduler, Tenant, device_grid
+from .mesh import init_world, rank_device
 
 
 KERNELS = (*ATTENTION_KERNELS, *PAGED_KERNELS, aio_matmul, aio_quant)
 # the reference launcher's §VI-C tenants: (name, arch, weight rows, cols)
 TENANTS = (("captioning", "olmoe_1b_7b", 64, 512),
            ("classification", "qwen2_1p5b", 64, 768))
+
+
+def _lead() -> bool:
+    """True outside a partition, and on the first rank of one: the rank
+    that speaks for its partition."""
+    mesh = ctx_mesh()
+    return mesh is None or all(mesh.get_local_rank(n) == 0
+                               for n in mesh.mesh_dim_names)
+
+
+def _say(*args, **kwargs) -> None:
+    if _lead():
+        print(*args, **kwargs)
 
 
 def _occupancy_line(eng: ServingEngine) -> str:
@@ -76,7 +104,9 @@ def _run_engine(arch: str, smoke: bool, n_requests: int, max_new: int,
                 pool_blocks: int = None, swap_watermark: float = 1.0,
                 priorities: list = None):
     """Build one engine (random weights from `seed`), serve `n_requests`
-    random prompts step by step and return the finished requests."""
+    random prompts step by step and return the finished requests. Under a
+    partition's mesh the weights are this rank's shards (whole with
+    `weight_format`: resident codes are served replicated)."""
     cfg = get_smoke(arch) if smoke else get_config(arch)
     cfg = dataclasses.replace(cfg, kv_quant=kv_quant)
     if policy is not None and policy.format != "bf16":
@@ -85,7 +115,11 @@ def _run_engine(arch: str, smoke: bool, n_requests: int, max_new: int,
         # to the format
         cfg = dataclasses.replace(cfg, quant=QuantPolicy(
             activations=policy.format, weights=policy.format))
-    model = init_params(cfg, seed=seed, device=device)
+    mesh = ctx_mesh()
+    if mesh is not None and weight_format in (None, "none"):
+        model = init_sharded(cfg, mesh, seed=seed, device=device)
+    else:
+        model = init_params(cfg, seed=seed, device=device)
     if weight_format not in (None, "none"):
         # in place, so the dense weights are freed before the engine's
         # caches exist (the reference's launcher quantizes with donation)
@@ -97,10 +131,10 @@ def _run_engine(arch: str, smoke: bool, n_requests: int, max_new: int,
                         deadline_steps=deadline_steps, ttl_s=ttl_s)
     t0 = time.perf_counter()
     eng.warmup()
-    print(f"[serve:{arch}] warmup {time.perf_counter() - t0:.2f}s "
-          f"(prefill route {eng.prefill_route()}, decode route "
-          f"{eng.decode_route()}, weight route {eng.weight_route()}, device "
-          f"{eng.device})")
+    _say(f"[serve:{arch}] warmup {time.perf_counter() - t0:.2f}s "
+         f"(prefill route {eng.prefill_route()}, decode route "
+         f"{eng.decode_route()}, weight route {eng.weight_route()}, device "
+         f"{eng.device})")
     if sched is not None and tenant is not None:
         sched.attach_engine(tenant, eng)
     for k in KERNELS:
@@ -111,49 +145,52 @@ def _run_engine(arch: str, smoke: bool, n_requests: int, max_new: int,
         prio = priorities[rid % len(priorities)] if priorities else 0
         if not eng.submit(Request(rid, prompt, max_new_tokens=max_new,
                                   priority=prio)):
-            print(f"[serve:{arch}] request {rid} REJECTED "
-                  f"(queue full at {max_queue})")
+            _say(f"[serve:{arch}] request {rid} REJECTED "
+                 f"(queue full at {max_queue})")
     # drive step by step so the slots' occupancy is observable mid-flight
     t0 = time.perf_counter()
     while eng.pending():
         eng.step()
         if eng.stats.decode_steps in (1, max(2, max_new // 2)):
-            print(f"[serve:{arch}] step {eng.stats.decode_steps}: "
-                  f"{_occupancy_line(eng)}")
+            _say(f"[serve:{arch}] step {eng.stats.decode_steps}: "
+                 f"{_occupancy_line(eng)}")
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     done = eng.finished
     toks = sum(len(r.out_tokens) for r in done)
     st = eng.stats
-    print(f"[serve:{arch}] {len(done)} requests, {toks} tokens, "
-          f"{dt:.2f}s ({toks / dt:.1f} tok/s; {st.decode_steps} decode "
-          f"steps, {st.prefill_chunk_calls} chunked prefills, "
-          f"{st.prefill_token_steps} prefill token steps)")
-    print(f"[serve:{arch}] kernel launches: "
-          + ", ".join(f"{k.__name__}={k.launches}" for k in KERNELS))
-    print(f"[serve:{arch}] fault counters: quarantines={st.quarantines} "
-          f"demotions={st.demotions} timeouts={st.timeouts} "
-          f"rejected={st.rejected_submits} failed={st.failed_requests}")
+    _say(f"[serve:{arch}] {len(done)} requests, {toks} tokens, "
+         f"{dt:.2f}s ({toks / dt:.1f} tok/s; {st.decode_steps} decode "
+         f"steps, {st.prefill_chunk_calls} chunked prefills, "
+         f"{st.prefill_token_steps} prefill token steps)")
+    _say(f"[serve:{arch}] kernel launches: "
+         + ", ".join(f"{k.__name__}={k.launches}" for k in KERNELS))
+    _say(f"[serve:{arch}] fault counters: quarantines={st.quarantines} "
+         f"demotions={st.demotions} timeouts={st.timeouts} "
+         f"rejected={st.rejected_submits} failed={st.failed_requests}")
     if paged:
         ps = eng.pool_stats()
-        print(f"[serve:{arch}] pool: {ps['pool_blocks']} blocks "
-              f"(block_size={ps['block_size']}) used={ps['used_blocks']} "
-              f"registry={ps['registry_entries']} "
-              f"hits={ps['prefix_hits']}/{ps['admitted']} "
-              f"shared_tokens={ps['shared_tokens']} cow={ps['cow_copies']} "
-              f"evictions={ps['evictions']} skips={ps['eviction_skips']} "
-              f"deferred={ps['deferred_admissions']}")
-        print(f"[serve:{arch}] swap: watermark "
-              f"{ps['swap_watermark']:.2f} (soft cap "
-              f"{ps['watermark_blocks']} blocks) preemptions="
-              f"{ps['preemptions']} out={ps['swap_outs']} "
-              f"in={ps['swap_ins']} bytes_out={ps['swap_bytes_out']} "
-              f"bytes_in={ps['swap_bytes_in']} host_resident="
-              f"{ps['host_blocks']} blocks ({ps['host_bytes']} B)")
+        _say(f"[serve:{arch}] pool: {ps['pool_blocks']} blocks "
+             f"(block_size={ps['block_size']}) used={ps['used_blocks']} "
+             f"registry={ps['registry_entries']} "
+             f"hits={ps['prefix_hits']}/{ps['admitted']} "
+             f"shared_tokens={ps['shared_tokens']} cow={ps['cow_copies']} "
+             f"evictions={ps['evictions']} skips={ps['eviction_skips']} "
+             f"deferred={ps['deferred_admissions']}")
+        _say(f"[serve:{arch}] swap: watermark "
+             f"{ps['swap_watermark']:.2f} (soft cap "
+             f"{ps['watermark_blocks']} blocks) preemptions="
+             f"{ps['preemptions']} out={ps['swap_outs']} "
+             f"in={ps['swap_ins']} bytes_out={ps['swap_bytes_out']} "
+             f"bytes_in={ps['swap_bytes_in']} host_resident="
+             f"{ps['host_blocks']} blocks ({ps['host_bytes']} B)")
     for ev in eng.degraded_routes():
-        print(f"[serve:{arch}] DEGRADED at step {ev['step']}: "
-              f"{ev['from']} -> {ev['to']} ({ev['error']})")
+        _say(f"[serve:{arch}] DEGRADED at step {ev['step']}: "
+             f"{ev['from']} -> {ev['to']} ({ev['error']})")
+    _say(f"[serve:{arch}] tokens: " + "; ".join(
+        f"r{r.rid} {list(r.out_tokens)}"
+        for r in sorted(done, key=lambda r: r.rid)))
     return done
 
 
@@ -221,6 +258,19 @@ def main(argv=None):
     policy = api.ExecutionPolicy(format=args.format, backend=args.backend)
     priorities = ([int(x) for x in args.priority.split(",")]
                   if args.priority else None)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1"))) > 1
+    if world and not args.multi_tenant:
+        ap.error("a world of ranks serves --multi-tenant only")
+    if world:
+        own = not dist.is_initialized()
+        init_world(device=args.device)
+        try:
+            return _multi_tenant(args, policy, MorphableScheduler(),
+                                 rank_device(args.device))
+        finally:
+            if own:
+                dist.destroy_process_group()
     if not args.multi_tenant:
         return _run_engine(args.arch, args.smoke, args.requests,
                            args.max_new, policy=policy,
@@ -239,21 +289,36 @@ def main(argv=None):
     # card's grid, or one CPU device when asked for the CPU)
     sched = MorphableScheduler(None if args.device == "cuda"
                                else device_grid([[args.device]]))
+    return _multi_tenant(args, policy, sched, args.device)
+
+
+def _multi_tenant(args, policy, sched, device) -> dict:
+    """Plan the two tenants onto the scheduler's partitions and serve each
+    on its own; returns {tenant: finished requests} of the tenants this
+    process served (on a world of ranks, those of its partition)."""
     parts = sched.reconfigure([Tenant(name, weight_rows=rows,
                                       weight_cols=cols, fmt="int8")
                                for name, _, rows, cols in TENANTS])
-    print(f"[serve] fusion plan: {sched.plan.describe()}; partitions: "
-          f"{[p.tenants for p in parts]}")
+    rank = dist.get_rank() if sched.ranks is not None else 0
+    if rank == 0:
+        where = "" if sched.ranks is None else "; ranks " + str(
+            [p.ranks for p in parts])
+        print(f"[serve] fusion plan: {sched.plan.describe()}; partitions: "
+              f"{[p.tenants for p in parts]}{where}")
     done = {}
     for tenant, arch, _, _ in TENANTS:
-        done[tenant] = sched.run(
+        got = sched.run(
             tenant, _run_engine, arch, True, args.requests, args.max_new,
             policy=policy, sched=sched, tenant=tenant,
-            weight_format=args.weight_format, device=args.device,
+            weight_format=args.weight_format, device=device,
             prefill_chunk=args.prefill_chunk)
+        if got is not None:
+            done[tenant] = got
     for name, occ in sched.occupancy().items():
-        print(f"[serve] tenant {name}: final {len(occ)} slots, "
-              f"{sum(o is not None for o in occ)} busy")
+        ranks = sched.partition_of(name).ranks
+        if ranks is None or ranks[0] == rank:
+            print(f"[serve] tenant {name}: final {len(occ)} slots, "
+                  f"{sum(o is not None for o in occ)} busy")
     return done
 
 

@@ -180,9 +180,12 @@ def opt_shapes(cfg: T.ModelConfig, dtype=torch.bfloat16) -> AdamWState:
 
 
 def cache_shapes(cfg: T.ModelConfig, batch: int, max_len: int,
-                 dtype=torch.bfloat16) -> List:
-    """The per-layer decode caches (`init_caches`) on `meta`."""
-    return T.init_caches(cfg, batch, max_len, device="meta", dtype=dtype)
+                 dtype=torch.bfloat16, model=None) -> List:
+    """The per-layer decode caches (`init_caches`) on `meta`; with
+    `model=` each layer holds the KV heads the model computes on this
+    rank."""
+    return T.init_caches(cfg, batch, max_len, device="meta", dtype=dtype,
+                         model=model)
 
 
 def input_specs(cfg: T.ModelConfig, cell) -> Dict[str, Any]:

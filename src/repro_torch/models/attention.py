@@ -181,6 +181,11 @@ def store_pool_blocks(cache, values: dict, dst: torch.Tensor) -> None:
         pool.index_copy_(0, dst, values[name].to(pool.device, pool.dtype))
 
 
+def _cache_heads(cache) -> int:
+    """The KV heads a (flat or paged, dense or int8) cache holds."""
+    return (cache.k_codes if hasattr(cache, "k_codes") else cache.k).shape[1]
+
+
 def _q8(x: torch.Tensor):
     """Per-(b, h, position) row int8 quantization with a pow2 scale.
     torch.round is half-to-even, like jnp.round."""
@@ -306,6 +311,11 @@ class Attention(nn.Module):
             return 1
         return ranks
 
+    def cache_heads(self) -> int:
+        """The KV heads this rank's cache holds: its own under head
+        parallelism (n_kv / R), else all of them."""
+        return self.n_kv // self._tp_heads()
+
     def forward(self, x: torch.Tensor, *, causal: bool = True,
                 cache=None, lengths: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
@@ -317,9 +327,18 @@ class Attention(nn.Module):
         lengths[b] == 0 keep their cache and position untouched; rows with
         0 < lengths[b] < l advance by lengths[b], so the pad tail is never
         inside any row's causal frontier.
+
+        Under head parallelism (`_tp_heads` R > 1) the cache holds this
+        rank's n_kv / R heads (`init_caches(..., model=)`); a cache of
+        another head count raises ValueError.
         """
         b, l, _ = x.shape
-        ranks = self._tp_heads() if cache is None else 1
+        ranks = self._tp_heads()
+        if cache is not None and _cache_heads(cache) != self.n_kv // ranks:
+            raise ValueError(
+                f"a cache of {_cache_heads(cache)} KV heads for an attention "
+                f"layer that holds {self.n_kv // ranks} on this rank; build "
+                "the caches with init_caches(..., model=)")
         if ranks > 1:          # this rank's heads; o all-reduces
             q = _split_heads(self.q.local(x), self.n_heads // ranks)
             k = _split_heads(self.k.local(x), self.n_kv // ranks)
@@ -378,6 +397,8 @@ class Attention(nn.Module):
                                self.softcap, lengths=lengths)
         cache.pos = start + (l if lengths is None
                              else lengths.to(start.dtype))
+        if ranks > 1:
+            return self.o.local(_merge_heads(out))
         return self.o(_merge_heads(out))
 
 

@@ -29,7 +29,7 @@ test that compares the two packages copies one set of weights into both
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Callable, List, Optional, Union
 
 import torch
 from torch import nn
@@ -86,6 +86,13 @@ def _maybe_quant_weight(w: torch.Tensor, fmt_name: str) -> torch.Tensor:
     return F.fake_quant(w / scale, fmt_name) * scale
 
 
+# Hooks every weight `_normal` makes passes through (the innermost, last
+# one): `dist.specs.init_sharded` records the weights of a `meta` build,
+# then cuts each weight of the real build to this rank's shard as soon as
+# it is drawn.
+_DRAW_HOOKS: List[Callable[[nn.Parameter], nn.Parameter]] = []
+
+
 def _normal(shape, scale: float, gen: Optional[torch.Generator], device,
             dtype) -> nn.Parameter:
     if gen is None:                       # filled later (e.g. by the bridge)
@@ -93,7 +100,8 @@ def _normal(shape, scale: float, gen: Optional[torch.Generator], device,
     else:
         w = torch.randn(shape, generator=gen, dtype=dtype, device=device)
         w.mul_(scale)
-    return nn.Parameter(w, requires_grad=False)
+    p = nn.Parameter(w, requires_grad=False)
+    return _DRAW_HOOKS[-1](p) if _DRAW_HOOKS else p
 
 
 def linear(x: torch.Tensor, w: Union[torch.Tensor, F.QuantWeight],

@@ -155,7 +155,8 @@ class MoE(nn.Module):
         """x (B, L, d_model) -> (out (B, L, d_model), aux loss).
         seq_sharded: x is this rank's sequence slice over "model" (the
         manual TP block's residual), and so is the output."""
-        ep = _ep_context(x, self.n_experts)
+        ep = _ep_context(x, self.n_experts,
+                         "gate" in (self.shards or {}))
         if ep is not None:
             return _moe_apply_ep(self, x, ep, seq_sharded=seq_sharded)
         if seq_sharded:
@@ -194,18 +195,20 @@ class MoE(nn.Module):
 # Expert-parallel path
 # =============================================================================
 
-def _ep_context(x: torch.Tensor, n_experts: int):
+def _ep_context(x: torch.Tensor, n_experts: int, sharded: bool = True):
     """(dp axes, dp size, model size) when the ambient mesh supports EP
     here: a "model" axis whose size divides the experts, outside the
     compressed step's DP region (the reference's manual region). A DP-only
     mesh with a "model" axis of 1 takes it too, as the reference's does:
     capacity then comes from the DP shard's tokens. (The reference's
-    B*L % dp holds by construction: x is this rank's DP shard.)"""
+    B*L % dp holds by construction: x is this rank's DP shard.) Experts
+    left whole on every rank (`sharded` False: a model served replicated
+    on a partition) take the one-rank path over R > 1."""
     mesh = ctx_mesh()
     if mesh is None or "model" not in mesh.mesh_dim_names or in_dp_region():
         return None
     ms = axis_size("model")
-    if n_experts % ms:
+    if n_experts % ms or (ms > 1 and not sharded):
         return None
     return ctx_dp_axes(), dp_size(), ms
 
@@ -228,8 +231,13 @@ def _moe_apply_ep(moe: MoE, x: torch.Tensor, ep, *, seq_sharded: bool
     e_lo = axis_rank("model") * e_loc
     capacity = expert_capacity(t, e, k, moe.capacity_factor)
     xt = x.reshape(t, dm)
-    logits = torch.matmul(xt.to(torch.float32),
-                          moe.router.weight_full().to(torch.float32))
+    if moe.router.tp == "col":
+        # this rank's experts' logits, gathered: no router weight moves
+        logits = all_gather(linear(xt.to(torch.float32), moe.router.w),
+                            -1, moe.router.shards["w"][1], site="moe.router")
+    else:
+        logits = torch.matmul(xt.to(torch.float32),
+                              moe.router.weight_full().to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
     gates, ids = router_topk(probs, k)
     flat_e = ids.reshape(-1)

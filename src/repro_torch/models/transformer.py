@@ -46,7 +46,11 @@ instead (every layer a pool, all layers sharing one (B, nblk) block table);
 `set_block_tables` and `copy_pool_blocks` are the device halves of the
 serving engine's block allocator, `gather_pool_blocks` and
 `write_pool_blocks` those of its host swap, and `scrub_slots` that of its
-quarantine. All of them write into the cache tensors in place.
+quarantine. All of them write into the cache tensors in place. Under
+head parallelism (a model cut by `dist.shard_params` or
+`dist.init_sharded`, served under `dist.set_mesh`) `init_caches(...,
+model=)` gives each rank the KV heads it computes, n_kv / R a layer; the
+block functions then move each rank's own slice of the same blocks.
 """
 from __future__ import annotations
 
@@ -680,7 +684,8 @@ def _recurrent_cache(kind: str, cfg: ModelConfig, batch: int, device):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device="cuda", dtype=torch.bfloat16,
-                paged: Optional[Tuple[int, int]] = None) -> List:
+                paged: Optional[Tuple[int, int]] = None,
+                model: Optional[Transformer] = None) -> List:
     """One cache per layer: for an attention layer a KVCache (bf16 by
     default) or, with cfg.kv_quant, a QuantKVCache (int8 codes + pow2
     scales); for a recurrent layer its state (`ssm.MambaCache`,
@@ -692,25 +697,35 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     PagedQuantKVCache attention layers instead, each with its own pool of
     pool_blocks blocks of block_size positions and all sharing ONE (batch,
     nblk) block table tensor, nblk = ceil(max_len / block_size); recurrent
-    states keep their per-row layout."""
+    states keep their per-row layout.
+
+    model: the model the caches serve. Each attention layer's cache then
+    holds the KV heads that layer computes on this rank
+    (`Attention.cache_heads`): n_kv / R under head parallelism (its
+    q/k/v/o cut by `dist.shard_params` over R "model" ranks), all n_kv
+    otherwise. Without it every layer holds all n_kv heads."""
     dev = resolve_device(device)
+    kinds = cfg.block_kinds()
+    heads = [cfg.n_kv_heads] * len(kinds) if model is None else [
+        getattr(getattr(layer, "attn", None), "cache_heads",
+                lambda: cfg.n_kv_heads)() for layer in model.layers]
     table = None
     if paged is not None:
         pool_blocks, block_size = paged
         table = striped_table(batch, -(-max_len // block_size), pool_blocks,
                               device=dev)
     caches = []
-    for kind in cfg.block_kinds():
+    for kind, n_kv in zip(kinds, heads):
         if kind in RECURRENT_KINDS:
             caches.append(_recurrent_cache(kind, cfg, batch, dev))
         elif table is None:
-            caches.append(init_kv_cache(batch, cfg.n_kv_heads, max_len,
-                                        cfg.hd, device=dev, dtype=dtype,
+            caches.append(init_kv_cache(batch, n_kv, max_len, cfg.hd,
+                                        device=dev, dtype=dtype,
                                         quantized=cfg.kv_quant))
         else:
             caches.append(init_paged_kv_cache(
-                cfg.n_kv_heads, pool_blocks, block_size, cfg.hd, table,
-                dtype=dtype, quantized=cfg.kv_quant))
+                n_kv, pool_blocks, block_size, cfg.hd, table, dtype=dtype,
+                quantized=cfg.kv_quant))
     return caches
 
 

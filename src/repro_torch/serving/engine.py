@@ -91,6 +91,24 @@ Fault tolerance (a mirror of the reference engine's):
 `arm_fault_plan()`. An engine with no plan armed and no deadline set pays a
 few `None` checks a step.
 
+On a partition (an engine built under `dist.set_mesh`, which it binds
+again around every launch) each rank of the mesh runs its own engine over
+the same requests. A model cut by `dist.shard_params` or
+`dist.init_sharded` is served tensor-parallel: each rank's caches hold its
+n_kv / R heads (`init_caches(..., model=)`), q/k/v/gate/up run
+column-parallel and o/down row-parallel (one all-reduce each), the logits
+are all-gathered, so every rank takes the same argmax and the same host
+decisions (admission, blocks, preemption, quarantine) without a word
+between them (so a wall-clock `ttl_s`, read on each rank's own clock, is
+refused there; `deadline_steps` counts steps). `arm_fault_plan` checks
+that every rank of the partition arms the same plan (ValueError
+otherwise), so its launch faults demote every rank at the same step; a
+`KernelLaunchError` that no plan injected raises RuntimeError there
+instead of demoting: the other ranks would go on into collectives that
+the retrying rank's layers answer. Resident
+weights are refused on a sharded model (they stay replicated);
+`snapshot()` / `restore()` are refused on a partition of several ranks.
+
 Attention dispatches under the engine's ExecutionPolicy:
 `decode_route()` / `prefill_route()` report the impls ("cuda-decode" /
 "cuda-prefill" on the default policy). With `weight_format=` the Linear
@@ -113,6 +131,7 @@ import numpy as np
 import torch
 
 from .. import api
+from ..dist.sharding import ctx_mesh, set_mesh
 from ..models import transformer as T
 from ..models.attention import Attention, CrossAttention
 from ..models.layers import MLP
@@ -261,7 +280,15 @@ class ServingEngine:
         the watermark only drives registry eviction. A model with
         recurrent blocks or cross attention cannot be served paged:
         ValueError."""
+        # the partition this engine serves on: the ambient mesh at
+        # construction, bound again around every launch
+        self.mesh = ctx_mesh()
         if weight_format not in (None, "none"):
+            if _sharded(model):
+                raise ValueError(
+                    f"{cfg.name}: resident weights are served replicated "
+                    "on every rank of a partition (ROADMAP: sharded codes); "
+                    "build the model whole on each rank, not sharded")
             model = T.resident_view(model, weight_format)
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk ({prefill_chunk}) must be >= 1")
@@ -296,6 +323,8 @@ class ServingEngine:
         self.max_queue = max_queue
         self.max_replays = max_replays
         self.deadline_steps = deadline_steps
+        if ttl_s is not None and self._ranks() > 1:
+            raise ValueError(_TTL_ON_PARTITION)
         self.ttl_s = ttl_s
         self.memory = None
         if model.encoder is not None:
@@ -305,7 +334,8 @@ class ServingEngine:
         self.stats = EngineStats()
         self.caches = T.init_caches(
             cfg, slots, max_len, device=self.device,
-            paged=(self._pg_pool, self._pg_bs) if self._paged else None)
+            paged=(self._pg_pool, self._pg_bs) if self._paged else None,
+            model=model)
         self._slot_req: List[Optional[Request]] = [None] * slots
         self._last = np.zeros((slots, 1), np.int32)
         self._remaining = np.zeros(slots, np.int64)
@@ -329,8 +359,13 @@ class ServingEngine:
 
     # ------------------------------------------------------------ launches
     def _policy_ctx(self):
-        return api.policy(self.policy) if self.policy is not None \
-            else contextlib.nullcontext()
+        """The engine's policy and its partition's mesh, bound."""
+        ctx = contextlib.ExitStack()
+        if self.mesh is not None:
+            ctx.enter_context(set_mesh(self.mesh))
+        if self.policy is not None:
+            ctx.enter_context(api.policy(self.policy))
+        return ctx
 
     def _encode(self, frames) -> torch.Tensor:
         """The cross-attention memory of (slots, T, d_model) frames."""
@@ -400,7 +435,8 @@ class ServingEngine:
         through the plain route without a word (a sticky CUDA error, a
         refused launch plan). `consumed` marks the rows whose logits this
         launch's caller reads: a logits poison fires only on such a launch,
-        so every injected fault shows."""
+        so every injected fault shows. On a partition of several ranks
+        only the armed plan's faults (the same on every rank) demote."""
         plan = self._fault_plan
         step = self._step_no
         raise_fault = hook_fault = None
@@ -430,8 +466,17 @@ class ServingEngine:
                     for name, t in refs.items():
                         setattr(c, name, t)
                 if attempt == 1 or not isinstance(
-                        err, faultlib.KernelLaunchError) \
-                        or not self._demote(err):
+                        err, faultlib.KernelLaunchError):
+                    raise
+                planned = raise_fault is not None or (
+                    hook_fault is not None and hook_fault.tripped)
+                if self._ranks() > 1 and not planned:
+                    raise RuntimeError(
+                        f"a launch failed at step {step} on one rank of a "
+                        f"partition of {self._ranks()}; the engine does not "
+                        "demote there, the other ranks cannot retry "
+                        f"alike: {err}") from err
+                if not self._demote(err):
                     raise
         if plan is not None:
             poisoned = plan.take_due(
@@ -511,6 +556,8 @@ class ServingEngine:
             req.done = True
             self.stats.rejected_submits += 1
             return False
+        if req.ttl_s is not None and self._ranks() > 1:
+            raise ValueError(_TTL_ON_PARTITION)
         req.prompt = prompt
         req.out_tokens = []
         req.done = False
@@ -1071,9 +1118,28 @@ class ServingEngine:
     def arm_fault_plan(self, plan: Optional[faultlib.FaultPlan]):
         """Arm (or disarm, with None) a fault-injection plan. The engine
         consults it at step start (latency, KV and weight poison, pool
-        pressure) and at every launch (launch faults, logits poison)."""
+        pressure) and at every launch (launch faults, logits poison). On a
+        partition of several ranks every rank arms the same plan (a
+        collective checks it): ValueError on every rank otherwise."""
+        if self._ranks() > 1:
+            self._check_plan_alike(plan)
         self._fault_plan = plan
         return self
+
+    def _check_plan_alike(self, plan: Optional[faultlib.FaultPlan]):
+        from ..dist.collectives import all_reduce
+        text = repr([] if plan is None else [
+            dataclasses.replace(f, fired=False, tripped=False)
+            for f in plan.faults])
+        d = int.from_bytes(hashlib.sha256(text.encode()).digest()[:7],
+                           "little")
+        got = all_reduce(torch.tensor([d, -d], device=self.device),
+                         self.mesh.mesh_dim_names, "max", mesh=self.mesh,
+                         site="engine.fault_plan")
+        if int(got[0]) != -int(got[1]):
+            raise ValueError(
+                f"the ranks of a partition of {self._ranks()} armed "
+                "different fault plans; arm the same plan on every rank")
 
     @property
     def step_no(self) -> int:
@@ -1423,6 +1489,18 @@ class ServingEngine:
         return len(self._widths_launched)
 
     # ------------------------------------------------------- snapshot/restore
+    def _ranks(self) -> int:
+        """The ranks of the partition this engine serves on (1 without
+        one)."""
+        return 1 if self.mesh is None else self.mesh.size()
+
+    def _refuse_partition(self, what: str) -> None:
+        if self._ranks() > 1:
+            raise ValueError(
+                f"{what} of an engine on a partition of {self._ranks()} "
+                "ranks is not supported (ROADMAP: each rank holds its own "
+                "heads and would write the one checkpoint directory)")
+
     def snapshot(self, ckpt_dir, *, step: Optional[int] = None,
                  include_params: bool = False) -> str:
         """Persist the whole engine state through `checkpoint.store`: the
@@ -1433,6 +1511,7 @@ class ServingEngine:
         store — as JSON. Atomic (temp dir, then rename). Returns the
         checkpoint's path."""
         from ..checkpoint import store
+        self._refuse_partition("snapshot")
         tree = {"caches": self.caches}
         if include_params:
             tree["params"] = self.model.state_dict()
@@ -1496,6 +1575,7 @@ class ServingEngine:
         starts empty (requests done before the snapshot were delivered).
         Returns the restored step."""
         from ..checkpoint import store
+        self._refuse_partition("restore")
         try:
             tree, extra, got = store.restore(
                 ckpt_dir, {"caches": self.caches}, step=step)
@@ -1626,6 +1706,18 @@ class ServingEngine:
         """Fraction of slots currently serving a request."""
         busy = sum(r is not None for r in self._slot_req)
         return busy / self.slots if self.slots else 0.0
+
+
+_TTL_ON_PARTITION = (
+    "a wall-clock ttl_s on a partition of several ranks: each rank reads "
+    "its own clock, so the ranks could expire a request at different "
+    "steps; give deadline_steps")
+
+
+def _sharded(model) -> bool:
+    """True when some module of the model holds only this rank's shard
+    (`dist.shard_params`)."""
+    return any(getattr(m, "shards", None) for m in model.modules())
 
 
 def _cache_kinds(caches) -> List[str]:

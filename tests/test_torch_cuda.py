@@ -38,11 +38,13 @@ from repro_torch.kernels.depthwise import depthwise_conv, depthwise_plain
 from repro_torch.kernels.flash_attention import (
     KERNELS, PAGED_KERNELS, flash_attention, flash_attention_plain,
     flash_decode, flash_decode_paged,
-    flash_decode_paged_plain, flash_decode_paged_quant, flash_decode_plain,
+    flash_decode_paged_plain, flash_decode_paged_quant,
+    flash_decode_paged_quant_plain, flash_decode_plain,
     flash_decode_quant, flash_decode_quant_plain, flash_prefill,
     flash_prefill_paged,
     flash_prefill_paged_plain, flash_prefill_paged_quant,
-    flash_prefill_plain, flash_prefill_quant, flash_prefill_quant_plain)
+    flash_prefill_paged_quant_plain, flash_prefill_plain,
+    flash_prefill_quant, flash_prefill_quant_plain)
 from repro_torch.kernels.flash_attention.shared import dequant
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_plain,
@@ -504,6 +506,50 @@ def test_paged_fused_int8_equals_kernel_on_dequantized_pool(dev):
     assert torch.equal(
         flash_prefill_paged_quant(qw, pkc, pks, pvc, pvs, lengths=lens, **kw),
         flash_prefill_paged(qw, pkd, pvd, lengths=lens, **kw))
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+def test_one_kv_head_shard_matches_plain(dev, kv, paged):
+    """One rank of qwen2-1.5B on a (1, 2) partition: its 6 q heads over its
+    one KV head (a GQA group of 6, head dim 128), a decode step and a
+    32-token chunk, flat and paged, bf16 and int8 K/V, against the plain
+    versions (1e-4); the chunk's pad rows exactly 0."""
+    b, hkv, group, lk, w = 4, 1, 6, 512, 32
+    q1, k, v = _data(dev, 21, b, hkv * group, hkv, 1, lk)
+    qw, _, _ = _data(dev, 22, b, hkv * group, hkv, w, lk)
+    if kv == "int8":
+        kc, ks = _q8(k)
+        vc, vs = _q8(v)
+        cache = (kc, ks, vc, vs)
+    else:
+        cache = (k.to(torch.bfloat16), v.to(torch.bfloat16))
+    fns = {(False, "bf16"): (flash_decode, flash_decode_plain, flash_prefill,
+                             flash_prefill_plain),
+           (False, "int8"): (flash_decode_quant, flash_decode_quant_plain,
+                             flash_prefill_quant, flash_prefill_quant_plain),
+           (True, "bf16"): (flash_decode_paged, flash_decode_paged_plain,
+                            flash_prefill_paged, flash_prefill_paged_plain),
+           (True, "int8"): (flash_decode_paged_quant,
+                            flash_decode_paged_quant_plain,
+                            flash_prefill_paged_quant,
+                            flash_prefill_paged_quant_plain)}
+    dec, dec_plain, pre, pre_plain = fns[(paged, kv)]
+    kw = {}
+    if paged:
+        cache, kw["table"] = _paged(dev, cache, 16, seed=21)
+    pos = torch.tensor([0, 17, 300, lk - 1], dtype=torch.int32, device=dev)
+    ppos = torch.tensor([0, 17, 300, lk - w], dtype=torch.int32, device=dev)
+    lens = torch.tensor([w, 5, 0, w], dtype=torch.int32, device=dev)
+    n = dec.launches, pre.launches
+    _close(dec(q1, *cache, pos=pos, **kw),
+           dec_plain(q1, *cache, pos=pos, **kw))
+    got = pre(qw, *cache, pos=ppos, lengths=lens, **kw)
+    _close(got, pre_plain(qw, *cache, pos=ppos, lengths=lens, **kw))
+    torch.cuda.synchronize()
+    assert (dec.launches, pre.launches) == (n[0] + 1, n[1] + 1)
+    pad = torch.arange(w, device=dev)[None, :] >= lens[:, None]
+    assert not got.transpose(1, 2)[pad].any()
 
 
 def test_paged_wrapper_rejects_bad_operands(dev):
