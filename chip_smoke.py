@@ -363,10 +363,33 @@ of JAX or of the JAX package `repro`. Phases:
    |logit|, tokens equal but at near-ties (counted), expert choice
    differing on at most 1% of token-layers; every rank's caches hold
    n_kv / 2 heads, no weight all-gathered, each variant's two attention
-   kernels launched on every rank. Prints each case's max |diff|, times and
+   kernels launched on every rank. qwen2's two engines are snapshotted
+   (`include_params=False`) once a request has finished (after chunk and
+   decode steps), each rank writing its heads under one manifest, and restored
+   into fresh engines on the partition that finish the streams with
+   every token bitwise equal to the uninterrupted engines' on every rank.
+   On olmoe's partition a flat engine serves 5 prompts with TTLs of 0 s,
+   60 s and none while the second rank's engine reads a clock skewed by
+   +1000 s and +50 s a read: both ranks end the same requests (the 0 s
+   ones) TIMEOUT at the same steps, on the lead rank's clock; its
+   snapshot restored under the (2, 1) mesh of the same ranks is refused
+   on both. Prints each case's max |diff|, times and
    peak memory (every rank's in (e)); the launches of B8 in (a)-(c) and of
    B1 / B3 / B6 / B7 on the partitions count as the main path's. A failed
    rank fails the run.
+7d. The examples (`examples/pt_*.py`) at the reference examples' sizes,
+   in this process: pt_quickstart (formats, the CSM product, the
+   quantized matmul in bf16 / int8 / fp8a through B10 and B5, the
+   morphable GEMM through B9, 6 Trainer steps on a world of one), each
+   kernel's launches counted and its outputs held to the plain route on
+   the same inputs (int8 and the quantizer's codes bitwise, float modes
+   within rtol 2e-5, the grouped GEMM within 1e-5 x max |plain|);
+   pt_fp8_training (40 steps of qwen2 SMOKE, f32 and fp8a: its two
+   asserts); pt_morphable_inference (plans and utilizations equal to the
+   CPU run's); pt_multi_tenant_serving with `--backend cuda`, each tenant's
+   engine in lockstep with a ref-route engine (phase 5's rule: tokens
+   equal but at near-ties). Prints each example's wall time; the launches
+   of B5, B9, B10, B1 and B3 count as the main path's.
 8. Summary: no engine of any phase demoted but phase 5c's two injected
    faults (every demotion warns; the script records the warnings), a
    `{"kernels": [...]}` line (13 kernel entry points), the script's wall
@@ -4166,6 +4189,11 @@ PART_TOL = 1e-3                 # max |dlogit| / max |logit|; ties below it
 PART_TOL_INT8 = 1e-2            # int8 KV: see `partition_tenant`
 PART_KERNELS = (flash_decode, flash_prefill, flash_decode_paged_quant,
                 flash_prefill_paged_quant)
+PART_SNAP_ARCH = "qwen2_1p5b"   # its variants snapshotted and restored
+PART_TTL_ARCH = "olmoe_1b_7b"   # the skewed-clock TTL and wrong-mesh cases
+PART_TTLS = [0.0, 60.0, None, 0.0, 60.0]   # seconds on the lead's clock
+PART_TTL_NEW = 4
+PART_SKEW = (1000.0, 50.0)      # the other rank: + 1000 s, + 50 s a read
 
 
 class StepLog(ServingEngine):
@@ -4261,12 +4289,64 @@ def gather_state(dst, src):
         dst._last[:] = src._last
 
 
+class SkewedClock:
+    """The engine module's `time` on a rank whose clock runs apart from
+    the lead's: the real monotonic clock plus `offset`, plus `rate`
+    seconds more at every read."""
+
+    def __init__(self, offset, rate):
+        self.offset, self.rate, self.reads = offset, rate, 0
+
+    def monotonic(self):
+        self.reads += 1
+        return time.monotonic() + self.offset + self.rate * self.reads
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def partition_ttl(cfg, model, geo, lead, tall):
+    """The skewed-clock TTL case and the wrong-mesh refusal on a tenant's
+    partition: a flat bf16 engine serves prompts with PART_TTLS while the
+    non-lead rank's engine reads a SkewedClock; returns {rid: (status,
+    step it ended in)}, then the engine's snapshot restored into an
+    engine of the same model under the (2, 1) mesh `tall` of the same
+    ranks: the refusal's text (or "restored")."""
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.serving import engine as engine_mod
+    eng = ServingEngine(cfg, model, **geo)
+    ends = {}
+    with patched(engine_mod, "time",
+                 time if lead else SkewedClock(*PART_SKEW)):
+        for rid, (p, ttl) in enumerate(zip(
+                family_prompts(cfg.vocab, [16] * len(PART_TTLS), seed=7),
+                PART_TTLS)):
+            check(eng.submit(Request(rid, p, max_new_tokens=PART_TTL_NEW,
+                                     ttl_s=ttl)), f"TTL request {rid}")
+        while eng.pending():
+            for r in eng.step():
+                ends[r.rid] = (r.status, eng.step_no)
+    snap = SNAP_DIR / f"7c_{cfg.name}_ttl"
+    eng.snapshot(snap)
+    with set_mesh(tall):
+        other = ServingEngine(cfg, model, **geo)
+    try:
+        other.restore(snap)
+        refused = "restored"
+    except ValueError as err:
+        refused = str(err)
+    return ends, refused
+
+
 def partition_tenant(rank, arch, layers):
     """One tenant on its partition (every rank of it, under its mesh):
     the model built as this rank's shards (`init_sharded`), each variant
     served by a partition engine in lockstep with a one-rank engine of the
     whole model on the partition's first rank (put in the partition's
-    state before every step). Returns this rank's launches, peak memory,
+    state before every step). PART_SNAP_ARCH's engines are snapshotted
+    once a request has finished, and restored into fresh engines that
+    finish the streams; PART_TTL_ARCH's partition
+    runs `partition_ttl`. Returns this rank's launches, peak memory,
     cache heads and collectives, and on the first rank the comparison.
 
     Tolerances of the lockstep logits (of max |logit|): the two engines
@@ -4309,7 +4389,8 @@ def partition_tenant(rank, arch, layers):
             submit_all(one, prompts, PART_NEW)
         submit_all(eng, prompts, PART_NEW)
         counts = {k.__name__: 0 for k in PART_KERNELS}
-        steps, t_serve = 0, 0.0
+        steps, t_serve, snapped = 0, 0.0, None
+        snap = SNAP_DIR / f"7c_{arch}_{int(paged)}"
         with patched(moe_mod, "router_topk", routes), \
                 record_collectives() as rec:
             while eng.pending():
@@ -4331,6 +4412,13 @@ def partition_tenant(rank, arch, layers):
                 routes.mode = None
                 eng.log.clear()
                 steps += 1
+                if arch == PART_SNAP_ARCH and snapped is None \
+                        and eng.finished and eng.pending():
+                    ts = time.perf_counter()
+                    eng.snapshot(snap)
+                    snapped = (eng.step_no, time.perf_counter() - ts,
+                               len(eng.finished),
+                               int(eng._prefilling.sum()))
         dist_sync()
         check_no_faults(f"partition {arch} {label}", eng)
         weights = sum(1 for c in rec if c["site"] == "weight")
@@ -4356,6 +4444,27 @@ def partition_tenant(rank, arch, layers):
                   f"partition): {one.wrong[:5]}")
             v.update(worst=one.worst, tol=one.tol, ties=one.ties,
                      compared=one.compared)
+        if snapped is not None:
+            fresh = ServingEngine(vcfg, model, **geo)
+            ts = time.perf_counter()
+            check(fresh.restore(snap) == snapped[0], f"partition {arch} "
+                  f"{label}: the restored step")
+            t_load = time.perf_counter() - ts
+            fresh.run_until_drained()
+            dist_sync()
+            check_no_faults(f"partition {arch} {label} restored", fresh)
+            got, want = tokens(fresh), tokens(eng)
+            check(len(got) + snapped[2] == len(prompts) and
+                  all(got[rid] == want[rid] for rid in got),
+                  f"partition {arch} {label} rank {rank}: the engine "
+                  f"restored at step {snapped[0]} finished with other "
+                  "tokens than the uninterrupted one")
+            v["restore"] = dict(at=snapped[0], save_s=snapped[1],
+                                done=snapped[2], prefilling=snapped[3],
+                                load_s=t_load, steps=fresh.step_no
+                                - snapped[0],
+                                s=time.perf_counter() - ts)
+            del fresh
         out["variants"][label] = v
         del eng, one
         dist_sync()
@@ -4364,17 +4473,25 @@ def partition_tenant(rank, arch, layers):
         check(flipped <= DIST_ROUTE_TOL, f"partition {arch}: expert "
               f"choice differs on {flipped:.2%} of token-layers")
         out["flipped"] = flipped
+    if arch == PART_TTL_ARCH:
+        ts = time.perf_counter()
+        tall = next(m for m in DIST_TALL if m.get_coordinate() is not None)
+        out["ttl"] = partition_ttl(cfg, model, dict(PART_GEO), lead, tall)
+        out["ttl_s"] = time.perf_counter() - ts
     out["peak"] = dist_peak()
     del model, full
     dist_sync()
     return out
 
 
+DIST_TALL: list = []            # (2, 1) meshes of the partitions' ranks
+
+
 def dist_rank_main(rank, world, init):
     """One rank of phase 7c's world (every rank on cuda:0, gloo)."""
     import torch.distributed as dist
     from repro_torch.dist.collectives import barrier
-    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.launch.mesh import init_world, make_mesh, make_meshes
     torch.cuda.set_device(DIST_DEVICE)
     init_world(init_method=init, rank=rank, world_size=world,
                device="cuda", backend="gloo")
@@ -4400,8 +4517,10 @@ def dist_rank_main(rank, world, init):
         out["d"] = dist_dp_case(rank, m21)
     barrier(m18)
     wall["d"] = time.perf_counter() - t0 - sum(wall.values())
-    # (e) every rank of the world makes the partitions' meshes; the
+    # (e) every rank of the world makes the partitions' meshes (and a (2,
+    # 1) mesh of each partition's ranks, a mesh of another shape); the
     # partitions' ranks serve their tenants at once, the others wait
+    DIST_TALL[:] = make_meshes([PART_GRID[i].reshape(2, 1) for i in (0, 1)])
     sched = MorphableScheduler(ranks=PART_GRID)
     sched.reconfigure([Tenant(n, weight_rows=r, weight_cols=c, fmt="int8")
                        for n, _, r, c, _ in PART_TENANTS])
@@ -4410,6 +4529,8 @@ def dist_rank_main(rank, world, init):
         if got is not None:
             out["e"] = got
     barrier(m18)
+    if rank == 0:
+        shutil.rmtree(SNAP_DIR, ignore_errors=True)
     wall["e"] = time.perf_counter() - t0 - sum(wall.values())
     out["wall"] = wall
     dist.destroy_process_group()
@@ -4503,6 +4624,37 @@ def partition_report(ranks, wall_s):
                   f"step time {1e3 * v['serve_s'] / v['steps']:.1f} ms "
                   f"(rank 0 of it), {v['rows']} row all-reduces, no weight "
                   f"all-gather; launches a rank {kern}", flush=True)
+        for label, v in x["variants"].items():
+            if "restore" in v:
+                r = v["restore"]
+                print(f"  (e) {x['arch']} {label}: snapshot at step "
+                      f"{r['at']} ({r['done']} request(s) done, "
+                      f"{r['prefilling']} row(s) mid-prefill; save "
+                      f"{r['save_s']:.2f} s), restored into a fresh engine "
+                      f"on every rank of the partition ({r['load_s']:.2f} "
+                      f"s), which finished in {r['steps']} steps "
+                      f"({r['s']:.1f} s) with every token bitwise equal to "
+                      f"the uninterrupted engine's", flush=True)
+        if "ttl" in x:
+            ends = [m["ttl"][0] for m in members]
+            check(all(e == ends[0] for e in ends), f"partition "
+                  f"{x['arch']} TTL: the ranks ended the requests "
+                  f"otherwise: {ends}")
+            want = {rid: "TIMEOUT" if ttl == 0.0 else "done"
+                    for rid, ttl in enumerate(PART_TTLS)}
+            check({rid: s for rid, (s, _) in ends[0].items()} == want,
+                  f"partition {x['arch']} TTL: statuses {ends[0]}, want "
+                  f"{want}")
+            refused = [m["ttl"][1] for m in members]
+            check(all("not onto mesh (data=2, model=1)" in t
+                      for t in refused), f"partition {x['arch']}: a "
+                  f"snapshot restored on the (2, 1) mesh: {refused}")
+            print(f"  (e) {x['arch']} TTL on the lead rank's clock, the "
+                  f"other rank's skewed by +{PART_SKEW[0]:.0f} s and "
+                  f"+{PART_SKEW[1]:.0f} s a read: both ranks ended every "
+                  f"request alike (rid: status, step) {ends[0]}; the "
+                  f"partition's snapshot refused on every rank on the (2, "
+                  f"1) mesh of its ranks ({x['ttl_s']:.1f} s)", flush=True)
         flips = (f"; expert choice differs on {x['flipped']:.3%} of "
                  f"token-layers" if "flipped" in x else "")
         print(f"  (e) {x['arch']}: peak "
@@ -4510,6 +4662,174 @@ def partition_report(ranks, wall_s):
               f"(the first also holds the one-rank engine's whole model); "
               f"build {x['build_s']:.1f} s{flips}", flush=True)
     print(f"  (e) both partitions served at once: case wall {wall_s:.1f} s",
+          flush=True)
+    return total
+
+
+# ------------------------------------------------------- the examples (7d)
+EXAMPLES = ROOT / "examples"
+EXAMPLE_KERNELS = (aio_quant, aio_matmul, grouped_matmul, flash_decode,
+                   flash_prefill)
+
+
+class LockstepEngine(RouteEngine):
+    """The multi-tenant example's engine (patched into its module): the
+    example's engine on its kernel route, with a `shadow` engine of the
+    same model on the ref route, put in this engine's state before every
+    step and then taking the same step (phase 5's lockstep; an MoE
+    shadow routes as this engine did). Every instance is kept in
+    `made`."""
+
+    made: list = []
+
+    def __init__(self, cfg, model, *, policy, **kw):
+        super().__init__(cfg, model, policy=policy, **kw)
+        self.shadow = RouteEngine(cfg, model, follow=self, policy=dataclasses
+                                  .replace(policy, backend="ref"), **kw)
+        LockstepEngine.made.append(self)
+
+    def submit(self, req):
+        check(self.shadow.submit(dataclasses.replace(req)), "the shadow "
+              f"refused request {req.rid}")
+        return super().submit(req)
+
+    def step(self):
+        copy_state(self.shadow, self)
+        done = super().step()
+        self.shadow.step()
+        return done
+
+
+def quiet(fn, *args, **kw):
+    """fn(*args, **kw) with its printing swallowed (a comparison run)."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def example_launches(fn, *args, **kw):
+    """fn(*args, **kw) and the launches of EXAMPLE_KERNELS it made."""
+    before = {k.__name__: k.launches for k in EXAMPLE_KERNELS}
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches - before[k.__name__]
+                 for k in EXAMPLE_KERNELS}
+
+
+def examples_phase(dev, card):
+    """Phase 7d: the four `examples/pt_*.py` at their reference sizes.
+    Returns the launches of B5, B9, B10, B1 and B3 they made on their
+    main paths."""
+    phase("7d. the examples: pt_quickstart, pt_fp8_training, "
+          "pt_morphable_inference and pt_multi_tenant_serving (kernel "
+          "backend) on the card at the reference examples' sizes")
+    sys.path.insert(0, str(EXAMPLES))
+    import pt_fp8_training
+    import pt_morphable_inference
+    import pt_multi_tenant_serving
+    import pt_quickstart
+    t_phase = time.perf_counter()
+    walls, total = {}, dict.fromkeys((k.__name__ for k in EXAMPLE_KERNELS),
+                                     0)
+
+    # pt_quickstart: B10 and B5 (matmul, quantizer), B9 (morphable GEMM)
+    ts = time.perf_counter()
+    (fmt, (outs, codes), (res, util, _), losses), counts = example_launches(
+        lambda: (pt_quickstart.demo_formats(dev),
+                 pt_quickstart.demo_quant_matmul(dev),
+                 pt_quickstart.demo_morphable(dev),
+                 pt_quickstart.demo_training(dev, TRAIN_DIR / "quickstart")))
+    walls["pt_quickstart"] = time.perf_counter() - ts
+    check(all(counts[k] for k in ("aio_quant", "aio_matmul",
+                                  "grouped_matmul")),
+          f"pt_quickstart: B10 / B5 / B9 did not launch: {counts}")
+    for k, n in counts.items():
+        total[k] += n
+    check(fmt["csm"] == -3.375 and np.isfinite(losses).all(),
+          f"pt_quickstart: CSM product {fmt['csm']}, losses {losses}")
+    plain, plain_codes = quiet(pt_quickstart.demo_quant_matmul, dev,
+                               backend="ref")
+    for mode, (out, rel) in outs.items():
+        want, want_rel = plain[mode]
+        if mode == "int8":
+            ok = np.array_equal(out, want) and rel == want_rel
+        else:
+            ok = np.allclose(out, want, rtol=GEMM_TOL,
+                             atol=GEMM_TOL * np.abs(want).max()) and \
+                abs(rel - want_rel) <= GEMM_TOL * want_rel
+        check(ok, f"pt_quickstart {mode}: rel err {rel} on the kernels, "
+              f"{want_rel} on the plain route")
+    for mode, (q, sc) in codes.items():
+        check(np.array_equal(q, plain_codes[mode][0]) and
+              np.array_equal(sc, plain_codes[mode][1]),
+              f"pt_quickstart {mode}: quantizer codes differ from plain")
+    p_res, p_util, _ = quiet(pt_quickstart.demo_morphable, dev,
+                             backend="ref")
+    worst = max(float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(res, p_res))
+    check(util == p_util and worst <= 1e-5, f"pt_quickstart morphable: "
+          f"util {util} vs {p_util}, max |diff| {worst:.2e} x max |plain|")
+    print(f"  pt_quickstart: matmul rel err {[round(outs[m][1], 4) for m in outs]}"
+          f" ({list(outs)}), equal to the plain route's (int8 bitwise, "
+          f"float within rtol {GEMM_TOL}); quantizer codes bitwise equal; "
+          f"morphable GEMM within {worst:.2e} x max |plain|, utilization "
+          f"{util:.3f}; losses {[round(x, 4) for x in losses]}; launches "
+          f"{counts}; {walls['pt_quickstart']:.1f} s", flush=True)
+
+    # pt_fp8_training: its two asserts, at the reference's 40 steps
+    ts = time.perf_counter()
+    try:
+        (l_f32, l_fp8), counts = example_launches(pt_fp8_training.main, [])
+    except AssertionError as err:
+        check(False, f"pt_fp8_training: {err}")
+    walls["pt_fp8_training"] = time.perf_counter() - ts
+    check(not any(counts.values()), f"pt_fp8_training: a kernel launched "
+          f"under autograd: {counts}")
+    print(f"  pt_fp8_training: both asserts held; losses f32 "
+          f"{l_f32[0]:.4f} -> {l_f32[-1]:.4f}, fp8a {l_fp8[0]:.4f} -> "
+          f"{l_fp8[-1]:.4f}; {walls['pt_fp8_training']:.1f} s", flush=True)
+
+    # pt_morphable_inference: the card's plans and utilizations are the
+    # CPU's
+    ts = time.perf_counter()
+    got = pt_morphable_inference.kernel_level(dev)
+    n_plans, modeled = pt_morphable_inference.hardware_level()
+    walls["pt_morphable_inference"] = time.perf_counter() - ts
+    cpu = quiet(pt_morphable_inference.kernel_level, "cpu")
+    check(got == cpu, f"pt_morphable_inference: card {got} vs CPU {cpu}")
+    print(f"  pt_morphable_inference: plans and utilizations equal to the "
+          f"CPU run's; {n_plans} fusion plans; MODELED ms {modeled}; "
+          f"{walls['pt_morphable_inference']:.1f} s", flush=True)
+
+    # pt_multi_tenant_serving on the kernels, each engine in lockstep with
+    # a ref shadow
+    LockstepEngine.made.clear()
+    ts = time.perf_counter()
+    with patched(pt_multi_tenant_serving, "ServingEngine", LockstepEngine):
+        served, counts = example_launches(pt_multi_tenant_serving.main,
+                                          ["--backend", "cuda"])
+    walls["pt_multi_tenant_serving"] = time.perf_counter() - ts
+    check(sorted(served) == ["assistant", "captioning"]
+          and len(LockstepEngine.made) == 2, f"pt_multi_tenant_serving: "
+          f"served {sorted(served)}, {len(LockstepEngine.made)} engines")
+    check(counts["flash_decode"] and counts["flash_prefill"],
+          f"pt_multi_tenant_serving: B1 / B3 did not launch: {counts}")
+    for k, n in counts.items():
+        total[k] += n
+    for (name, _, _), eng in zip(pt_multi_tenant_serving.TENANTS,
+                                 LockstepEngine.made):
+        check_no_faults(f"pt_multi_tenant_serving {name}", eng, eng.shadow)
+        check(not eng.shadow.pending(), f"{name}: the shadow did not drain")
+        compared, skipped, bad = compare(name, tokens(eng), eng.shadow)
+        check(bad is None, f"pt_multi_tenant_serving lockstep: {bad}")
+        print(f"  pt_multi_tenant_serving [{name}]: lockstep against the "
+              f"ref route: {compared} tokens match, {skipped} near-tie "
+              f"step(s) skipped; {served[name][1]:.0f} ms", flush=True)
+    LockstepEngine.made.clear()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    print(f"  example wall times (s): "
+          f"{ {k: round(v, 1) for k, v in walls.items()} }; launches "
+          f"{total}; phase 7d {time.perf_counter() - t_phase:.1f} s; {card}",
           flush=True)
     return total
 
@@ -4560,6 +4880,8 @@ def main(argv=None) -> int:
     for kname, n in training_phase(dev, smi).items():
         launches[kname] += n
     for kname, n in distribution_phase(smi).items():
+        launches[kname] += n
+    for kname, n in examples_phase(dev, smi).items():
         launches[kname] += n
     phase("8. summary")
     demotions = [w for w in WARNINGS if DEMOTED in w]

@@ -5,6 +5,21 @@ Layout (one directory per step):
         manifest.json      step, flat-key index, dtypes, shapes, extra state
         host0000.npz       every leaf, as a numpy array
 
+Saved over a mesh of several ranks (`mesh=`; every rank of it calls
+`save` with its own tree, e.g. its head shards of the caches), each rank
+writes its tree under a directory of its own, and one manifest holds the
+mesh and the shared extra state:
+    ckpt_dir/step_000120/
+        manifest.json      step, mesh shape, axis names, world ranks, extra
+        rank-0000/         the rank at mesh index 0 (row-major over the
+            manifest.json  mesh's axes): its flat-key index, dtypes,
+            host0000.npz   shapes and its own extra state; its leaves
+        rank-0001/ ...
+`restore` with the same `mesh` loads this rank's tree and hands its own
+extra state back under the extra key "rank"; a checkpoint of another mesh
+shape or axis names (or one saved without a mesh, or the reverse) and a
+missing rank directory raise ValueError on every rank alike.
+
 A tree is nested dicts, lists, tuples and dataclasses (the engine's
 per-layer caches) of torch tensors or numpy arrays; a leaf's key is its
 path joined by "/". numpy has no bfloat16, so a bf16 leaf is saved as its
@@ -27,6 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..dist.collectives import barrier
 from ..serving.swap import from_host, to_host
 
 __all__ = ["save", "restore", "latest_step", "AsyncCheckpointer", "gc_old"]
@@ -78,23 +94,80 @@ def _host(leaf) -> Tuple[str, np.ndarray]:
     return str(a.dtype), a
 
 
-def save(ckpt_dir, step: int, tree, extra: Optional[Dict] = None) -> Path:
-    """Write one checkpoint step atomically; returns its directory."""
-    ckpt_dir = Path(ckpt_dir)
-    final = ckpt_dir / f"step_{step:08d}"
-    tmp = ckpt_dir / f".tmp_step_{step:08d}_{os.getpid()}"
-    tmp.mkdir(parents=True, exist_ok=True)
+def _write_tree(d: Path, tree, head: Dict) -> None:
+    """Write `tree`'s leaves as d/host0000.npz and its index beside
+    `head` as d/manifest.json."""
     arrays, dtypes, shapes = {}, {}, {}
     for key, leaf in _flatten(tree):
         tag, a = _host(leaf)
         arrays[key], dtypes[key], shapes[key] = a, tag, list(a.shape)
-    np.savez(tmp / _DATA, **arrays)
-    manifest = {"step": step, "keys": list(arrays), "dtypes": dtypes,
-                "shapes": shapes, "extra": extra or {}, "time": time.time()}
-    (tmp / _MANIFEST).write_text(json.dumps(manifest, indent=2))
-    if final.exists():
-        shutil.rmtree(final)
-    tmp.rename(final)
+    np.savez(d / _DATA, **arrays)
+    manifest = {**head, "keys": list(arrays), "dtypes": dtypes,
+                "shapes": shapes}
+    (d / _MANIFEST).write_text(json.dumps(manifest, indent=2))
+
+
+def _ranks(mesh) -> int:
+    return 1 if mesh is None else int(mesh.size())
+
+
+def _mesh_index(mesh) -> int:
+    """This rank's index in the mesh, row-major over its axes."""
+    r = 0
+    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
+        r = r * int(n) + int(mesh.get_local_rank(name))
+    return r
+
+
+def _rank_dir(r: int) -> str:
+    return f"rank-{r:04d}"
+
+
+def _mesh_record(mesh) -> Dict:
+    return {"shape": [int(n) for n in mesh.shape],
+            "names": list(mesh.mesh_dim_names),
+            "ranks": [int(r) for r in mesh.mesh.reshape(-1).tolist()]}
+
+
+def save(ckpt_dir, step: int, tree, extra: Optional[Dict] = None, *,
+         mesh=None, rank_extra: Optional[Dict] = None) -> Path:
+    """Write one checkpoint step atomically; returns its directory.
+
+    With `mesh` of several ranks every rank of it calls this with its own
+    `tree` (and its own JSON `rank_extra`); `extra` must be the same on
+    all of them (the lead's copy is written). The ranks write into one
+    temporary directory, wait for each other (`dist.collectives.barrier`),
+    and the mesh's lead renames it; every rank returns once the step is
+    in place."""
+    ckpt_dir = Path(ckpt_dir)
+    final = ckpt_dir / f"step_{step:08d}"
+    if _ranks(mesh) == 1:
+        tmp = ckpt_dir / f".tmp_step_{step:08d}_{os.getpid()}"
+        tmp.mkdir(parents=True, exist_ok=True)
+        _write_tree(tmp, tree, {"step": step, "extra": extra or {},
+                                "time": time.time()})
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)
+        return final
+    lead = _mesh_index(mesh) == 0
+    tmp = ckpt_dir / f".tmp_step_{step:08d}_mesh"
+    if lead:
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir(parents=True)
+    barrier(mesh)
+    mine = tmp / _rank_dir(_mesh_index(mesh))
+    mine.mkdir()
+    _write_tree(mine, tree, {"step": step, "extra": rank_extra or {}})
+    barrier(mesh)
+    if lead:
+        manifest = {"step": step, "mesh": _mesh_record(mesh),
+                    "extra": extra or {}, "time": time.time()}
+        (tmp / _MANIFEST).write_text(json.dumps(manifest, indent=2))
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)
+    barrier(mesh)
     return final
 
 
@@ -107,17 +180,9 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir, tree_like, step: Optional[int] = None):
-    """Load a checkpoint into the structure of `tree_like` (a shape and
-    dtype template; the latest step unless `step`). Returns (tree of CPU
-    tensors, extra state, step). A leaf the checkpoint lacks raises
-    KeyError, one of another shape ValueError."""
-    ckpt_dir = Path(ckpt_dir)
-    if step is None:
-        step = latest_step(ckpt_dir)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    d = ckpt_dir / f"step_{step:08d}"
+def _load_tree(d: Path, tree_like):
+    """`tree_like`'s structure filled from directory d's leaves; returns
+    (tree, d's manifest)."""
     manifest = json.loads((d / _MANIFEST).read_text())
     leaves = {}
     with np.load(d / _DATA) as data:
@@ -132,7 +197,53 @@ def restore(ckpt_dir, tree_like, step: Optional[int] = None):
             if isinstance(like, torch.Tensor):
                 t = t.to(like.dtype)
             leaves[key] = t
-    return _rebuild(tree_like, leaves), manifest.get("extra", {}), step
+    return _rebuild(tree_like, leaves), manifest
+
+
+def _describe(rec: Optional[Dict]) -> str:
+    if rec is None:
+        return "one rank (no mesh)"
+    dims = ", ".join(f"{n}={s}" for n, s in zip(rec["names"], rec["shape"]))
+    return f"mesh ({dims})"
+
+
+def restore(ckpt_dir, tree_like, step: Optional[int] = None, *,
+            mesh=None):
+    """Load a checkpoint into the structure of `tree_like` (a shape and
+    dtype template; the latest step unless `step`). Returns (tree of CPU
+    tensors, extra state, step). A leaf the checkpoint lacks raises
+    KeyError, one of another shape ValueError.
+
+    With `mesh` of several ranks the checkpoint must have been saved over
+    a mesh of the same shape and axis names, with every rank's directory
+    in place (ValueError otherwise, before any leaf is read); this rank's
+    tree is loaded and its own extra state returned under extra["rank"].
+    A checkpoint saved over a mesh does not load without one."""
+    ckpt_dir = Path(ckpt_dir)
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    d = ckpt_dir / f"step_{step:08d}"
+    manifest = json.loads((d / _MANIFEST).read_text())
+    saved = manifest.get("mesh")
+    want = _mesh_record(mesh) if _ranks(mesh) > 1 else None
+    if (saved is None) != (want is None) or (
+            saved is not None and (saved["shape"], saved["names"])
+            != (want["shape"], want["names"])):
+        raise ValueError(f"checkpoint {d.name} was saved on "
+                         f"{_describe(saved)}; it restores onto the same "
+                         f"shape only, not onto {_describe(want)}")
+    if saved is None:
+        tree, _ = _load_tree(d, tree_like)
+        return tree, manifest.get("extra", {}), step
+    missing = [r for r in range(_ranks(mesh))
+               if not (d / _rank_dir(r) / _MANIFEST).exists()]
+    if missing:
+        raise ValueError(f"checkpoint {d.name} lacks the shards of mesh "
+                         f"index(es) {missing}")
+    tree, mine = _load_tree(d / _rank_dir(_mesh_index(mesh)), tree_like)
+    return tree, {**manifest.get("extra", {}), "rank": mine["extra"]}, step
 
 
 def gc_old(ckpt_dir, keep: int = 3):

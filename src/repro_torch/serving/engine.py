@@ -99,15 +99,24 @@ n_kv / R heads (`init_caches(..., model=)`), q/k/v/gate/up run
 column-parallel and o/down row-parallel (one all-reduce each), the logits
 are all-gathered, so every rank takes the same argmax and the same host
 decisions (admission, blocks, preemption, quarantine) without a word
-between them (so a wall-clock `ttl_s`, read on each rank's own clock, is
-refused there; `deadline_steps` counts steps). `arm_fault_plan` checks
+between them. A wall-clock `ttl_s` is judged there by the partition's
+lead rank's clock (the rank at coordinate 0 of every axis): every rank
+stamps a request's submit time and reads the time of each step from it
+(one max all-reduce of a float64, made only while some request carries
+a TTL), so every rank expires the same requests at the same step.
+`arm_fault_plan` checks
 that every rank of the partition arms the same plan (ValueError
 otherwise), so its launch faults demote every rank at the same step; a
 `KernelLaunchError` that no plan injected raises RuntimeError there
 instead of demoting: the other ranks would go on into collectives that
 the retrying rank's layers answer. Resident
-weights are refused on a sharded model (they stay replicated);
-`snapshot()` / `restore()` are refused on a partition of several ranks.
+weights are refused on a sharded model (they stay replicated).
+`snapshot()` on a partition writes one checkpoint: each rank its own
+tree (its caches, with `include_params` its weight shards, and its host
+block store) under `rank-<r>/`, and the lead one manifest of the mesh
+and the host bookkeeping, which a collective first checks is the same
+on every rank; `restore()` takes it back onto a partition of the same
+mesh shape only (ValueError on every rank otherwise).
 
 Attention dispatches under the engine's ExecutionPolicy:
 `decode_route()` / `prefill_route()` report the impls ("cuda-decode" /
@@ -122,6 +131,7 @@ import bisect
 import contextlib
 import dataclasses
 import hashlib
+import json
 import time
 import warnings
 from collections import deque
@@ -323,8 +333,6 @@ class ServingEngine:
         self.max_queue = max_queue
         self.max_replays = max_replays
         self.deadline_steps = deadline_steps
-        if ttl_s is not None and self._ranks() > 1:
-            raise ValueError(_TTL_ON_PARTITION)
         self.ttl_s = ttl_s
         self.memory = None
         if model.encoder is not None:
@@ -354,6 +362,9 @@ class ServingEngine:
         self._fault_plan: Optional[faultlib.FaultPlan] = None
         self._degraded: List[dict] = []
         self._has_deadlines = deadline_steps is not None or ttl_s is not None
+        # some request carries a wall-clock TTL: the partition's ranks then
+        # agree on the time of each step
+        self._has_ttl = ttl_s is not None
         # token widths the step program has run at (`step_trace_count`)
         self._widths_launched: set = set()
 
@@ -556,8 +567,6 @@ class ServingEngine:
             req.done = True
             self.stats.rejected_submits += 1
             return False
-        if req.ttl_s is not None and self._ranks() > 1:
-            raise ValueError(_TTL_ON_PARTITION)
         req.prompt = prompt
         req.out_tokens = []
         req.done = False
@@ -567,9 +576,11 @@ class ServingEngine:
         if req.ttl_s is None:
             req.ttl_s = self.ttl_s
         req._submit_step = self._step_no
-        req._submit_t = time.monotonic()
+        req._submit_t = self._clock(agree=req.ttl_s is not None)
         if req.deadline_steps is not None or req.ttl_s is not None:
             self._has_deadlines = True
+        if req.ttl_s is not None:
+            self._has_ttl = True
         self.queue.append(req)
         return True
 
@@ -1127,16 +1138,10 @@ class ServingEngine:
         return self
 
     def _check_plan_alike(self, plan: Optional[faultlib.FaultPlan]):
-        from ..dist.collectives import all_reduce
         text = repr([] if plan is None else [
             dataclasses.replace(f, fired=False, tripped=False)
             for f in plan.faults])
-        d = int.from_bytes(hashlib.sha256(text.encode()).digest()[:7],
-                           "little")
-        got = all_reduce(torch.tensor([d, -d], device=self.device),
-                         self.mesh.mesh_dim_names, "max", mesh=self.mesh,
-                         site="engine.fault_plan")
-        if int(got[0]) != -int(got[1]):
+        if not self._same_on_every_rank(text, "engine.fault_plan"):
             raise ValueError(
                 f"the ranks of a partition of {self._ranks()} armed "
                 "different fault plans; arm the same plan on every rank")
@@ -1226,6 +1231,26 @@ class ServingEngine:
         if mask.any():
             T.scrub_slots(self.caches, self._tensor(mask))
 
+    def _lead_rank(self) -> bool:
+        """True on one rank, and on the rank of a partition at coordinate
+        0 of every axis: the rank whose clock the partition keeps."""
+        return self.mesh is None or all(
+            self.mesh.get_local_rank(n) == 0 for n in self.mesh.mesh_dim_names)
+
+    def _clock(self, agree: bool = True) -> float:
+        """The time TTLs are judged by: this process's monotonic clock. On
+        a partition of several ranks, with `agree`, every rank takes the
+        lead rank's reading (a max all-reduce of one float64, the other
+        ranks giving -inf), so all of them stamp and expire alike."""
+        now = time.monotonic()
+        if agree and self._ranks() > 1:
+            from ..dist.collectives import all_reduce
+            t = torch.tensor([now if self._lead_rank() else -np.inf],
+                             dtype=torch.float64, device=self.device)
+            now = float(all_reduce(t, self.mesh.mesh_dim_names, "max",
+                                   mesh=self.mesh, site="engine.clock")[0])
+        return now
+
     def _expired(self, req: Request, now: float) -> bool:
         if req.deadline_steps is not None and \
                 self._step_no - req._submit_step >= req.deadline_steps:
@@ -1243,7 +1268,7 @@ class ServingEngine:
         """Finish expired requests with status TIMEOUT: PREEMPTED ones
         (their kept blocks and host bytes released), queued ones, and
         resident ones (slot freed; the next admission rewinds the row)."""
-        now = time.monotonic()
+        now = self._clock(agree=self._has_ttl)
         kept_p: List[Request] = []
         for req in self._preempted:
             if self._expired(req, now):
@@ -1494,12 +1519,16 @@ class ServingEngine:
         one)."""
         return 1 if self.mesh is None else self.mesh.size()
 
-    def _refuse_partition(self, what: str) -> None:
-        if self._ranks() > 1:
-            raise ValueError(
-                f"{what} of an engine on a partition of {self._ranks()} "
-                "ranks is not supported (ROADMAP: each rank holds its own "
-                "heads and would write the one checkpoint directory)")
+    def _same_on_every_rank(self, text: str, site: str) -> bool:
+        """True when every rank of the partition holds the same `text` (a
+        max all-reduce of a digest and its negation)."""
+        from ..dist.collectives import all_reduce
+        d = int.from_bytes(hashlib.sha256(text.encode()).digest()[:7],
+                           "little")
+        got = all_reduce(torch.tensor([d, -d], device=self.device),
+                         self.mesh.mesh_dim_names, "max", mesh=self.mesh,
+                         site=site)
+        return int(got[0]) == -int(got[1])
 
     def snapshot(self, ckpt_dir, *, step: Optional[int] = None,
                  include_params: bool = False) -> str:
@@ -1509,9 +1538,15 @@ class ServingEngine:
         host bookkeeping — per-slot requests, queue, stats, last tokens,
         the block allocator, the PREEMPTED requests and the host block
         store — as JSON. Atomic (temp dir, then rename). Returns the
-        checkpoint's path."""
+        checkpoint's path.
+
+        On a partition of several ranks every rank calls it: each writes
+        its own caches (its heads), weight shards and host block store,
+        and the lead the one manifest of the mesh and the bookkeeping. A
+        collective first checks that the bookkeeping is the same on every
+        rank; if it is not, every rank raises ValueError and nothing is
+        written."""
         from ..checkpoint import store
-        self._refuse_partition("snapshot")
         tree = {"caches": self.caches}
         if include_params:
             tree["params"] = self.model.state_dict()
@@ -1529,6 +1564,8 @@ class ServingEngine:
             "queue": [_req_state(r) for r in self.queue],
             "stats": dataclasses.asdict(self.stats),
         }}
+        mesh = self.mesh if self._ranks() > 1 else None
+        rank_extra = None
         if self._paged:
             extra["engine"]["paged"] = {
                 "block_size": self._pg_bs,
@@ -1553,32 +1590,34 @@ class ServingEngine:
                 "swap_entries": {
                     str(rid): {**e, "kept": [[j, b] for j, b in e["kept"]]}
                     for rid, e in self._swap_entries.items()},
-                # preempted rows' spilled bytes round-trip, so they still
-                # resume bitwise after a restore
-                "swap_store": self._swap_store.state_dict(),
             }
+            # preempted rows' spilled bytes round-trip, so they still
+            # resume bitwise after a restore; on a partition they are this
+            # rank's heads, so each rank keeps its own
+            swap = {"swap_store": self._swap_store.state_dict()}
+            if mesh is None:
+                extra["engine"]["paged"].update(swap)
+            else:
+                rank_extra = swap
+        if mesh is not None and not self._same_on_every_rank(
+                json.dumps(extra, sort_keys=True), "engine.snapshot"):
+            raise ValueError(
+                f"snapshot of an engine on a partition of {self._ranks()} "
+                "ranks: the ranks' host bookkeeping differs, so no "
+                "checkpoint was written")
         return str(store.save(ckpt_dir,
                               step if step is not None else self._step_no,
-                              tree, extra=extra))
+                              tree, extra=extra, mesh=mesh,
+                              rank_extra=rank_extra))
 
-    @torch.no_grad()
-    def restore(self, ckpt_dir, step: Optional[int] = None) -> int:
-        """Load a `snapshot()` into THIS engine: same config, slots,
-        max_len and cache layout (the kinds of the layers' caches, KV or
-        recurrent, and their shapes), or ValueError before anything
-        changes.
-        The cache tensors (and with a params snapshot the model's) are
-        written in place, never rebound. In-flight generation resumes
-        byte-identically: caches, positions, last tokens and the replay
-        and queue bookkeeping all round-trip. TTLs restart at restore time
-        (the monotonic clock does not survive a process) and `finished`
-        starts empty (requests done before the snapshot were delivered).
-        Returns the restored step."""
+    def _load_snapshot(self, ckpt_dir, step: Optional[int], mesh):
+        """Read a `snapshot()` and check that it fits this engine, changing
+        nothing: (caches tree, engine extra, step, host block store, params
+        tree or None), or ValueError."""
         from ..checkpoint import store
-        self._refuse_partition("restore")
         try:
             tree, extra, got = store.restore(
-                ckpt_dir, {"caches": self.caches}, step=step)
+                ckpt_dir, {"caches": self.caches}, step=step, mesh=mesh)
         except KeyError as err:
             raise ValueError(
                 f"snapshot does not fit this engine's cache layout "
@@ -1606,19 +1645,68 @@ class ServingEngine:
                 f"{pg['block_size']} tokens) does not match the "
                 f"engine's ({self._pg_pool} x {self._pg_bs})")
         swap_store = HostBlockStore()
-        if self._paged and pg.get("swap_store") is not None:
-            swap_store.load_state(pg["swap_store"], self._pg_block_layout())
+        swap = (pg or {}).get("swap_store") if mesh is None \
+            else extra["rank"].get("swap_store")
+        if self._paged and swap is not None:
+            swap_store.load_state(swap, self._pg_block_layout())
+        ptree = None
         if eng["include_params"]:
+            ptree, _, _ = store.restore(
+                ckpt_dir, {"params": self.model.state_dict()}, step=got,
+                mesh=mesh)
+        return tree, eng, got, swap_store, ptree
+
+    @torch.no_grad()
+    def restore(self, ckpt_dir, step: Optional[int] = None) -> int:
+        """Load a `snapshot()` into THIS engine: same config, slots,
+        max_len and cache layout (the kinds of the layers' caches, KV or
+        recurrent, and their shapes), or ValueError before anything
+        changes.
+        The cache tensors (and with a params snapshot the model's) are
+        written in place, never rebound. In-flight generation resumes
+        byte-identically: caches, positions, last tokens and the replay
+        and queue bookkeeping all round-trip. TTLs restart at restore time
+        (the monotonic clock does not survive a process; on a partition
+        the lead rank's time) and `finished` starts empty (requests done
+        before the snapshot were delivered). Returns the restored step.
+
+        On a partition of several ranks every rank calls it and loads its
+        own shard. A snapshot of another mesh shape or axis names (one of
+        a single rank among them, and the reverse), a missing rank shard
+        or a shard whose caches are not this rank's (its n_kv / R heads)
+        is refused with ValueError on every rank (a collective carries
+        one rank's refusal to the others)."""
+        mesh = self.mesh if self._ranks() > 1 else None
+        err = loaded = None
+        try:
+            loaded = self._load_snapshot(ckpt_dir, step, mesh)
+        except (ValueError, KeyError, OSError) as e:
+            if mesh is None:
+                raise
+            err = e
+        if mesh is not None:
+            from ..dist.collectives import all_reduce
+            bad = all_reduce(torch.tensor([int(err is not None)],
+                                          device=self.device),
+                             mesh.mesh_dim_names, "max", mesh=mesh,
+                             site="engine.restore")
+            if err is not None:
+                raise ValueError(str(err)) from err
+            if int(bad[0]):
+                raise ValueError(
+                    f"restore on a partition of {self._ranks()} ranks: "
+                    "another rank refused the snapshot")
+        tree, eng, got, swap_store, ptree = loaded
+        if ptree is not None:
             params = self.model.state_dict()
-            ptree, _, _ = store.restore(ckpt_dir, {"params": params},
-                                        step=got)
             for name, t in ptree["params"].items():
                 params[name].copy_(t)
         for dst, src in zip(self.caches, tree["caches"]):
             for f in dataclasses.fields(dst):
                 getattr(dst, f.name).copy_(getattr(src, f.name))
 
-        now = time.monotonic()
+        now = self._clock()
+        pg = eng.get("paged")
         self._step_no = int(eng["step_no"])
         self._last = np.asarray(eng["last"], np.int32)
         self._remaining = np.asarray(eng["remaining"], np.int64)
@@ -1655,10 +1743,12 @@ class ServingEngine:
                 int(rid): {**e, "kept": [(int(j), int(b))
                                          for j, b in e["kept"]]}
                 for rid, e in pg["swap_entries"].items()}
+        live = [r for r in [*self._slot_req, *self.queue, *self._preempted]
+                if r is not None]
         self._has_deadlines = self._has_deadlines or any(
-            r is not None and (r.deadline_steps is not None
-                               or r.ttl_s is not None)
-            for r in [*self._slot_req, *self.queue, *self._preempted])
+            r.deadline_steps is not None or r.ttl_s is not None for r in live)
+        self._has_ttl = self._has_ttl or any(r.ttl_s is not None
+                                             for r in live)
         return got
 
     # ---------------------------------------------------------- introspection
@@ -1706,12 +1796,6 @@ class ServingEngine:
         """Fraction of slots currently serving a request."""
         busy = sum(r is not None for r in self._slot_req)
         return busy / self.slots if self.slots else 0.0
-
-
-_TTL_ON_PARTITION = (
-    "a wall-clock ttl_s on a partition of several ranks: each rank reads "
-    "its own clock, so the ranks could expire a request at different "
-    "steps; give deadline_steps")
 
 
 def _sharded(model) -> bool:

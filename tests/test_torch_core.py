@@ -174,7 +174,8 @@ def test_registry_lookup():
 # ================================================================ imports
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + sorted((ROOT / "examples").glob("pt_*.py")) \
+        + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: pathlib.Path):

@@ -19,9 +19,19 @@ grid of ranks beside one JAX subprocess with 4 host devices.
 * The robustness layer on a partition: preemption and a launch fault
   armed alike on both ranks give the one-rank engine's tokens; fault plans
   that differ between the ranks, demotion after a launch error no plan
-  injected, resident weights on shards, snapshots and wall-clock TTLs are
-  refused; resident weights served whole on every rank give the one-rank
-  resident engine's tokens.
+  injected and resident weights on shards are refused; resident weights
+  served whole on every rank give the one-rank resident engine's tokens.
+* Snapshots on a partition: each case's engine snapshotted mid-stream
+  (after chunk and decode steps) and restored into a fresh engine on the
+  same partition finishes with the uninterrupted tokens; each rank's
+  restored caches equal its head shard of the reference's snapshot of its
+  engine at the same step; a snapshot is refused on every rank onto a
+  mesh of another shape ((2, 1), one rank, and the reverse), with a rank
+  shard missing, or with caches of other heads.
+* Wall-clock TTLs on a partition: with the second rank's clock skewed in
+  offset and rate, both ranks end the same requests TIMEOUT at the same
+  step, as the one-rank engine does on the lead rank's clock (and not as
+  it does on the skewed one).
 * The dry-run's decode cell on a sharded model sizes its caches by the
   heads each rank computes, and all-gathers no weight.
 * `launch.serve --multi-tenant --backend ref` on the world: each tenant on
@@ -55,6 +65,7 @@ pytestmark = pytest.mark.timeout(240)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
+EXAMPLES = os.path.join(os.path.dirname(HERE), "examples")
 TOL = 1e-5
 GEO = dict(slots=4, max_len=64, prefill_chunk=8)
 BS = 8                                   # paged block size
@@ -70,6 +81,12 @@ FAMILIES = {"qwen2_1p5b": ("zamba2_2p7b", "xlstm_1p3b", "whisper_tiny"),
 REPLICATED = ("xlstm_1p3b", "whisper_tiny")   # mLSTM q/k/v, cross attention
 LAUNCH = ["--requests", "3", "--max-new", "5"]
 LAUNCH_ARCHS = ("olmoe_1b_7b", "qwen2_1p5b")
+SNAP_AT = 3                    # the engine step a case is snapshotted at
+# TTLs of the five prompts (seconds on the lead rank's fake clock, which
+# a read advances by 1 s; the other rank's starts 6,900 s later and a
+# read advances it by 3.7 s)
+TTLS = [None, 5.5, 1.5, 100.0, 3.5]
+CLOCKS = {"lead": (100.0, 1.0), "skewed": (7000.0, 3.7)}
 
 
 def contended(vocab, seed=0):
@@ -107,6 +124,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 sys.path.insert(0, SRC)
 import numpy as np, jax, jax.numpy as jnp
 from repro import api
+from repro.checkpoint import store
 from repro.configs import get_smoke
 from repro.launch import serve as jserve
 from repro.models import transformer as JT
@@ -133,10 +151,18 @@ def serve_case(arch, paged, int8):
                         block_size=BS, **GEO)
     for rid, p in enumerate(data["prompts"][arch]):
         eng.submit(Request(rid, p, max_new_tokens=MAX_NEW))
-    eng.run_until_drained()
+    snap = None
+    while eng.pending():
+        if eng.step_no == SNAP_AT:
+            d = os.path.join(os.path.dirname(OUT), "snap_" + "_".join(
+                map(str, (arch, paged, int8))))
+            eng.snapshot(d)
+            snap = layers(store.restore(d, {"caches": eng.caches})[0]
+                          ["caches"])
+        eng.step()
     leaf = jax.tree.leaves(eng.caches)[0]
     return ({r.rid: [int(t) for t in r.out_tokens] for r in eng.finished},
-            layers(eng.caches), str(leaf.sharding.spec))
+            layers(eng.caches), str(leaf.sharding.spec), snap)
 
 
 sched = MorphableScheduler()
@@ -200,26 +226,48 @@ def _engine(arch, paged, int8, sharded, **kw):
     return cfg, ServingEngine(cfg, model, **geo)
 
 
+def _snap_dir(*parts):
+    """A directory both ranks of a partition name alike: under the
+    world's private rendezvous directory."""
+    return os.path.join(_WORLD["dir"], "snapshots", "_".join(map(str, parts)))
+
+
 def _partition_case(arch, paged, int8):
     """On the partition's ranks: the engine on this rank's shards, its
-    tokens and caches, and one decode step's collectives."""
+    tokens and caches, and one decode step's collectives; the engine
+    snapshotted at step SNAP_AT, and a fresh engine restored from it: its
+    caches just after the restore and its tokens at the end."""
     from repro_torch.dist.collectives import record_collectives
     from repro_torch.dist.sharding import axis_rank
+    from repro_torch.serving import Request
     cfg, eng = _engine(arch, paged, int8, True)
-    tokens = _drive(eng, prompts(cfg.vocab))
+    snap = _snap_dir(arch, paged, int8)
+    for rid, p in enumerate(prompts(cfg.vocab)):
+        assert eng.submit(Request(rid, p, max_new_tokens=MAX_NEW))
+    while eng.pending():
+        if eng.step_no == SNAP_AT:
+            eng.snapshot(snap)
+            steps = (eng.stats.prefill_chunk_calls, eng.stats.decode_steps)
+        eng.step()
+    tokens = _tokens(eng.finished)
     with record_collectives() as rec:
         eng.step_trace(1, contextlib.nullcontext())
+    _, fresh = _engine(arch, paged, int8, True)
+    got = fresh.restore(snap)
+    restored = _caches(fresh)
     return {"model": axis_rank("model", eng.mesh), "tokens": tokens,
             "caches": _caches(eng),
-            "decode": sorted((r["kind"], str(r["site"])) for r in rec)}
+            "decode": sorted((r["kind"], str(r["site"])) for r in rec),
+            "snapshot": {"step": got, "steps": steps, "caches": restored,
+                         "tokens": _tokens(fresh.run_until_drained())}}
 
 
 def _robustness(arch):
     """Preemption (a 4-block pool, alternating priorities) and a launch
     fault armed alike on every rank; the refusals on a partition: fault
     plans that differ between the ranks, a launch error that no plan
-    injected (raised on every rank at its first dispatch), snapshots,
-    resident codes on shards and a wall-clock TTL."""
+    injected (raised on every rank at its first dispatch) and resident
+    codes on shards."""
     from repro_torch import api
     from repro_torch.dist.sharding import axis_rank
     from repro_torch.serving import Request
@@ -246,13 +294,8 @@ def _robustness(arch):
     step = 3 + axis_rank("model", eng.mesh)
     for what in (lambda: eng.arm_fault_plan(
                      FaultPlan.single("launch", step=step)),
-                 lambda: eng.snapshot("unused"),
-                 lambda: eng.restore("unused"),
                  lambda: _engine(arch, False, False, True,
-                                 weight_format="int8"),
-                 lambda: _engine(arch, False, False, True, ttl_s=5.0),
-                 lambda: eng.submit(Request(99, np.arange(1, 4),
-                                            max_new_tokens=1, ttl_s=5.0))):
+                                 weight_format="int8")):
         try:
             what()
         except ValueError as err:
@@ -261,6 +304,111 @@ def _robustness(arch):
     _, eng = _engine(arch, False, False, False, weight_format="int8")
     out["resident"] = _drive(eng, prompts(cfg.vocab))
     return out
+
+
+def _refused_snapshots(arch):
+    """A snapshot of the partition's flat engine restored where it does
+    not fit, each on every rank: an engine on the (2, 1) mesh of the same ranks, an engine
+    of one rank, the partition's engine given a one-rank snapshot, a copy
+    of the snapshot without its second rank's shard, and a snapshot of an
+    engine whose caches hold other heads. Returns each refusal's
+    message, or the failure to refuse."""
+    import shutil
+    from repro_torch.dist.collectives import barrier
+    from repro_torch.dist.sharding import ctx_mesh, set_mesh
+    from repro_torch.serving import ServingEngine
+    mesh = ctx_mesh()
+    cfg, eng = _engine(arch, False, False, True)
+    part = _snap_dir(arch, "refusals")
+    _drive(eng, prompts(cfg.vocab)[:2], max_new=2)
+    eng.snapshot(part)
+    one = _snap_dir(arch, "one", axis_rank_of(mesh))
+    with set_mesh(None):
+        _, single = _engine(arch, False, False, False)
+        single.snapshot(one)
+    lacking = _snap_dir(arch, "lacking")
+    if axis_rank_of(mesh) == 0:
+        shutil.copytree(part, lacking)
+        (step,) = os.listdir(lacking)
+        shutil.rmtree(os.path.join(lacking, step, "rank-0001"))
+    barrier(mesh)
+    heads = _snap_dir(arch, "heads")
+    wide = dataclasses.replace(cfg, n_heads=2 * cfg.n_heads,
+                               n_kv_heads=2 * cfg.n_kv_heads)
+    ServingEngine(wide, init_sharded(wide, mesh, device="cpu"),
+                  **GEO).snapshot(heads)
+    tall = next(m for m in _WORLD["tall"] if m.get_coordinate() is not None)
+    with set_mesh(tall):
+        _, on_tall = _engine(arch, False, False, False)
+    with set_mesh(None):
+        _, single = _engine(arch, False, False, False)
+    out = []
+    for target, src in ((on_tall, part), (single, part), (eng, one),
+                        (eng, lacking), (eng, heads)):
+        try:
+            target.restore(src)
+            out.append("restored")
+        except ValueError as err:
+            out.append(str(err))
+    return out
+
+
+class _Clock:
+    """The engine module's `time`, whose monotonic clock starts at `start`
+    and advances by `tick` at every read."""
+
+    def __init__(self, start, tick):
+        self.now, self.tick = start, tick
+
+    def monotonic(self):
+        self.now += self.tick
+        return self.now
+
+    def __getattr__(self, name):
+        import time
+        return getattr(time, name)
+
+
+def _ttl_run(arch, clock):
+    """Five requests with TTLS on an engine reading `clock`: {rid:
+    (status, the step it ended in, tokens)}."""
+    from repro_torch.serving import Request
+    from repro_torch.serving import engine as engine_mod
+    cfg, eng = _engine(arch, False, False, axis_rank_of(None) is not None)
+    saved, engine_mod.time = engine_mod.time, _Clock(*clock)
+    try:
+        for rid, (p, ttl) in enumerate(zip(prompts(cfg.vocab), TTLS)):
+            assert eng.submit(Request(rid, p, max_new_tokens=MAX_NEW,
+                                      ttl_s=ttl))
+        out = {}
+        while eng.pending():
+            for r in eng.step():
+                out[r.rid] = (r.status, eng.step_no, list(r.out_tokens))
+    finally:
+        engine_mod.time = saved
+    return out
+
+
+def _ttl_case(arch):
+    """The partition's engine with each rank on its own fake clock (the
+    lead's, or the skewed one); on the lead also the one-rank engine on
+    the lead's clock and on the skewed one."""
+    from repro_torch.dist.sharding import ctx_mesh, set_mesh
+    lead = axis_rank_of(ctx_mesh()) == 0
+    out = {"partition": _ttl_run(arch, CLOCKS["lead" if lead
+                                              else "skewed"])}
+    if lead:
+        with set_mesh(None):
+            out["one"] = {k: _ttl_run(arch, c) for k, c in CLOCKS.items()}
+    return out
+
+
+def axis_rank_of(mesh):
+    """This rank's index on "model" of `mesh` (the ambient one when None
+    is given and a mesh is bound), or None without a mesh."""
+    from repro_torch.dist.sharding import axis_rank, ctx_mesh
+    mesh = ctx_mesh() if mesh is None else mesh
+    return None if mesh is None else axis_rank("model", mesh)
 
 
 def _families(tenant):
@@ -310,14 +458,21 @@ def _one_rank(arch):
     return out
 
 
+_WORLD = {}
+
+
 def _rank_main(rank, world, init):
     import warnings
     import torch.distributed as dist
     from repro_torch.launch import serve
-    from repro_torch.launch.mesh import init_world
+    from repro_torch.launch.mesh import init_world, make_meshes
     from repro_torch.models import moe as moe_mod
     from repro_torch.tenancy import MorphableScheduler, Tenant
     init_world(init_method=init, rank=rank, world_size=world, device="cpu")
+    _WORLD["dir"] = os.path.dirname(init[len("file://"):])
+    # (2, 1) meshes of each partition's ranks: a mesh of another shape
+    _WORLD["tall"] = make_meshes([np.array([[0], [1]]),
+                                  np.array([[2], [3]])])
     sched = MorphableScheduler()
     parts = sched.reconfigure([Tenant(*t) for t in TENANTS])
     res = {"rank": rank, "grid": sched.ranks.tolist(),
@@ -340,6 +495,8 @@ def _rank_main(rank, world, init):
                 res["robust"] = got
                 res["one"] = _one_rank(arch)
                 res["families"] = sched.run(arch, _families, arch)
+                res["refusals"] = sched.run(arch, _refused_snapshots, arch)
+                res["ttl"] = sched.run(arch, _ttl_case, arch)
     text = io.StringIO()
     tokens = []
 
@@ -357,6 +514,14 @@ def _rank_main(rank, world, init):
     res["capacity_tokens"] = sorted(set(tokens))
     res["launch"] = {t: _tokens(d) for t, d in done.items()}
     res["stdout"] = text.getvalue()
+    # the multi-tenant example on the world: each tenant on its partition
+    sys.path.insert(0, EXAMPLES)
+    import pt_multi_tenant_serving as example
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        served = example.main(["--device", "cpu"])
+    res["example"] = ({t: _tokens(d) for t, (d, _) in served.items()},
+                      text.getvalue())
     dist.barrier()
     dist.destroy_process_group()
     return res
@@ -383,7 +548,7 @@ def ran(tmp_path_factory):
         code = (f"SRC = {SRC!r}; IN = {str(tmp / 'in.pkl')!r}; "
                 f"OUT = {str(tmp / (part + '.pkl'))!r}; MINE = {mine!r}; "
                 f"LAUNCHER = {part == 'b'}; TENANTS = {TENANTS!r}; "
-                f"GEO = {GEO!r}; "
+                f"GEO = {GEO!r}; SNAP_AT = {SNAP_AT}; "
                 f"BS = {BS}; MAX_NEW = {MAX_NEW}; "
                 f"REQUESTS = {int(LAUNCH[1])}; "
                 f"MAX_NEW_L = {int(LAUNCH[3])}\n" + JAX_CODE)
@@ -515,7 +680,7 @@ def test_rank_caches_equal_reference_head_shard(ran, case):
     cache's shard of them at every position a row holds; the reference's
     cache is sharded on its heads axis over "model"."""
     ref, ranks = ran
-    _, want, spec = ref[case]
+    _, want, spec, _ = ref[case]
     assert "'model'" in spec.split(",")[2], spec  # (layers, B, Hkv, ...)
     n_kv = get_smoke(case[0]).n_kv_heads
     h = n_kv // 2
@@ -562,10 +727,9 @@ def test_robustness_layer_on_a_partition(ran, arch):
     """Preemption with swap, and a launch fault armed alike on both ranks
     (undone and demoted alike), give the one-rank engine's tokens; a
     partition refuses fault plans that differ between its ranks, demotion
-    after a launch error that no plan injected, snapshot / restore,
-    resident codes on shards and a wall-clock TTL;
-    resident weights served whole on each rank give the one-rank resident
-    engine's tokens."""
+    after a launch error that no plan injected and resident codes on
+    shards; resident weights served whole on each rank give the one-rank
+    resident engine's tokens."""
     _, ranks = ran
     for r in _members(ranks, arch):
         robust, one = r["robust"], r["one"]
@@ -576,12 +740,89 @@ def test_robustness_layer_on_a_partition(ran, arch):
         (err,), demotions = robust["unplanned"]
         assert err.startswith("RuntimeError") and "does not demote" in err
         assert demotions == 0
-        assert len(robust["refused"]) == 6, robust["refused"]
+        assert len(robust["refused"]) == 2, robust["refused"]
         assert "different fault plans" in robust["refused"][0]
-        assert "partition of 2 ranks" in robust["refused"][1]
-        assert "replicated" in robust["refused"][3]
-        assert all("ttl_s" in e for e in robust["refused"][4:])
+        assert "replicated" in robust["refused"][1]
         assert robust["resident"] == one["resident"]
+
+
+@pytest.mark.parametrize("case", CASES, ids=_key)
+def test_partition_snapshot_restores_midstream(ran, case):
+    """The case's engine snapshotted at step SNAP_AT (after chunk and
+    decode steps), restored into a fresh engine on the same partition,
+    finishes with the uninterrupted engine's tokens on both ranks."""
+    _, ranks = ran
+    for r in _members(ranks, case[0]):
+        x = r[_key(case)]
+        chunks, decodes = x["snapshot"]["steps"]
+        assert x["snapshot"]["step"] == SNAP_AT and chunks >= 1 \
+            and decodes >= 1
+        assert len(x["tokens"]) == 5
+        assert x["snapshot"]["tokens"] == x["tokens"]
+
+
+@pytest.mark.parametrize("case", CASES, ids=_key)
+def test_restored_caches_equal_reference_snapshot_shard(ran, case):
+    """Each rank's caches just after the restore equal its head shard of
+    the reference's snapshot of its engine (under the same sub-mesh) at
+    the same step, within 1e-5 at every position a row holds."""
+    ref, ranks = ran
+    want = ref[case][3]
+    h = get_smoke(case[0]).n_kv_heads // 2
+    for r in _members(ranks, case[0]):
+        got, m = r[_key(case)]["snapshot"]["caches"], r[_key(case)]["model"]
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            held = _held(w, case[1])
+            assert held.sum() >= 20
+            for f, a in w.items():
+                t = g[f].numpy()
+                if f in ("pos", "table"):
+                    np.testing.assert_array_equal(t, a)
+                    continue
+                if case[1]:
+                    t = t[:-1]                       # the port's trash block
+                np.testing.assert_allclose(
+                    np.moveaxis(t, 1, 2)[held].astype(np.float32),
+                    np.moveaxis(a[:, m * h:(m + 1) * h], 1, 2)[held]
+                    .astype(np.float32), rtol=0, atol=TOL, err_msg=f)
+
+
+@pytest.mark.parametrize("arch", [a for a, *_ in TENANTS])
+def test_snapshot_refused_on_another_mesh(ran, arch):
+    """A partition's snapshot restores onto the same mesh shape only: onto
+    the (2, 1) mesh of the same ranks and onto one rank it is refused on
+    both ranks, as are a one-rank snapshot on the partition, a snapshot
+    lacking a rank's shard and one whose caches hold other heads."""
+    _, ranks = ran
+    members = _members(ranks, arch)
+    for r in members:
+        tall, single, one, lacking, heads = r["refusals"]
+        assert "mesh (data=1, model=2)" in tall and \
+            "not onto mesh (data=2, model=1)" in tall, tall
+        assert "not onto one rank" in single, single
+        assert "saved on one rank" in one, one
+        assert "lacks the shards of mesh index(es) [1]" in lacking, lacking
+        assert "checkpoint shape" in heads or "another rank" in heads, heads
+    assert any("checkpoint shape" in r["refusals"][4] for r in members)
+
+
+@pytest.mark.parametrize("arch", [a for a, *_ in TENANTS])
+def test_partition_ttl_on_the_lead_clock(ran, arch):
+    """With the ranks' clocks apart in offset and rate, both ranks end the
+    same requests TIMEOUT at the same steps, with the same tokens, as the
+    one-rank engine on the lead rank's clock; the skewed clock alone would
+    expire others."""
+    _, ranks = ran
+    members = _members(ranks, arch)
+    lead = next(r for r in members if "one" in r["ttl"])
+    want = lead["ttl"]["one"]["lead"]
+    statuses = [s for s, _, _ in want.values()]
+    assert sorted(want) == list(range(5))
+    assert "TIMEOUT" in statuses and "done" in statuses, want
+    assert lead["ttl"]["one"]["skewed"] != want
+    for r in members:
+        assert r["ttl"]["partition"] == want
 
 
 @pytest.mark.parametrize("tenant,arch", [("captioning", "olmoe_1b_7b"),
@@ -614,6 +855,25 @@ def test_other_families_serve_on_a_partition(ran, arch):
         assert got == one and len(got) == 3
         assert {"embed", "row", "unembed"} <= set(sites)
         assert ("weight" in sites) == (arch in REPLICATED), sites
+
+
+def test_multi_tenant_example_on_the_world(ran):
+    """`examples/pt_multi_tenant_serving.py` on the world of 4 ranks: each
+    tenant served on its own (1, 2) partition, at once; each partition's
+    ranks give the tokens of the tenant served in one process."""
+    sys.path.insert(0, EXAMPLES)
+    import pt_multi_tenant_serving as example
+    _, ranks = ran
+    for (name, arch, _), lead in zip(example.TENANTS, (0, 2)):
+        done, _ = example.run_tenant(name, arch, device="cpu")
+        want = _tokens(done)
+        for r in ranks:
+            got, out = r["example"]
+            if r["rank"] in (lead, lead + 1):
+                assert got == {name: want}
+            if r["rank"] == 0:
+                assert "ran at once on their partitions of ranks" in out
+                assert "partition ('captioning',): ranks [0, 1]" in out
 
 
 def test_moe_capacity_counts_the_whole_launch(ran):
