@@ -135,7 +135,8 @@ of JAX or of the JAX package `repro`. Phases:
 5. Engine: ServingEngine on the full-width qwen2_1p5b CONFIG (random f32
    weights, seed 0), 8 slots, max_len 2048, prefill chunk 32, 8 requests
    with prompts of 16..256 tokens (16..1000 until phase 3f, 16..512
-   until the partition phase needed the time) and 32 new tokens each — dense bf16-KV,
+   until the partition phase needed the time) and 24 new tokens each (32
+   until phase 7e needed the time) — dense bf16-KV,
    int8-KV, and bf16-KV with the Linear weights resident in int4 and in
    fp8a (converted in place by `quantize_params`, as the serve launcher
    does: the quantizer and the AIO GEMM run on every Linear). A
@@ -163,7 +164,7 @@ of JAX or of the JAX package `repro`. Phases:
    full-width model, 8 slots, max_len 2048, chunk 32, serving 16 requests
    that share a 300-token prompt head (18 full blocks and 12 tokens, so the
    boundary block forks) with tails of 16, 700, 137, 212, 64, 500, 3 and
-   33 tokens, each length twice, 32 new tokens each: (a) bf16 KV, default
+   33 tokens, each length twice, 24 new tokens each: (a) bf16 KV, default
    pool; (b) int8 KV; (c) bf16 KV with a 160-block pool, which forces
    deferral and LRU eviction. Each beside the flat kernel engine on the
    same mix: every request's tokens must be equal; prefix hits, shared
@@ -303,8 +304,10 @@ of JAX or of the JAX package `repro`. Phases:
    512 tokens; AdamW, base_lr 3e-4, warmup 2; no checkpoint written):
    every loss and grad norm finite, step 1 (lr 0 at the pre-increment
    step) leaves every parameter bitwise unchanged, every attention call of
-   the steps on the ref route (autograd records it) and no kernel launched
-   in them, B8 0 times though L = 512 is 128-aligned; a direct B8 call on
+   the steps on the ref route (autograd records it; the CONFIG
+   rematerializes, so each layer's attention runs twice a step, in the
+   forward and in the backward's recompute) and no kernel launched in
+   them, B8 0 times though L = 512 is 128-aligned; a direct B8 call on
    a query that requires grad must raise. Prints the losses, the step
    median, tokens/s, peak memory and one profiled step. (a') The same
    Trainer fed the stream's first batch at every step: step 10's loss
@@ -390,6 +393,35 @@ of JAX or of the JAX package `repro`. Phases:
    engine in lockstep with a ref-route engine (phase 5's rule: tokens
    equal but at near-ties). Prints each example's wall time; the launches
    of B5, B9, B10, B1 and B3 count as the main path's.
+7e. Long sequences (runs after 7b): (a) the olmo_1b CONFIG at full width
+   and depth, which rematerializes (`ModelConfig.remat`), trained 3
+   Trainer steps at 2 x 4,096 tokens (train_4k's sequence; seed 0,
+   `SyntheticLM` seed 9): losses and grad norms finite, each layer
+   checkpointed once a step and its attention routed to ref twice (the
+   forward and the recompute), no kernel launched; prints the step ms,
+   tokens/s, peak memory and one profiled step. (b) The same model and
+   optimizer state with `dataclasses.replace(cfg, remat=False)`, one
+   forward and backward at 2 x 512, 1,024 and 2,048: the quadratic
+   through the three peaks carried to 4,096 is printed beside (a)'s peak
+   (nothing runs at 4,096 without remat: it would not fit). (c) One
+   batch of 2 x 512 with remat and without: the loss and every gradient
+   within 1e-6 x the leaf's max |g|. (d) The qwen2_1p5b CONFIG at full
+   width and depth (seed 0), `forward` and `make_prefill_step` over one
+   prompt of 32,768 tokens (prefill_32k's sequence) on the kernel route:
+   B8 exactly 28 times each and no other kernel; the logits against the ref route's (past
+   4096 x 8192 scores it runs `chunked_attention`, 28 calls) within 1e-3
+   x max |logit|, an argmax that differs only where the ref logits' top
+   two lie within twice that difference, the prefill token equal but at
+   a near-tie (margin <= 1e-3); prints the wall, prompt tokens/s and peak
+   memory; then B8 alone at that shape (B 1, Hq 12, Hkv 2, D 128, causal,
+   f32) against its plain version (1e-4, no NaN), timed beside it,
+   memory-efficient SDPA and its bound. (e) The qwen2_1p5b CONFIG over 4
+   of its 28 layers and a prompt of 32,700 tokens, not 128-aligned, so
+   the kernel backend routes it to ref, which runs chunked (4 calls, no
+   kernel): finite logits, peak memory printed, and its logits at the
+   first 32,640 positions within 1e-3 x max |logit| of B8's forward over
+   them (4 launches). The launches of (d)'s forward and prefill step and
+   of (e)'s prefix count as the main path's. Prints the phase's wall time.
 8. Summary: no engine of any phase demoted but phase 5c's two injected
    faults (every demotion warns; the script records the warnings), a
    `{"kernels": [...]}` line (13 kernel entry points), the script's wall
@@ -1901,13 +1933,15 @@ def run_variant(label, cfg, model, prompts, max_new, card, *,
 
 
 # 1000 and 800 cut to 500 and 400 for phase 3f's time, then halved for
-# phase 7c (e)'s (5b keeps prompts of up to 1000 tokens)
+# phase 7c (e)'s (5b keeps prompts of up to 1000 tokens); the new tokens
+# (of phases 5, 5b, 5c, 5d and 5f's internvl2) cut from 32 for phase 7e's
+MAX_NEW = 24
 ENGINE_PLENS = [16, 250, 137, 256, 64, 200, 150, 33]
-MAX_NEW = 32
 
 
 def engine_prompts(vocab):
-    """Phase 5's mix: 8 prompts of 16..256 tokens (32 new tokens each)."""
+    """Phase 5's mix: 8 prompts of 16..256 tokens (MAX_NEW new tokens
+    each)."""
     rng = np.random.RandomState(0)
     return [rng.randint(1, vocab, n).astype(np.int32) for n in ENGINE_PLENS]
 
@@ -2018,7 +2052,7 @@ PAGED_VARIANTS = [("paged bf16-KV", False, None),
 
 def paged_prompts(vocab):
     """Phase 5b's mix: 16 prompts of a shared 300-token head and the tails
-    of PAGED_TAILS, each twice (32 new tokens each)."""
+    of PAGED_TAILS, each twice (MAX_NEW new tokens each)."""
     rng = np.random.RandomState(1)
     head = rng.randint(1, vocab, PAGED_HEAD).astype(np.int32)
     return [np.concatenate([head, rng.randint(1, vocab, n)])
@@ -3672,9 +3706,12 @@ def train_full(dev, card):
     n_launched = launched()
     check(not n_launched, f"a kernel launched inside the train steps: "
           f"{n_launched}")
-    check(len(routes) == TRAIN_STEPS * cfg.n_layers
+    # remat: the backward recomputes each layer's forward, attention too
+    per_step = cfg.n_layers * (2 if cfg.remat else 1)
+    check(len(routes) == TRAIN_STEPS * per_step
           and set(routes) == {"ref"}, f"attention routes under grad: "
-          f"{sorted(set(routes))} x{len(routes)}")
+          f"{sorted(set(routes))} x{len(routes)}, want ref "
+          f"x{TRAIN_STEPS * per_step}")
     log = tr.metrics_log
     losses = [m["loss"] for m in log]
     check(len(log) == TRAIN_STEPS and all(
@@ -3699,7 +3736,8 @@ def train_full(dev, card):
     print(f"      losses {[round(x, 4) for x in losses]}; grad norms "
           f"{norms}; lr {lrs}", flush=True)
     print(f"      step 1 (lr 0) left every parameter bitwise unchanged; "
-          f"attention route under grad: ref x{len(routes)} (no kernel "
+          f"attention route under grad: ref x{len(routes)} (remat "
+          f"{cfg.remat}: {per_step} a step; no kernel "
           f"launched in the steps, B8 0 times though L = {TRAIN_L} is "
           f"128-aligned); a direct B8 call on a query that requires grad "
           f"raises", flush=True)
@@ -3929,6 +3967,332 @@ def training_phase(dev, card):
     print(f"  phase 7b wall time {time.perf_counter() - ts:.1f} s",
           flush=True)
     return counts
+
+
+# ------------------------------------------------- long sequences (7e)
+LONG_ARCH = "olmo_1b"
+LONG_B, LONG_L, LONG_STEPS = 2, 4096, 3   # train_4k's sequence (batch 256
+#                                           is a pod's)
+LONG_PLAIN_L = (512, 1024, 2048)          # (b) remat off: the peak's fit
+LONG_EQ_L = 512                           # (c) remat against not
+REMAT_TOL = 1e-6                          # of each leaf's max |g|
+SCORE_ARCH, SCORE_L = "qwen2_1p5b", 32768  # prefill_32k's sequence
+UNALIGNED_L = 32700                       # (e) not 128-aligned: ref route
+UNALIGNED_LAYERS = 4                      # (e) of qwen2's 28
+UNALIGNED_PREFIX = UNALIGNED_L // 128 * 128
+
+
+def gib(x) -> float:
+    return x / 2**30
+
+
+def counting(fn, counter):
+    """fn, with each call counted in counter[0]."""
+    def wrapped(*a, **kw):
+        counter[0] += 1
+        return fn(*a, **kw)
+    return wrapped
+
+
+def long_train(dev, card):
+    """(a) olmo-1b trained at 2 x 4,096 with remat, (b) its peak without
+    remat at shorter lengths, fitted and carried to 4,096, (c) remat's
+    gradients against none on one batch."""
+    from repro_torch.models import transformer as tmod
+    cfg = get_config(LONG_ARCH)
+    check(cfg.remat, f"{cfg.name} CONFIG does not rematerialize")
+    tr = Trainer(cfg, TrainerConfig(ckpt_dir=str(TRAIN_DIR / "long"),
+                                    ckpt_every=10**9, base_lr=TRAIN_LR,
+                                    warmup=TRAIN_WARMUP, total_steps=10),
+                 seed=0, device=dev)
+    data = iter(SyntheticLM(DataConfig(vocab=cfg.vocab, batch=LONG_B,
+                                       seq=LONG_L, seed=9)))
+    spy, routes = route_log()
+    units = [0]
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with patched(api.ops, "attention_route", spy), \
+            patched(tmod, "checkpoint", counting(tmod.checkpoint, units)):
+        tr.run(data, LONG_STEPS - 1)
+        prof = profiled(lambda: tr.run(data, 1))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(not launched(), f"a kernel launched in training: {launched()}")
+    log = tr.metrics_log
+    check(len(log) == LONG_STEPS and all(
+        np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in log),
+        f"non-finite loss or grad norm at L {LONG_L}: {log}")
+    # the backward recomputes each layer's forward, attention included
+    check(units[0] == LONG_STEPS * cfg.n_layers
+          and len(routes) == 2 * LONG_STEPS * cfg.n_layers
+          and set(routes) == {"ref"}, f"{units[0]} checkpointed layers, "
+          f"attention routes {sorted(set(routes))} x{len(routes)}")
+    ms = [1e3 * m["step_time_s"] for m in log]
+    print(f"  (a) {cfg.name} CONFIG ({cfg.n_layers} layers, remat) trained "
+          f"{LONG_STEPS} Trainer steps at {LONG_B} x {LONG_L} tokens: "
+          f"losses {[round(m['loss'], 4) for m in log]}; step ms "
+          f"{[round(x, 1) for x in ms]} (step 2: "
+          f"{LONG_B * LONG_L / ms[1] * 1e3:.0f} tokens/s); "
+          f"max_memory_allocated {gib(peak):.2f} GiB; {units[0]} layers "
+          f"checkpointed, attention ref x{len(routes)} (each layer twice a "
+          f"step: forward and recompute), no kernel; {card}", flush=True)
+    print(f"      profile of step {LONG_STEPS}: {prof}", flush=True)
+
+    # (b) the same model and optimizer state without remat: the peak of
+    # one forward and backward at each length, then the quadratic through
+    # the three (the update's own peak, 27.5 GiB of moments and their
+    # temporaries, would hide the activations at the shorter lengths)
+    model, params = tr.model, list(tr.model.parameters())
+    peaks = []
+    with patched(model, "cfg", dataclasses.replace(cfg, remat=False)):
+        for n in LONG_PLAIN_L:
+            batch = batch_on(next(iter(SyntheticLM(DataConfig(
+                vocab=cfg.vocab, batch=LONG_B, seq=n, seed=11)))), dev)
+            for p in params:
+                p.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+            check(np.isfinite(loss.item()), f"no-remat loss at L {n}")
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+    for p in params:
+        p.grad = None
+    coef = np.polyfit(np.array(LONG_PLAIN_L, dtype=np.float64),
+                      np.array(peaks, dtype=np.float64), 2)
+    at_long = float(np.polyval(coef, LONG_L))
+    print(f"  (b) without remat (dataclasses.replace(cfg, remat=False)), one "
+          f"forward and backward at {LONG_B} x L beside the weights and "
+          f"AdamW moments: peaks "
+          + ", ".join(f"L {n} {gib(p):.2f} GiB"
+                      for n, p in zip(LONG_PLAIN_L, peaks))
+          + f"; the quadratic through them gives {gib(at_long):.2f} GiB at L "
+          f"{LONG_L} ({at_long / 1e9:.1f} GB; the card holds 80 GB) against "
+          f"(a)'s step peak with remat {gib(peak):.2f} GiB "
+          f"({at_long / peak:.1f}x)", flush=True)
+
+    # (c) one batch, remat against not: loss and every gradient
+    batch = batch_on(next(iter(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, batch=LONG_B, seq=LONG_EQ_L, seed=12)))), dev)
+    out = {}
+    for remat in (True, False):
+        with patched(model, "cfg", dataclasses.replace(cfg, remat=remat)):
+            for p in params:
+                p.grad = None
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+            out[remat] = (loss.item(), [p.grad for p in params])
+    worst, where = 0.0, None
+    for (name, _), a, b in zip(model.named_parameters(), out[True][1],
+                               out[False][1]):
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, where = rel, name
+    for p in params:
+        p.grad = None
+    print(f"  (c) one batch of {LONG_B} x {LONG_EQ_L}: loss with remat "
+          f"{out[True][0]:.6f}, without {out[False][0]:.6f}; every "
+          f"gradient within {worst:.2e} of its leaf's max |g| (limit "
+          f"{REMAT_TOL}; worst {where})", flush=True)
+    check(worst <= REMAT_TOL, f"remat gradient of {where} is {worst:.2e} of "
+          "the leaf's max |g| from the no-remat one")
+    check(abs(out[True][0] - out[False][0]) <= REMAT_TOL * abs(out[False][0]),
+          f"remat loss {out[True][0]} vs {out[False][0]}")
+    del tr, model, params, out
+    torch.cuda.empty_cache()
+
+
+def compare_logits(got, want, block=4096):
+    """(max |got - want|, max |want|, positions whose argmax differ and
+    the largest top-1/top-2 margin of `want` among them) over (1, L, V)
+    logits, a block of positions at a time (no full-size temporary)."""
+    diff = scale = worst_margin = 0.0
+    flips = 0
+    for i in range(0, got.shape[1], block):
+        g, w = got[:, i:i + block], want[:, i:i + block]
+        diff = max(diff, (g - w).abs().max().item())
+        scale = max(scale, w.abs().max().item())
+        other = g.argmax(-1) != w.argmax(-1)
+        if other.any():
+            top2 = w[other].topk(2, -1).values
+            flips += int(other.sum())
+            worst_margin = max(worst_margin,
+                               (top2[:, 0] - top2[:, 1]).max().item())
+    return diff, scale, flips, worst_margin
+
+
+def long_score(dev, card):
+    """(d) qwen2-1.5B over 32,768 tokens on B8 against the chunked ref
+    route; B8 at that shape against its plain version, timed. Returns
+    (B8's main-path launches, its max |diff|, its timing row)."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    cfg = get_config(SCORE_ARCH)
+    model = init_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(np.random.RandomState(13).randint(
+        1, cfg.vocab, (1, SCORE_L))).to(dev)
+    route = api.ops.attention_route(lq=SCORE_L, lk=SCORE_L)
+    check(route == "cuda", f"L {SCORE_L} routes to {route}")
+    forward(model, toks[:, :128])                  # first-launch setup
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ts = time.perf_counter()
+    logits, _ = forward(model, toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    n_fwd = flash_attention.launches
+    nxt = make_prefill_step(cfg)(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = flash_attention.launches
+    check(n_fwd == cfg.n_layers and launches == 2 * cfg.n_layers
+          and set(launched()) == {"flash_attention"},
+          f"forward + prefill step at L {SCORE_L}: {launched()}, want B8 "
+          f"x{cfg.n_layers} each")
+    print(f"  (d) {cfg.name} CONFIG, forward over 1 x {SCORE_L} tokens on "
+          f"B8: {1e3 * wall:.1f} ms wall = {SCORE_L / wall:.0f} prompt "
+          f"tokens/s; forward + make_prefill_step max_memory_allocated "
+          f"{gib(peak):.2f} GiB (weights, 1 x {SCORE_L} x {cfg.vocab} f32 "
+          f"logits each); B8 x{n_fwd} a forward, {launches} in both, no "
+          f"other kernel; {card}", flush=True)
+
+    chunked = [0]
+    with api.policy(backend="ref"), patched(
+            attn_ops, "chunked_attention",
+            counting(attn_ops.chunked_attention, chunked)):
+        ts = time.perf_counter()
+        ref_logits, _ = forward(model, toks)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - ts
+    check(chunked[0] == cfg.n_layers and flash_attention.launches ==
+          launches, f"the ref route ran chunked_attention {chunked[0]} "
+          f"times and launched B8 {flash_attention.launches - launches}")
+    diff, scale, flips, margin = compare_logits(logits, ref_logits)
+    ref_next = ref_logits[:, -1].argmax(-1)
+    top2 = ref_logits[:, -1].topk(2, -1).values[0]
+    last_margin = (top2[0] - top2[1]).item()
+    print(f"      the ref route (chunked_attention x{chunked[0]}, chunk "
+          f"{api.current_policy().chunk}): {1e3 * ref_wall:.1f} ms; max "
+          f"|dlogit| {diff:.3e} ({diff / scale:.2e} of max|logit| "
+          f"{scale:.2f}; limit {LOGIT_TOL}); argmax differs at {flips} of "
+          f"{SCORE_L} positions (largest ref top-1/top-2 margin there "
+          f"{margin:.2e}); make_prefill_step's token {nxt.tolist()} vs "
+          f"{ref_next.tolist()} (margin {last_margin:.4f})", flush=True)
+    check(diff <= LOGIT_TOL * scale, f"L {SCORE_L}: max |dlogit| {diff} "
+          f"above {LOGIT_TOL} x {scale}")
+    check(flips == 0 or margin <= 2 * diff, f"argmax differs at {flips} "
+          f"positions, at a margin up to {margin} > 2 x max |dlogit|")
+    check(torch.equal(nxt, ref_next) or last_margin <= MARGIN,
+          f"prefill token {nxt.tolist()} vs ref {ref_next.tolist()}")
+    del logits, ref_logits, model
+    torch.cuda.empty_cache()
+
+    # B8 alone at the forward's shape: against its plain version, timed
+    # beside it, SDPA (K/V expanded to Hq beforehand) and its bound
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cases = [full_case(dev, 90 + i, b=1, hq=hq, hkv=hkv, lq=SCORE_L,
+                       lk=SCORE_L, d=d) for i in range(2)]
+    got = flash_attention(*cases[0])
+    want = flash_attention_plain(*cases[0])
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    nan = got.isnan().any().item()
+    del got, want
+    check(err <= TOL and not nan, f"B8 at L {SCORE_L}: max |diff| {err} "
+          f"above {TOL} or NaN")
+    group = hq // hkv
+    wide = [(q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))
+            for q, k, v in cases]
+    ms = cuda_ms([functools.partial(flash_attention, *c) for c in cases], 4)
+    plain_ms = cuda_ms([functools.partial(flash_attention_plain, *cases[0])],
+                       1)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib_ms = cuda_ms([functools.partial(
+            F.scaled_dot_product_attention, *c, is_causal=True)
+            for c in wide], 4)
+    bound_ms, bound_by = full_bound(1, hq, hkv, SCORE_L, SCORE_L, d, mmas=6)
+    f32_ms, _ = full_bound(1, hq, hkv, SCORE_L, SCORE_L, d)
+    print(f"      B8 at (1, {hq}, {SCORE_L}, {d}) K/V (1, {hkv}, {SCORE_L}, "
+          f"{d}) causal f32: max|diff| {err:.3e} against its plain version; "
+          f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  SDPA (memory-efficient,"
+          f" K/V expanded) {lib_ms:.4f} ({ms / lib_ms:.2f}x)  bound "
+          f"{bound_ms:.4f} ({bound_by}, 6 bf16 MMAs a product; "
+          f"{100 * bound_ms / ms:.1f}% of it)  f32 bound {f32_ms:.4f} "
+          f"({100 * f32_ms / ms:.1f}%)", flush=True)
+    del cases, wide
+    torch.cuda.empty_cache()
+    return launches, err
+
+
+def long_unaligned(dev, card):
+    """(e) a 32,700-token prompt: not 128-aligned, so the kernel backend
+    routes it to ref, which runs chunked; its logits at the aligned prefix
+    against B8's forward over that prefix. Returns B8's launches."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    cfg = dataclasses.replace(get_config(SCORE_ARCH),
+                              n_layers=UNALIGNED_LAYERS)
+    model = init_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(np.random.RandomState(14).randint(
+        1, cfg.vocab, (1, UNALIGNED_L))).to(dev)
+    route = api.ops.attention_route(lq=UNALIGNED_L, lk=UNALIGNED_L)
+    check(route == "ref", f"L {UNALIGNED_L} routes to {route}")
+    chunked = [0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with patched(attn_ops, "chunked_attention",
+                 counting(attn_ops.chunked_attention, chunked)):
+        ts = time.perf_counter()
+        logits, _ = forward(model, toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+    peak = torch.cuda.max_memory_allocated()
+    check(chunked[0] == cfg.n_layers and not launched(),
+          f"L {UNALIGNED_L}: chunked_attention x{chunked[0]}, launches "
+          f"{launched()}")
+    check(tuple(logits.shape) == (1, UNALIGNED_L, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"L {UNALIGNED_L}: non-finite or misshapen logits")
+    prefix, _ = forward(model, toks[:, :UNALIGNED_PREFIX])
+    torch.cuda.synchronize()
+    n_b8 = flash_attention.launches
+    check(n_b8 == cfg.n_layers, f"the aligned prefix launched B8 {n_b8} "
+          f"times")
+    diff, scale, _, _ = compare_logits(prefix, logits[:, :UNALIGNED_PREFIX])
+    print(f"  (e) {cfg.name} CONFIG over {UNALIGNED_LAYERS} of its "
+          f"{get_config(SCORE_ARCH).n_layers} layers, "
+          f"a prompt of {UNALIGNED_L} tokens (route {route}, "
+          f"chunked_attention x{chunked[0]}, no kernel): {1e3 * wall:.1f} ms,"
+          f" max_memory_allocated {gib(peak):.2f} GiB; its logits at the "
+          f"first {UNALIGNED_PREFIX} positions against B8's forward over "
+          f"them: max |dlogit| {diff:.3e} ({diff / scale:.2e} of max|logit|)"
+          f"; {card}", flush=True)
+    check(diff <= LOGIT_TOL * scale, f"L {UNALIGNED_L}: the chunked ref "
+          f"route's prefix logits differ by {diff} from B8's")
+    del logits, prefix, model
+    torch.cuda.empty_cache()
+    return n_b8
+
+
+def long_phase(dev, card):
+    phase(f"7e. long sequences: {LONG_ARCH} CONFIG trained at {LONG_B} x "
+          f"{LONG_L} with remat, its peak without, remat's gradients; "
+          f"{SCORE_ARCH} CONFIG over {SCORE_L} tokens on B8 against the "
+          f"chunked ref route; a {UNALIGNED_L}-token prompt on the chunked "
+          "ref route")
+    ts = time.perf_counter()
+    long_train(dev, card)
+    launches, err = long_score(dev, card)
+    launches += long_unaligned(dev, card)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    print(f"  phase 7e wall time {time.perf_counter() - ts:.1f} s",
+          flush=True)
+    return {"flash_attention": launches}, {"flash_attention": err}
 
 
 # --------------------------------------- distribution on one card (7c)
@@ -4879,6 +5243,11 @@ def main(argv=None) -> int:
     launches.update(morphable_phase(dev))
     for kname, n in training_phase(dev, smi).items():
         launches[kname] += n
+    long_launches, long_errs = long_phase(dev, smi)
+    for kname, n in long_launches.items():
+        launches[kname] += n
+    for kname, err in long_errs.items():
+        errs[kname] = max(errs[kname], err)
     for kname, n in distribution_phase(smi).items():
         launches[kname] += n
     for kname, n in examples_phase(dev, smi).items():

@@ -31,8 +31,9 @@ class ExecutionPolicy:
     backend: "auto" routes to the kernels; each kernel wrapper launches its
              CUDA kernel on CUDA tensors and runs its plain PyTorch version
              on CPU tensors. "cuda" routes to the kernels and refuses CPU
-             tensors. "ref" runs the plain eager reference (`mha_ref`) on
-             whatever device the tensors are on.
+             tensors. "ref" runs the plain eager reference (`mha_ref`,
+             `chunked_attention` past 4096 x 8192 scores) on whatever
+             device the tensors are on.
     format:  AIO number format of the `matmul` and `quantize` ops
              (`matmul_codes` takes its weight's).
     bkv:     the reference's KV block length of flash-decode, checked by
@@ -40,6 +41,9 @@ class ExecutionPolicy:
              is fixed by its split plan (`decode.decode_plan`), so it no
              longer changes the launch.
     bq:      q-block length of the varlen flash-prefill kernel.
+    chunk:   key-block length of the long `ref` attention
+             (`chunked_attention`, which the ref route takes past
+             4096 x 8192 scores).
     bm/bn/bk: tile sizes of the grouped GEMM: every group's row count must
              be a multiple of bm (`make_group_ids`), and K and N are padded
              to bk and bn (`pack_tenants`, so the MAC utilization that
@@ -53,6 +57,7 @@ class ExecutionPolicy:
     bk: int = 128
     bkv: int = 128
     bq: int = 32
+    chunk: int = 1024
     out_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
@@ -61,7 +66,7 @@ class ExecutionPolicy:
         if self.format not in _FORMATS:
             raise ValueError(f"format {self.format!r} not in {_FORMATS}")
         tiles = dict(bm=self.bm, bn=self.bn, bk=self.bk, bkv=self.bkv,
-                     bq=self.bq)
+                     bq=self.bq, chunk=self.chunk)
         if min(tiles.values()) < 1:
             raise ValueError(f"tile lengths must be >= 1 ({tiles})")
         if not (isinstance(self.out_dtype, torch.dtype)

@@ -16,4 +16,4 @@ SMOKE = ModelConfig(
     n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab=512,
     local_global=True, sliding_window=16, softcap_attn=50.0,
     softcap_final=30.0, post_norm=True, mlp_kind="geglu",
-    tie_embeddings=True)
+    tie_embeddings=True, remat=False)

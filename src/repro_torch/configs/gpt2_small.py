@@ -10,4 +10,4 @@ CONFIG = ModelConfig(
 SMOKE = ModelConfig(
     name="gpt2-smoke", family="dense", n_layers=2, d_model=64, n_heads=4,
     n_kv_heads=4, d_ff=128, vocab=512, norm="layernorm", mlp_kind="gelu",
-    learned_pos=True, max_seq=128, tie_embeddings=True)
+    learned_pos=True, max_seq=128, tie_embeddings=True, remat=False)

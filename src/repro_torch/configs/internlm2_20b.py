@@ -9,4 +9,4 @@ CONFIG = ModelConfig(
 
 SMOKE = ModelConfig(
     name="internlm2-20b-smoke", family="dense", n_layers=2, d_model=96,
-    n_heads=6, n_kv_heads=2, d_ff=192, vocab=512)
+    n_heads=6, n_kv_heads=2, d_ff=192, vocab=512, remat=False)

@@ -11,4 +11,5 @@ CONFIG = ModelConfig(
 
 SMOKE = ModelConfig(
     name="internvl2-smoke", family="vlm", n_layers=2, d_model=64, n_heads=4,
-    n_kv_heads=2, d_ff=128, vocab=512, frontend="vision", frontend_len=8)
+    n_kv_heads=2, d_ff=128, vocab=512, frontend="vision", frontend_len=8,
+    remat=False)

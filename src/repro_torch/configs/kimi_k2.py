@@ -12,4 +12,4 @@ CONFIG = ModelConfig(
 SMOKE = ModelConfig(
     name="kimi-k2-smoke", family="moe", n_layers=3, d_model=64, n_heads=4,
     n_kv_heads=2, d_ff=64, vocab=512, n_experts=8, top_k=2,
-    n_shared_experts=1, n_dense_layers=1)
+    n_shared_experts=1, n_dense_layers=1, remat=False)

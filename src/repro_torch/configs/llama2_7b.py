@@ -8,4 +8,4 @@ CONFIG = ModelConfig(
 
 SMOKE = ModelConfig(
     name="llama2-smoke", family="dense", n_layers=2, d_model=64, n_heads=4,
-    n_kv_heads=4, d_ff=128, vocab=512)
+    n_kv_heads=4, d_ff=128, vocab=512, remat=False)

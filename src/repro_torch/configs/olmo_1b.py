@@ -10,4 +10,4 @@ CONFIG = ModelConfig(
 SMOKE = ModelConfig(
     name="olmo-1b-smoke", family="dense", n_layers=2, d_model=64, n_heads=4,
     n_kv_heads=4, d_ff=128, vocab=512, norm="nonparam_ln",
-    mlp_kind="swiglu", tie_embeddings=True)
+    mlp_kind="swiglu", tie_embeddings=True, remat=False)

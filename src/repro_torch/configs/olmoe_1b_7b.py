@@ -8,4 +8,4 @@ CONFIG = ModelConfig(
 
 SMOKE = ModelConfig(
     name="olmoe-smoke", family="moe", n_layers=2, d_model=64, n_heads=4,
-    n_kv_heads=4, d_ff=64, vocab=512, n_experts=8, top_k=2)
+    n_kv_heads=4, d_ff=64, vocab=512, n_experts=8, top_k=2, remat=False)

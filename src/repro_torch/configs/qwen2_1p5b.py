@@ -10,4 +10,4 @@ CONFIG = ModelConfig(
 SMOKE = ModelConfig(
     name="qwen2-1.5b-smoke", family="dense", n_layers=2, d_model=64,
     n_heads=4, n_kv_heads=2, d_ff=128, vocab=512, qkv_bias=True,
-    tie_embeddings=True)
+    tie_embeddings=True, remat=False)

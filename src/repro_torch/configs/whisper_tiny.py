@@ -15,4 +15,4 @@ SMOKE = ModelConfig(
     name="whisper-smoke", family="audio", n_layers=2, d_model=64, n_heads=4,
     n_kv_heads=4, d_ff=128, vocab=512, norm="layernorm", mlp_kind="gelu",
     encoder_layers=2, cross_attention=True, frontend="audio",
-    frontend_len=16, learned_pos=True, max_seq=128)
+    frontend_len=16, learned_pos=True, max_seq=128, remat=False)

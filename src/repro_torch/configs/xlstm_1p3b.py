@@ -13,5 +13,6 @@ CONFIG = ModelConfig(
 
 SMOKE = ModelConfig(
     name="xlstm-smoke", family="ssm", n_layers=4, d_model=64, n_heads=4,
-    n_kv_heads=4, d_ff=0, vocab=512, slstm_every=2, subquadratic=True)
+    n_kv_heads=4, d_ff=0, vocab=512, slstm_every=2, subquadratic=True,
+    remat=False)
 

@@ -12,4 +12,4 @@ CONFIG = ModelConfig(
 SMOKE = ModelConfig(
     name="zamba2-smoke", family="hybrid", n_layers=6, d_model=64, n_heads=4,
     n_kv_heads=4, d_ff=128, vocab=512, ssm_state=16, ssm_expand=2,
-    ssm_headdim=16, attn_every=3, subquadratic=True)
+    ssm_headdim=16, attn_every=3, subquadratic=True, remat=False)

@@ -12,7 +12,7 @@ from .prefill import (flash_prefill, flash_prefill_paged,  # noqa: F401
                       flash_prefill_paged_quant_plain, flash_prefill_plain,
                       flash_prefill_quant, flash_prefill_quant_plain)
 from .full import flash_attention, flash_attention_plain  # noqa: F401
-from .ref import mha_ref  # noqa: F401
+from .ref import chunked_attention, mha_ref  # noqa: F401
 
 # the kernel wrappers of the flat serving path and of the paged one; each
 # counts its launches in `.launches`

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from ..common import call_kernel, check_cuda
-from .shared import NEG_INF
+from .ref import chunked_attention
 
 __all__ = ["flash_attention", "flash_attention_plain", "full_workspace"]
 
@@ -49,46 +49,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None, offset: int = 0,
                           bk: int = 128) -> torch.Tensor:
     """Plain version, the reference kernel's arithmetic block by block:
-    f32 scores, softcap before the mask, the finite -1e30 mask (kpos < Lk,
-    causal kpos <= qpos, window kpos > qpos - window, qpos = i + offset),
-    an online softmax over bk-key blocks (K/V zero-padded to a multiple of
-    bk, as the reference pads them), and acc / max(l, 1e-30)."""
-    b, hq, lq, d = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = d ** -0.5
-    group = hq // hkv
-    dev = q.device
-    qf = q.to(torch.float32)
-    kf = k.to(torch.float32).repeat_interleave(group, dim=1)
-    vf = v.to(torch.float32).repeat_interleave(group, dim=1)
-    m = torch.full((b, hq, lq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, hq, lq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, hq, lq, d), dtype=torch.float32, device=dev)
-    qpos = int(offset) + torch.arange(lq, device=dev)[:, None]
-    for k0 in range(0, lk, bk):
-        kb, vb = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
-        if kb.shape[2] < bk:                     # the zero-padded tail
-            pad = (0, 0, 0, bk - kb.shape[2])
-            kb = torch.nn.functional.pad(kb, pad)
-            vb = torch.nn.functional.pad(vb, pad)
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * scale
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        kpos = k0 + torch.arange(bk, device=dev)[None, :]
-        keep = kpos < lk
-        if causal:
-            keep = keep & (kpos <= qpos)
-        if window is not None:
-            keep = keep & (kpos > qpos - window)
-        s = torch.where(keep, s, torch.full((), NEG_INF, device=dev))
-        m_cur = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp(m - m_cur)
-        p = torch.exp(s - m_cur[..., None])
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
-        m = m_cur
-    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    the online softmax of `chunked_attention` over bk-key blocks at a
+    scalar offset (f32 scores, softcap before the finite -1e30 mask, K/V
+    zero-padded to a multiple of bk, as the reference pads them, and
+    acc / max(l, 1e-30))."""
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale,
+                             offset=int(offset), chunk=bk)
 
 
 def _check(q, k, v, window, softcap):

@@ -31,10 +31,14 @@ from .decode import (flash_decode, flash_decode_paged,
                      flash_decode_paged_quant, flash_decode_quant)
 from .prefill import (flash_prefill, flash_prefill_paged,
                       flash_prefill_paged_quant, flash_prefill_quant)
-from .ref import mha_ref
+from .ref import chunked_attention, mha_ref
 from .shared import dequant, gather_pages
 
-__all__ = []
+__all__ = ["REF_ONE_SHOT_SCORES"]
+
+# The most scores (Lq x Lk) the ref route materializes in one piece; past it
+# it walks the keys in `policy.chunk` blocks (the reference's rule).
+REF_ONE_SHOT_SCORES = 4096 * 8192
 
 
 def _maybe_dequant(q, k, v, k_scale, v_scale):
@@ -134,5 +138,13 @@ def _attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k_scale = gather_pages(k_scale, block_tables)
             v_scale = gather_pages(v_scale, block_tables)
     k, v = _maybe_dequant(q, k, v, k_scale, v_scale)
-    return mha_ref(q, k, v, causal=causal, window=window, softcap=softcap,
-                   scale=scale, offset=offset)
+    lq, lk = q.shape[2], k.shape[2]
+    # One-shot scores up to 4k x 8k: under layer-level remat the score
+    # matrix is transient, and autograd through it is cheap. Past that the
+    # online-softmax walk, with or without grad, as the reference does.
+    if lq == 1 or lq * lk <= REF_ONE_SHOT_SCORES:
+        return mha_ref(q, k, v, causal=causal, window=window,
+                       softcap=softcap, scale=scale, offset=offset)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale, offset=offset,
+                             chunk=policy.chunk)

@@ -38,8 +38,10 @@ causal-LM cross entropy (+ the MoE aux loss) that the training stack
 `requires_grad=False`, so serving records nothing; `Transformer.trainable_`
 turns gradients on for training. Attention recorded by autograd takes the
 differentiable `ref` route (`api.ops.attention_route(grad=True)`): the CUDA
-kernels are forward-only. `decode_step` and the cache functions never
-record.
+kernels are forward-only. With `cfg.remat` (every CONFIG) such a forward
+saves only each layer unit's input and recomputes the unit in the backward
+pass, as the reference's `jax.checkpoint` of its scan body does.
+`decode_step` and the cache functions never record.
 
 `init_caches(..., paged=(pool_blocks, block_size))` gives block-pool caches
 instead (every layer a pool, all layers sharing one (B, nblk) block table);
@@ -61,6 +63,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..core import formats as F
@@ -88,8 +91,15 @@ __all__ = ["ModelConfig", "Transformer", "DenseBlock", "RecurrentBlock",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture description: the fields of the JAX package's
-    ModelConfig that describe the model, and its quantization policy (its
-    JAX-only execution knobs — remat, scan unroll — are not carried)."""
+    ModelConfig that describe the model, its quantization policy and
+    `remat` (the reference's scan unroll, a JAX-only knob, is not
+    carried).
+
+    remat: recompute each layer unit in the backward pass instead of
+    saving its activations (`torch.utils.checkpoint`), when a forward
+    without caches records a backward. CONFIGs keep the default, SMOKEs
+    set False, as the reference's do; `dataclasses.replace(cfg,
+    remat=False)` turns it off."""
     name: str
     family: str                    # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
@@ -131,6 +141,7 @@ class ModelConfig:
     subquadratic: bool = False               # may run long_500k
     kv_quant: bool = False                   # int8 KV caches (format plane)
     quant: QuantPolicy = QuantPolicy()       # Linear format plane
+    remat: bool = True                       # recompute layers in backward
 
     @property
     def hd(self) -> int:
@@ -551,23 +562,32 @@ def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     return model.enc_norm(x)
 
 
-def _run_layers(model: Transformer, x: torch.Tensor, caches=None,
-                lengths=None, memory=None):
-    """x through every decoder layer (with its cache, when given);
-    returns (x, the summed MoE aux loss or None)."""
-    extra = {} if memory is None else {"memory": memory}
-    if model.encoder is not None and memory is None:
-        raise ValueError(f"{model.cfg.name}: the decoder needs the "
-                         "encoder's memory (frames=, or memory=)")
+def _units(cfg: ModelConfig):
+    """(start, stop) layer indices of each unit of the reference's layer
+    scan (`cfg.segments()`): the span one scan step, and so one
+    rematerialized piece, covers."""
+    start = 0
+    for unit, n in cfg.segments():
+        for _ in range(n):
+            yield start, start + len(unit)
+            start += len(unit)
+
+
+def _remat(model: Transformer, x: torch.Tensor, caches) -> bool:
+    """The reference's rule (`cfg.remat` and no caches), and a backward
+    will happen: grad mode is on and the input or a parameter requires
+    grad."""
+    return (model.cfg.remat and caches is None and torch.is_grad_enabled()
+            and (x.requires_grad
+                 or any(p.requires_grad for p in model.parameters())))
+
+
+def _run_unit(model: Transformer, x: torch.Tensor, sharded: bool,
+              manual: bool, start: int, stop: int, caches, lengths, extra):
+    """Layers start..stop-1; returns (x, sharded, their MoE aux or None)."""
     aux = None
-    # the manual TP+SP block (tp_block.py): eligible layers run on this
-    # rank's sequence slice; the residual is split before the first and
-    # gathered back before any other layer and after the last
-    manual = ctx_mesh() is not None and manual_tp_ok(
-        model.cfg, x, None if caches is None else caches[0],
-        model.cfg.quant, model)
-    sharded = False
-    for i, layer in enumerate(model.layers):
+    for i in range(start, stop):
+        layer = model.layers[i]
         cache = None if caches is None else caches[i]
         if manual and getattr(layer, "kind", None) in MANUAL_KINDS \
                 and layer.causal:
@@ -579,6 +599,38 @@ def _run_layers(model: Transformer, x: torch.Tensor, caches=None,
                 x, sharded = all_gather(x, 1, "model",
                                         site="tp_block.exit"), False
             x, a = layer(x, cache=cache, lengths=lengths, **extra)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, sharded, aux
+
+
+def _run_layers(model: Transformer, x: torch.Tensor, caches=None,
+                lengths=None, memory=None):
+    """x through every decoder layer (with its cache, when given);
+    returns (x, the summed MoE aux loss or None). Under `_remat` each unit
+    of the layer scan is checkpointed; the backward's recompute runs its
+    collectives again (all but the last, whose output no op saved), in the
+    same order on every rank."""
+    extra = {} if memory is None else {"memory": memory}
+    if model.encoder is not None and memory is None:
+        raise ValueError(f"{model.cfg.name}: the decoder needs the "
+                         "encoder's memory (frames=, or memory=)")
+    aux = None
+    # the manual TP+SP block (tp_block.py): eligible layers run on this
+    # rank's sequence slice; the residual is split before the first and
+    # gathered back before any other layer and after the last
+    manual = ctx_mesh() is not None and manual_tp_ok(
+        model.cfg, x, None if caches is None else caches[0],
+        model.cfg.quant, model)
+    remat = _remat(model, x, caches)
+    sharded = False
+    for start, stop in _units(model.cfg):
+        args = (model, x, sharded, manual, start, stop, caches, lengths,
+                extra)
+        if remat:
+            x, sharded, a = checkpoint(_run_unit, *args, use_reentrant=False)
+        else:
+            x, sharded, a = _run_unit(*args)
         if a is not None:
             aux = a if aux is None else aux + a
     if sharded:

@@ -38,6 +38,8 @@ from repro_torch.kernels.aio_quant.ops import (CLUSTER_SIZES, MAX_THREADS,
                                                MAX_UNITS, plan_with,
                                                quant_plan)
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 MODES = ["bf16", "fp8a", "fp8b", "int8", "int4"]
 
 INT_MODES = ("int8", "int4")

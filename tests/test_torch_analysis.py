@@ -40,6 +40,8 @@ from repro_torch.kernels.flash_attention import contract as fa
 from repro_torch.models import init_params
 from repro_torch.serving import ServingEngine
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 BASELINE = (pathlib.Path(__file__).resolve().parent.parent / "src"
             / "repro_torch" / "analysis" / "baseline.json")
 

@@ -27,6 +27,8 @@ from repro_torch.kernels.flash_attention import (flash_decode,
                                                  flash_prefill_quant_plain,
                                                  mha_ref)
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 2e-5            # f32 attention, another summation order
 MAX_LEN = 256
 

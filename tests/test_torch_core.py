@@ -19,6 +19,8 @@ from repro_torch import api
 from repro_torch.core.formats import pow2_ceil
 from repro_torch.models.attention import _q8, _row_update
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -54,6 +54,8 @@ from repro_torch.models import forward, init_params, loss_fn
 from repro_torch.models.attention import _q8
 from repro_torch.serving import Request, ServingEngine
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
 
@@ -1759,6 +1761,50 @@ def test_train_step_on_card_matches_cpu_and_launches_no_full_kernel(dev):
             want, _ = loss_fn(card, batch)
     assert flash_attention.launches == cfg.n_layers
     torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+
+
+def test_full_attention_at_32k_matches_chunked_ref(dev):
+    """B8 at prefill_32k's sequence (B 1, Hq 12, Hkv 2, D 128, causal,
+    f32; 16x the longest length the other tests reach) against the ref
+    route's long-sequence path, `chunked_attention`, within 1e-4."""
+    from repro_torch.kernels.flash_attention.ref import chunked_attention
+    q, k, v = _data(dev, 16, 1, 12, 2, 32768, 32768)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    want = chunked_attention(q, k, v, causal=True)
+    assert torch.isfinite(got).all()
+    _close(got, want)
+
+
+def test_remat_step_on_card_equals_plain_step(dev):
+    """A train step of the olmo and olmoe SMOKE configs with remat: the
+    loss, every gradient and the updated parameters equal those of the
+    same step without remat (1e-6 x the leaf's max |g|; the recompute
+    runs the same kernels on the same inputs)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    for arch in ("olmo_1b", "olmoe_1b_7b"):
+        runs = []
+        for remat in (True, False):
+            cfg = dataclasses.replace(get_smoke(arch), remat=remat)
+            model = init_params(cfg, seed=0).trainable_()
+            opt = adamw_init(list(model.parameters()))
+            batch = next(SyntheticLM(DataConfig(vocab=cfg.vocab, batch=2,
+                                                seq=128, seed=5)))
+            m = make_train_step(cfg, base_lr=1e-3, warmup=1, total=10)(
+                model, opt, {k: torch.from_numpy(a).to(dev)
+                             for k, a in batch.items()})
+            runs.append((float(m["loss"]),
+                         [p.grad.clone() for p in model.parameters()],
+                         [p.detach().clone() for p in model.parameters()]))
+        (loss_r, grads_r, params_r), (loss_p, grads_p, params_p) = runs
+        assert abs(loss_r - loss_p) <= 1e-6 * abs(loss_p)
+        for a, b in zip(grads_r, grads_p):
+            assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+        for a, b in zip(params_r, params_p):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
 # -------------------------------------------- static analysis on the card

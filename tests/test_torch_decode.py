@@ -16,6 +16,8 @@ from repro_torch.kernels.flash_attention.decode import (ROWS_PER_BLOCK,
                                                         TILE_KEYS,
                                                         decode_plan)
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 # the serving shapes of qwen2-1.5B (chip_smoke.py phase 4)
 B, HQ, HKV, D, LK = 8, 12, 2, 128, 2048
 DECODE_POS = [0, 127, 128, 1000, LK - 1 - 1, 500, 1500, 64]

@@ -48,6 +48,8 @@ from repro_torch.bridge import params_from_jax, params_to_jax
 from repro_torch.configs import get_smoke
 from repro_torch.models import init_params
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples")
 sys.path.insert(0, EXAMPLES)

@@ -47,6 +47,8 @@ from repro_torch.models import (decode_step, forward, init_caches,
 from repro_torch.models.transformer import ModelConfig, Transformer
 from repro_torch.serving import Request, ServingEngine
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 1e-4
 NEW_ARCHS = ["internlm2_20b", "olmo_1b", "gpt2_small", "gemma2_27b",
              "olmoe_1b_7b", "kimi_k2"]

@@ -33,6 +33,8 @@ from repro_torch.serving import (EngineStalledError, Fault, FaultPlan,
 from repro_torch.serving.faults import (MALFORMED_KINDS, malformed_request,
                                         poison_weights)
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 MAX_LEN = 64
 NAN = float("nan")
 INF = float("inf")

@@ -19,6 +19,8 @@ from repro.kernels import common as jcommon
 from repro_torch.core import formats as F
 from repro_torch.kernels import common
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 NARROW = ["fp8a", "fp8b", "int8", "uint8", "int4", "uint4"]
 
 

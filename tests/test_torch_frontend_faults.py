@@ -30,6 +30,8 @@ from repro_torch.configs import get_smoke
 from repro_torch.models import init_params
 from repro_torch.serving import FaultPlan, Request, ServingEngine
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 ARCH = "whisper_tiny"
 GEO = dict(slots=2, max_len=64)
 NAN = float("nan")

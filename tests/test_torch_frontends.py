@@ -49,6 +49,8 @@ from repro_torch.models import (decode_step, forward, init_caches,
 from repro_torch.models.transformer import ModelConfig, encode
 from repro_torch.serving import Request, ServingEngine
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 1e-4
 MODULE_TOL = 1e-5
 ARCHS = ["whisper_tiny", "internvl2_76b"]

@@ -14,6 +14,8 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.flash_attention.full import full_workspace
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 1e-4          # the kernel's gate against its plain version on the card
 NEG_INF = -1e30
 

@@ -29,6 +29,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import forward, loss_fn
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 1e-5            # f32 attention, the same blocks, another einsum order
 MODEL_TOL = 1e-4      # logits of two layers of f32 products
 LOSS_TOL = 1e-5       # relative

@@ -39,6 +39,8 @@ from repro_torch.core import formats as F
 from repro_torch.models import init_params, loss_fn
 from repro_torch.models.layers import QuantPolicy
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 LOSS_RTOL = 1e-5
 LEAF_TOL = 1e-4            # of the leaf's max |g_jax|
 DENSE = ["llama2_7b", "qwen2_1p5b", "olmo_1b", "gpt2_small"]

@@ -9,6 +9,8 @@ import pytest
 
 from test_torch_grad import check_parity
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 
 @pytest.mark.parametrize("arch", ["internlm2_20b", "gemma2_27b"])
 def test_loss_and_gradient_match_reference(arch):

@@ -6,6 +6,8 @@ import pytest
 
 from test_torch_grad import check_parity
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 
 @pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_76b"])
 def test_loss_and_gradient_match_reference(arch):

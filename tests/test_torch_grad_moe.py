@@ -11,6 +11,8 @@ from repro_torch.configs import get_smoke
 from repro_torch.models import init_params
 from test_torch_grad import check_parity, make_batch
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "kimi_k2"])
 def test_loss_and_gradient_match_reference(arch):

@@ -8,6 +8,8 @@ import pytest
 
 from test_torch_grad import check_parity
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 
 @pytest.mark.parametrize("arch", ["zamba2_2p7b", "xlstm_1p3b"])
 def test_loss_and_gradient_match_reference(arch):

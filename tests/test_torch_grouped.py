@@ -22,6 +22,8 @@ from repro_torch.kernels.grouped_matmul import (grouped_matmul,
 from repro_torch.kernels.grouped_matmul import ops as grouped_ops
 from repro_torch.kernels.grouped_matmul.kernel import ROW_TILES
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 GEMM_TOL = 1e-5       # f32 sums in another order
 DW_TOL = 1e-6         # the same taps; the lax conv sums in its own order
 

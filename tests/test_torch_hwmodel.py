@@ -48,6 +48,8 @@ from repro_torch.perfmodel.simulate import (gpu_comparison,
                                             speedup_table, utilization_table)
 from repro_torch.perfmodel.workloads import MODELS, Op, training_ops
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 FORMATS = ["bf16", "fp8a", "fp8b", "int8", "int4"]
 FP_FORMATS = ["bf16", "fp16", "fp8a", "fp8b"]
 

@@ -22,6 +22,8 @@ from repro_torch.api.registry import (BlockContract, KernelLaunch,
                                       KernelRegistry, LaunchContract,
                                       registry)
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 BASELINE = (pathlib.Path(__file__).resolve().parent.parent / "src"
             / "repro_torch" / "analysis" / "baseline.json")
 

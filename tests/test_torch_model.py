@@ -30,6 +30,8 @@ from repro_torch.models.layers import (MLP, Embedding, LayerNorm, Linear,
 from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import DenseBlock, Transformer
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 1e-4        # f32 products and attention summed in another order
 # the window (6) is shorter than the 10-token chunk below, so it masks keys
 # inside the chunk as well as in the decode step after it

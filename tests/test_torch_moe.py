@@ -27,6 +27,8 @@ from repro_torch.models import forward, quantize_params
 from repro_torch.models.layers import Linear
 from repro_torch.models.moe import MoE, expert_capacity
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 1e-5
 D, FF = 32, 48
 

@@ -50,6 +50,8 @@ from repro_torch.models.attention import (PagedKVCache, PagedQuantKVCache,
                                           _paged_update, _q8)
 from repro_torch.serving import Request, ServingEngine
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 2e-5
 MODEL_TOL = 1e-4
 MAX_LEN = 64

@@ -28,6 +28,8 @@ from repro_torch.models.transformer import (gather_pool_blocks,
 from repro_torch.serving import (FaultPlan, HostBlockStore, Request,
                                  ServingEngine, drive_with_plan)
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 MAX_LEN = 64
 NAN = float("nan")
 

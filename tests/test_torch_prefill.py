@@ -22,6 +22,8 @@ from repro_torch.kernels.flash_attention.prefill import (ROWS_PER_BLOCK,
 from repro_torch.kernels.flash_attention.shared import dequant
 from repro_torch.models.attention import _q8
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 1e-4          # the kernel's gate against its plain version on the card
 NEG_INF = -1e30
 

@@ -43,6 +43,8 @@ from repro_torch.models import (decode_step, forward, init_caches, loss_fn,
 from repro_torch.models.layers import Linear
 from repro_torch.serving import Request, ServingEngine
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 1e-4
 ARCHS = ["zamba2_2p7b", "xlstm_1p3b"]
 ROUTES = {"kernel": ("pallas", None), "ref": ("ref", "ref")}

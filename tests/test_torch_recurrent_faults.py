@@ -37,6 +37,8 @@ from repro_torch.models.transformer import (kv_caches, reset_slots,
                                             scrub_slots, set_block_tables)
 from repro_torch.serving import FaultPlan, Request, ServingEngine
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 ARCHS = ["zamba2_2p7b", "xlstm_1p3b"]
 GEO = dict(slots=2, max_len=64)
 NAN = float("nan")

@@ -31,6 +31,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import Linear
 from repro_torch.serving import Request, ServingEngine
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 PROMPT_LENS = [3, 20, 5, 18]
 MAX_NEW = [6, 4, 8, 5]
 MAX_LEN = 64

@@ -18,6 +18,8 @@ from repro.models import ssm as jssm
 from repro_torch.bridge import mixer_from_jax
 from repro_torch.models import ssm
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 1e-5
 
 

@@ -37,6 +37,8 @@ from repro_torch.serving import Request, ServingEngine
 from repro_torch.tenancy import (DeviceGrid, MorphableScheduler, Tenant,
                                  device_grid, fission_mesh)
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 CPU = torch.device("cpu")
 REQUESTS, MAX_NEW = 3, 5
 

@@ -39,6 +39,8 @@ from repro_torch.configs import get_smoke
 from repro_torch.launch.world import spawn_world
 from repro_torch.models import transformer as T
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 pytestmark = pytest.mark.timeout(240)
 
 HERE = os.path.dirname(os.path.abspath(__file__))

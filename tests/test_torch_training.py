@@ -41,6 +41,8 @@ from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                cosine_schedule, global_norm)
 from repro_torch.runtime import Trainer, TrainerConfig
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 RTOL = 1e-6
 SHAPES = [(4, 8), (16,), (3, 5, 2)]
 

@@ -16,6 +16,8 @@ from repro_torch.configs import get_smoke
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.runtime import StragglerAbort, Trainer, TrainerConfig
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 
 def _leaves(model):
     return jax.tree.leaves(params_to_jax(model))

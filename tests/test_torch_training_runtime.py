@@ -34,6 +34,8 @@ from repro_torch.models import init_caches, init_params, quantize_params
 from repro_torch.optim import adamw_init
 from repro_torch.runtime import Trainer, TrainerConfig
 
+import _xdist_threads  # noqa: F401  (one torch thread a worker)
+
 
 def _leaves(model):
     return jax.tree.leaves(params_to_jax(model))
